@@ -5,7 +5,8 @@
 Phases, each of which raises (exit code 1) on failure:
 1. card: needs CUDA; prints the card's name and power limit; TF32 off.
 2. build: compiles the hand-written kernels from ``src/repro_torch/kernels/
-   csrc`` with nvcc for sm_90a; prints the build time and ptxas's report.
+   csrc`` with nvcc for sm_90a (one process per source); prints the build
+   time and ptxas's report.
 3. kernel check: the fused-conv kernel against its plain PyTorch version on
    the card, at every distinct conv shape of ResNet18 at batch 8.
 4. model path: ResNet18 at the paper's width (224×224×3, 1000 classes,
@@ -17,8 +18,30 @@ Phases, each of which raises (exit code 1) on failure:
    the library conv (``torch.nn.functional.conv2d`` without the epilogue; a
    yardstick only, the port never calls it) and the bound; the forward; then
    device time by kernel and the idle share, from torch.profiler.
-6. prints the ``kernels`` JSON line, 7. the final ``{"ok": true, ...}`` line.
-The full record goes to ``build/chip_smoke.json``.
+6. flash check: the flash-attention kernel against its plain version on the
+   card at gemma2-2b's head shapes (D=256, 8 query and 4 KV heads per batch
+   row, softcap 50): S=8192 global and with the 4096 window, a ragged
+   S=1000, B=4 at S=64 and a non-causal S=512, in bf16, and a ragged,
+   windowed S=1000 in f32; every element within FLASH_RTOL·|plain| +
+   FLASH_ATOL of the plain version computed in f32.
+7. prefill: gemma2-2b at full width (26 layers, d 2304, vocab 256000,
+   bf16, random weights from a seed) built through ``build_model`` runs
+   ``forward`` at 1×8192; the logits are finite and of the right shape, the
+   forward made exactly 26 flash launches, and it agrees with the same
+   forward under ``ops.plain()`` (no launches) on the card: last-position
+   logits within PREFILL_ATOL, top-1 equal wherever the plain top-2 margin
+   exceeds it.
+8. serve: ``ServeEngine.run_lockstep`` decodes 32 tokens for 4 prompts of
+   64; each first token is the kernel-path forward's argmax (same margin
+   rule).
+9. timings: per flash shape the kernel, its plain version, the library's
+   ``scaled_dot_product_attention`` (a yardstick the port never calls; it
+   has no softcap, so at softcap 50 it computes another function) and the
+   bound; the prefill, with the flash kernel's share of device time and the
+   idle share from torch.profiler; the decode step at batch 4, with its
+   idle share.
+10. prints the ``kernels`` JSON line, 11. the final ``{"ok": true, ...}``
+line.  The full record goes to ``build/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -30,6 +53,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,9 +68,44 @@ KERNEL_RTOL = 1e-4    # max|kernel − plain| ≤ KERNEL_RTOL · max|plain|, per
 LOGITS_RTOL = 1e-3    # the same over 20 layers, GPU kernels vs plain on the CPU
 FUSED_RTOL = 1e-6     # forward_fused_groups runs the same launches as forward
 PEAK_F32_OPS = 67e12  # H100 SXM, f32 outside the tensor cores, per second
+PEAK_BF16_OPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes per second
 TIMING_ITERS = 20
 PROFILE_FORWARDS = 5
+
+# gemma2-2b serving.  Flash kernel vs plain, on N(0, 1) inputs, element by
+# element: |kernel − plain| ≤ FLASH_RTOL·|plain| + FLASH_ATOL, with the
+# plain version run in f32 on the same inputs (bf16 inputs upcast, no
+# rounding of its output).  The kernel computes in f32 too, so what is left
+# is reordered f32 sums (FLASH_ATOL, the f32 limit of tests/test_kernels.py)
+# and, for bf16, the one rounding of its output: half a bf16 ulp, at most
+# 2**-8 of the value.  Outputs shrink as 1/sqrt(visible keys) along S, so a
+# flat limit would let a late row's dropped key tile pass; this one does not.
+FLASH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-8}
+FLASH_ATOL = 2e-5
+LM_CONFIG = "gemma2-2b"
+PREFILL_S = 8192         # longer than the 4096 window of the local layers
+# The prefill in bf16 against its plain self: the kernel and the plain
+# version round the attention output to bf16 at different ties, and 26
+# layers carry that on.  Logits of these random weights are about N(0, 1)
+# (final norm × 0.02-scale tied embedding), so this allows 32 bf16 ulps
+# (2**-7) of a logit of size 1.
+PREFILL_ATOL = 0.25
+SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 64, 32
+FLASH_BIG_ITERS = 5      # timing launches at S=8192 (tens of ms each)
+
+# (name, launches per prefill forward, batch, S, causal, window, dtype)
+# at gemma2-2b's heads: 8 query heads over 4 KV heads per batch row,
+# head dim 256, softcap 50, S = T.  The prefill runs the first two, 13
+# layers each (window 0 on odd layers, 4096 on even ones).
+FLASH_SHAPES = [
+    ("s8192_global_bf16", 13, 1, 8192, True, 0, torch.bfloat16),
+    ("s8192_window4096_bf16", 13, 1, 8192, True, 4096, torch.bfloat16),
+    ("s1000_ragged_bf16", 0, 1, 1000, True, 0, torch.bfloat16),
+    ("b4_s64_bf16", 0, 4, 64, True, 0, torch.bfloat16),
+    ("s512_noncausal_bf16", 0, 1, 512, False, 0, torch.bfloat16),
+    ("s1000_ragged_window300_f32", 0, 1, 1000, True, 300, torch.float32),
+]
 
 # Distinct convs of ResNet18 at 224²: (name, launches per forward, input hw,
 # Cin, Cout, k, stride, padding, relu, residual).  Stage n's first block has
@@ -281,6 +340,40 @@ def timings(rows: list[dict], model: dict) -> dict:
     return {"forward_ms": fwd_ms}
 
 
+def device_breakdown(events, window_name: str, runs: int) -> dict | None:
+    """Device time by kernel name and the device's idle share inside the
+    host annotation ``window_name``, from torch.profiler's CUDA trace;
+    None when the profiler recorded no device time."""
+    window = next(e for e in events if e.name == window_name).time_range
+    spans = sorted((max(e.time_range.start, window.start),
+                    min(e.time_range.end, window.end), e.name)
+                   for e in events   # the annotation also shows on the device
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != window_name)
+    if not spans:
+        return None
+    busy, reach, by_name = 0.0, window.start, {}
+    for start, end, name in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + end - start)
+    wall = window.end - window.start
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    result = {"runs": runs, "window_us": wall, "device_busy_us": busy,
+              "idle_share": 1 - busy / wall,
+              "kernels": [{"name": k[:80], "count": n, "us": t}
+                          for k, (n, t) in ranked[:8]],
+              "all_kernels": [{"name": k, "count": n, "us": t}
+                              for k, (n, t) in ranked]}
+    print(f"[profile] {window_name} x{runs}: window {wall:.0f} us, device "
+          f"busy {busy:.0f} us, idle share {result['idle_share']:.3f}")
+    for k in result["kernels"]:
+        print(f"[profile]   {k['us'] / runs:9.1f} us/run "
+              f"x{k['count'] // runs:<3d} {k['name']}")
+    return result
+
+
 def profile(model: dict) -> dict:
     """Device time by kernel name and the device's idle share over a window
     of back-to-back forwards, from torch.profiler's CUDA trace."""
@@ -294,34 +387,288 @@ def profile(model: dict) -> dict:
             for _ in range(PROFILE_FORWARDS):
                 net(x)
             torch.cuda.synchronize()
-    events = prof.events()
-    window = next(e for e in events if e.name == "forwards").time_range
-    spans = sorted((max(e.time_range.start, window.start),
-                    min(e.time_range.end, window.end), e.name)
-                   for e in events   # the annotation also shows on the device
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name != "forwards")
-    if not spans:
+    result = device_breakdown(prof.events(), "forwards", PROFILE_FORWARDS)
+    if result is None:
         print("[profile] the profiler recorded no device time: not measured")
-        return {"profile": None}
-    busy, reach, by_name = 0.0, window.start, {}
-    for start, end, name in spans:
-        busy += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + end - start)
-    wall = window.end - window.start
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    result = {"forwards": PROFILE_FORWARDS, "window_us": wall,
-              "device_busy_us": busy, "idle_share": 1 - busy / wall,
-              "kernels": [{"name": k[:80], "count": n, "us": t}
-                          for k, (n, t) in top]}
-    print(f"[profile] {PROFILE_FORWARDS} forwards: window {wall:.0f} us, "
-          f"device busy {busy:.0f} us, idle share {result['idle_share']:.3f}")
-    for k in result["kernels"]:
-        print(f"[profile]   {k['us'] / PROFILE_FORWARDS:9.1f} us/forward "
-              f"x{k['count'] // PROFILE_FORWARDS:<3d} {k['name']}")
+    else:
+        del result["all_kernels"]
     return {"profile": result}
+
+
+# --- gemma2-2b serving: the flash-attention kernel and the LM path ---------------
+
+def flash_inputs(i: int, shape, cfg):
+    _, _, b, s, _, _, dtype = shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + 200 + i)
+    hd = cfg.resolved_head_dim
+
+    def randn(heads):
+        return torch.randn(b * heads, s, hd, generator=g,
+                           device="cuda").to(dtype)
+    return randn(cfg.num_heads), randn(cfg.num_kv_heads), \
+        randn(cfg.num_kv_heads)
+
+
+def flash_kw(shape, cfg) -> dict:
+    _, _, _, _, causal, window, _ = shape
+    return dict(causal=causal, window=window, softcap=cfg.attn_softcap)
+
+
+def flash_check(cfg) -> list[dict]:
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ref import attention_ref
+    rows = []
+    print(f"[flash] limits, per element against the plain version in f32: "
+          f"|kernel - plain| <= rtol*|plain| + {FLASH_ATOL}, rtol "
+          f"{FLASH_RTOL[torch.float32]} (f32), {FLASH_RTOL[torch.bfloat16]} "
+          f"(bf16, half an ulp), inputs N(0, 1)")
+    for i, shape in enumerate(FLASH_SHAPES):
+        name, count, b, s, causal, window, dtype = shape
+        q, k, v = flash_inputs(i, shape, cfg)
+        out = flash_attention_kernel(q, k, v, **flash_kw(shape, cfg))
+        torch.cuda.synchronize()
+        ref = attention_ref(q.float(), k.float(), v.float(),
+                            **flash_kw(shape, cfg))
+        check(out.shape == ref.shape and out.dtype == dtype,
+              f"{name}: {out.shape} {out.dtype} vs {ref.shape}")
+        err, rel = rel_err(out, ref)
+        used = ((out.float() - ref).abs()
+                / (FLASH_RTOL[dtype] * ref.abs() + FLASH_ATOL)).max().item()
+        print(f"[flash] {name:27s} q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"max_abs_err {err:.3e} rel {rel:.3e} limit used {used:.3f}")
+        check(used <= 1.0, f"{name}: kernel vs plain exceeds its limit "
+              f"{used:.3f}-fold (max abs err {err:.3e})")
+        rows.append({"name": name, "per_forward": count, "batch": b, "S": s,
+                     "causal": causal, "window": window,
+                     "dtype": str(dtype).removeprefix("torch."),
+                     "max_abs_err": err, "rel_err": rel,
+                     "limit_used": used})
+        del q, k, v, out, ref
+    return rows
+
+
+def top2(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per position: the argmax and the margin of the top logit over the
+    second, for logits (..., vocab)."""
+    v, idx = logits.topk(2, dim=-1)
+    return idx[..., 0], v[..., 0] - v[..., 1]
+
+
+def margin_agree(top: torch.Tensor, ref_top: torch.Tensor,
+                 ref_margin: torch.Tensor) -> tuple[bool, int]:
+    """Top-1 equal wherever the reference's top-2 margin exceeds
+    PREFILL_ATOL; returns (all equal there, how many positions that is)."""
+    sure = ref_margin > PREFILL_ATOL
+    return bool((top[sure] == ref_top[sure]).all()), int(sure.sum())
+
+
+def prefill_path(cfg) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.api import param_count
+    model = build_model(cfg)
+    check(model.device.type == "cuda", f"built on {model.device}")
+    t0 = time.perf_counter()
+    net = model.init(seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(net.params)
+    print(f"[prefill] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}: {n_params / 1e9:.3f} B "
+          f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+          f"card; init from seed {SEED} in {init_s:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_S),
+                                     generator=g, device="cuda")}
+    want = (1, PREFILL_S, cfg.vocab_size)
+
+    fa.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = model.forward(net, batch)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    check(launches == cfg.num_layers,
+          f"{launches} flash launches in a forward, want {cfg.num_layers}")
+    check(tuple(logits.shape) == want, f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    top, _ = top2(logits[0])
+    last = logits[0, -1].clone()
+    del logits
+
+    before = fa.launches
+    with ops.plain():
+        plain, _ = model.forward(net, batch)
+    torch.cuda.synchronize()
+    check(fa.launches == before, "ops.plain() launched the flash kernel")
+    check(tuple(plain.shape) == want, f"plain logits {tuple(plain.shape)}")
+    ref_top, ref_margin = top2(plain[0])
+    ref_last = plain[0, -1].clone()
+    del plain
+    err = (last - ref_last).abs().max().item()
+    agree, n_sure = margin_agree(top, ref_top, ref_margin)
+    print(f"[prefill] 1x{PREFILL_S}: {launches} flash launches; peak "
+          f"{peak_gb:.1f} GB; last-position logits vs plain forward on the "
+          f"card: max_abs_err {err:.3e} (limit {PREFILL_ATOL}), |logit| max "
+          f"{ref_last.abs().max().item():.3f}; top-1 equal at "
+          f"{n_sure}/{PREFILL_S} positions with plain margin > "
+          f"{PREFILL_ATOL}: {agree}; top-1 equal at all positions: "
+          f"{int((top == ref_top).sum())}/{PREFILL_S}")
+    check(err <= PREFILL_ATOL, f"prefill last logits vs plain {err:.3e}")
+    check(agree, "prefill top-1 differs from plain where the margin is clear")
+    return {"model": model, "net": net, "batch": batch, "launches": launches,
+            "init_s": init_s, "params": n_params, "peak_gb": peak_gb,
+            "logits_max_abs_err": err, "positions_checked": n_sure}
+
+
+def serve_path(cfg, lm: dict) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import ServeEngine
+    model, net = lm["model"], lm["net"]
+    g = torch.Generator().manual_seed(SEED + 4)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN),
+                            generator=g)
+    engine = ServeEngine(model, net, batch_slots=SERVE_BATCH,
+                         max_len=PROMPT_LEN + NEW_TOKENS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.run_lockstep(prompts.tolist(), NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(len(outs) == SERVE_BATCH and all(
+        len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
+        for o in outs), "engine output shape or token range")
+
+    fa.launches = 0
+    logits, _ = model.forward(net, {"tokens": prompts.to("cuda")})
+    torch.cuda.synchronize()
+    launches = fa.launches
+    check(launches == cfg.num_layers, f"{launches} flash launches in the "
+          f"cross-check forward")
+    ref_top, ref_margin = top2(logits[:, -1])
+    del logits
+    first = torch.tensor([o[0] for o in outs], device="cuda")
+    agree, n_sure = margin_agree(first, ref_top, ref_margin)
+    print(f"[serve] {SERVE_BATCH} prompts of {PROMPT_LEN} + {NEW_TOKENS} new "
+          f"tokens through run_lockstep in {wall_s:.2f} s "
+          f"({PROMPT_LEN + NEW_TOKENS} decode steps); first tokens "
+          f"{first.tolist()} vs forward argmax {ref_top.tolist()} (margins "
+          f"{[round(m, 3) for m in ref_margin.tolist()]}): equal at "
+          f"{n_sure}/{SERVE_BATCH} clear positions: {agree}")
+    check(agree, "engine's first token differs from the forward's argmax")
+    return {"serve_wall_s": wall_s, "serve_launches": launches,
+            "first_tokens": first.tolist(), "serve_positions_checked": n_sure,
+            "outputs": outs}
+
+
+def flash_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, counted for these
+    shapes: what the kernel must compute."""
+    qpos = np.arange(s)
+    hi = np.minimum(qpos, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bounds(shape, cfg) -> dict:
+    _, _, b, s, causal, window, dtype = shape
+    hd, bh, bkv = cfg.resolved_head_dim, b * cfg.num_heads, \
+        b * cfg.num_kv_heads
+    ops_ = 4 * hd * bh * flash_pairs(s, s, causal, window)
+    nbytes = (2 if dtype == torch.bfloat16 else 4) * hd * s * (
+        2 * bh + 2 * bkv)
+    peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
+    ops_ms, bytes_ms = ops_ / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"ops": ops_, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def flash_timings(rows: list[dict], cfg) -> None:
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ref import attention_ref
+    if cfg.attn_softcap:
+        print(f"[time] library = F.scaled_dot_product_attention with the "
+              f"same boolean mask and enable_gqa: it has no softcap, so at "
+              f"softcap {cfg.attn_softcap} it computes another function; "
+              f"a yardstick only, the port never calls it")
+    for i, (shape, row) in enumerate(zip(FLASH_SHAPES, rows)):
+        _, _, b, s, causal, window, _ = shape
+        q, k, v = flash_inputs(i, shape, cfg)
+        kw = flash_kw(shape, cfg)
+        pos = torch.arange(s, device="cuda")
+        mask = torch.ones(s, s, dtype=torch.bool, device="cuda")
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+        q4, k4, v4 = (t.view(b, -1, s, t.shape[-1]) for t in (q, k, v))
+        iters = FLASH_BIG_ITERS if s >= 4096 else TIMING_ITERS
+        row.update(flash_bounds(shape, cfg))
+        row["ms"] = cuda_ms(lambda: flash_attention_kernel(q, k, v, **kw),
+                            iters=iters)
+        row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, **kw),
+                                  iters=iters)
+        row["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=True), iters=iters)
+        print(f"[time] {row['name']:27s} x{row['per_forward']:<2d} kernel "
+              f"{row['ms']:.4f} ms ({row['ops'] / row['ms'] / 1e9:.1f} "
+              f"TFLOP/s)  plain {row['plain_ms']:.4f}  library "
+              f"{row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']})")
+        del q, k, v, q4, k4, v4, mask
+
+
+def lm_timings(cfg, lm: dict) -> dict:
+    from torch.profiler import ProfilerActivity, record_function
+    model, net, batch = lm["model"], lm["net"], lm["batch"]
+    prefill_ms = cuda_ms(lambda: model.forward(net, batch), iters=3,
+                         warmup=1)
+    cache = model.init_cache(SERVE_BATCH, PROMPT_LEN + NEW_TOKENS)
+    tok = torch.zeros(SERVE_BATCH, 1, dtype=torch.long, device="cuda")
+    decode_ms = cuda_ms(lambda: model.decode_step(net, cache, tok,
+                                                  PROMPT_LEN), iters=10)
+    print(f"[time] prefill 1x{PREFILL_S}: {prefill_ms:.2f} ms "
+          f"({PREFILL_S / prefill_ms * 1e3:.0f} tokens/s; CUDA events, mean "
+          f"of 3); decode step at batch {SERVE_BATCH}: {decode_ms:.3f} ms "
+          f"({SERVE_BATCH / decode_ms * 1e3:.1f} tokens/s; mean of 10)")
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        with record_function("prefill"):
+            model.forward(net, batch)
+            torch.cuda.synchronize()
+    out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
+           "prefill_profile": device_breakdown(prof.events(), "prefill", 1)}
+    prof_ = out["prefill_profile"]
+    if prof_ is not None:
+        flash_us = sum(k["us"] for k in prof_["all_kernels"]
+                       if "flash_attention" in k["name"])
+        prof_["flash_share_of_busy"] = flash_us / prof_["device_busy_us"]
+        print(f"[profile] prefill: flash kernel {flash_us / 1e3:.2f} ms of "
+              f"{prof_['device_busy_us'] / 1e3:.2f} ms device busy "
+              f"({prof_['flash_share_of_busy']:.3f}); idle share "
+              f"{prof_['idle_share']:.3f}")
+        del prof_["all_kernels"]
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        with record_function("decode_step"):
+            model.decode_step(net, cache, tok, PROMPT_LEN)
+            torch.cuda.synchronize()
+    out["decode_profile"] = device_breakdown(prof.events(), "decode_step", 1)
+    if out["decode_profile"] is not None:
+        out["decode_profile"]["launches"] = sum(
+            k["count"] for k in out["decode_profile"].pop("all_kernels"))
+        print(f"[profile] decode step: {out['decode_profile']['launches']} "
+              f"device kernels")
+    return out
 
 
 def per_forward(rows: list[dict], key: str) -> float:
@@ -340,9 +687,22 @@ def main() -> int:
     model = model_path()
     fwd = timings(rows, model)
     fwd.update(profile(model))
+    del model["net"], model["x"]
+
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_CONFIG)
+    flash_rows = flash_check(cfg)
+    lm = prefill_path(cfg)
+    served = serve_path(cfg, lm)
+    flash_timings(flash_rows, cfg)
+    lm_times = lm_timings(cfg, lm)
 
     check(sum(r["per_forward"] for r in rows) == CONVS_PER_FORWARD,
           "CONV_SHAPES do not add up to one forward")
+    check(sum(r["per_forward"] for r in flash_rows) == cfg.num_layers,
+          "FLASH_SHAPES do not add up to one prefill forward")
+    f_ops_ms = per_forward(flash_rows, "ops_ms")
+    f_bytes_ms = per_forward(flash_rows, "bytes_ms")
     ops_ms, bytes_ms = per_forward(rows, "ops_ms"), per_forward(rows,
                                                                 "bytes_ms")
     kernels = {"kernels": [{
@@ -358,17 +718,35 @@ def main() -> int:
         "library_ms": per_forward(rows, "library_ms"),
         "times_are": f"sums over the {CONVS_PER_FORWARD} launches of one "
                      f"batch-{BATCH} forward; per shape in chip_smoke.json",
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": lm["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "ms": per_forward(flash_rows, "ms"),
+        "plain_ms": per_forward(flash_rows, "plain_ms"),
+        "bound_ms": per_forward(flash_rows, "bound_ms"),
+        "bound_by": "operations" if f_ops_ms >= f_bytes_ms else "bytes",
+        "library_ms": per_forward(flash_rows, "library_ms"),
+        "times_are": f"sums over the {cfg.num_layers} launches of one "
+                     f"1x{PREFILL_S} {cfg.name} prefill; per shape in "
+                     f"chip_smoke.json",
     }]}
+    lm_record = {k: v for k, v in {**lm, **served, **lm_times}.items()
+                 if k not in ("model", "net", "batch")}
     record = {"card": smi, "torch": torch.__version__,
-              "build_s": build_s, "shapes": rows, **fwd,
-              **{k: v for k, v in model.items() if k not in ("net", "x")},
-              **kernels}
+              "build_s": build_s, "shapes": rows, **fwd, **model,
+              "flash_shapes": flash_rows, cfg.name: lm_record, **kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[summary] forward {fwd['forward_ms']:.3f} ms; median request "
           f"{statistics.median(model['request_latency_ms']):.3f} ms; "
-          f"fused_conv {kernels['kernels'][0]['ms']:.3f} ms per forward")
+          f"fused_conv {kernels['kernels'][0]['ms']:.3f} ms per forward; "
+          f"{cfg.name} prefill 1x{PREFILL_S} {lm_times['prefill_ms']:.2f} ms "
+          f"with flash_attention {kernels['kernels'][1]['ms']:.2f} ms; decode "
+          f"step {lm_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}")
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

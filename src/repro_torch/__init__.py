@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the ``repro`` model and kernel stack.
 
 It keeps the JAX package's module names and public layouts (NHWC
-activations, HWIO conv weights, parameters as nested dicts with the same
-keys) and imports neither JAX nor ``repro``.  Entry points run on the GPU
-unless the caller asks for the CPU (``device="cpu"``).
+activations and HWIO conv weights for the CNN, ``(B, S, H, hd)`` attention
+and ``(d_in, d_out)`` weights for the LM, parameters as nested dicts with
+the same keys) and imports neither JAX nor ``repro``.  Entry points run on
+the GPU unless the caller asks for the CPU (``device="cpu"``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Model configurations of the port: its own copy of the ``ModelConfig``
-fields the CNN path reads, and ``get_config`` for the configs it serves."""
+fields the ported paths read, and ``get_config`` for the configs it serves
+(``resnet18``, ``gemma2-2b`` and its ``-smoke`` reduction)."""
 
 from repro_torch.configs.base import ModelConfig, get_config
 

@@ -1,5 +1,6 @@
-"""The fields of ``ModelConfig`` that the ported CNN path reads, under the
-same names as in the JAX package's config, plus ``get_config``."""
+"""The fields of ``ModelConfig`` that the ported paths read (the ResNet18
+CNN and the decoder-only LM), under the same names and with the same
+defaults as in the JAX package's config, plus ``get_config``."""
 
 from __future__ import annotations
 
@@ -14,16 +15,84 @@ Family = Literal["dense", "moe", "hybrid", "ssm", "audio", "vlm", "cnn"]
 class ModelConfig:
     name: str
     family: Family
+
+    # --- backbone dimensions ---
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0                 # 0 → d_model // num_heads
+    d_ff: int = 0
     vocab_size: int = 0               # classifier classes for the CNN
+
+    # --- attention options ---
+    rope_theta: float = 10000.0
+    qk_norm: bool = False             # qwen3
+    attn_softcap: float = 0.0         # gemma2 logit softcapping
+    final_softcap: float = 0.0        # gemma2 final-logit softcap
+    sliding_window: int = 0           # gemma2 local layers
+    local_global_pattern: bool = False  # gemma2: alternate local/global
+    post_attn_norm: bool = False      # gemma2 sandwich norms
+    post_mlp_norm: bool = False
+
+    # --- embedding/head ---
+    tie_embeddings: bool = True
+    scale_embed_by_sqrt_dim: bool = False  # gemma family
+
+    # --- MLP ---
+    mlp_activation: str = "silu"      # silu (SwiGLU) | gelu (GeGLU)
+
+    # --- MoE (read only to refuse it: not ported) ---
+    moe_num_experts: int = 0
+
+    # --- norm/numerics ---
+    norm_eps: float = 1e-6
+    dtype: str = "float32"            # activation/computation dtype
     param_dtype: str = "float32"
 
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
 
-_MODULE_FOR = {"resnet18": "repro_torch.configs.resnet18"}
+    def window_for_layer(self, i: int) -> int:
+        """Sliding window size for layer i (0 = global full attention)."""
+        if self.local_global_pattern and self.sliding_window:
+            return self.sliding_window if i % 2 == 0 else 0
+        return self.sliding_window
+
+    def smoke(self) -> "ModelConfig":
+        """Reduced same-family config for CPU smoke tests (f32 numerics);
+        the same reduction as the JAX package's for the fields kept here."""
+        small = dict(
+            num_layers=min(self.num_layers, 4) or self.num_layers,
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=max(1, min(self.num_kv_heads, 2))
+            if self.num_kv_heads else 0,
+            head_dim=16,
+            d_ff=128,
+            vocab_size=min(self.vocab_size, 512) if self.vocab_size else 0,
+            name=self.name + "-smoke",
+            dtype="float32",
+            param_dtype="float32",
+        )
+        if self.sliding_window:
+            small.update(sliding_window=8)
+        return dataclasses.replace(self, **small)
 
 
-def get_config(name: str) -> ModelConfig:
+_MODULE_FOR = {"resnet18": "repro_torch.configs.resnet18",
+               "gemma2-2b": "repro_torch.configs.gemma2_2b"}
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    if name.endswith("-smoke"):
+        name, smoke = name[: -len("-smoke")], True
     if name not in _MODULE_FOR:
         raise KeyError(
             f"no port of config {name!r}; the port serves {sorted(_MODULE_FOR)}"
-            " (the LM configs arrive with ROADMAP queue 1, items 7-11)")
-    return importlib.import_module(_MODULE_FOR[name]).CONFIG
+            " (the other LM configs arrive with ROADMAP queue 1, items 9-11)")
+    cfg: ModelConfig = importlib.import_module(_MODULE_FOR[name]).CONFIG
+    return cfg.smoke() if smoke else cfg

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library for Hopper
-(``sm_90a``) with a plain ``extern "C"`` interface: no PyTorch headers, so a
+``nvcc`` compiles each ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
+library with a plain ``extern "C"`` interface: no PyTorch headers, so a
 build takes seconds.  The library lands in ``build/kernels/`` at the root of
 the checkout, named by a hash of the sources and flags, so an edited source
 is never served from a stale build.  Nothing here runs at import.
@@ -19,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -27,6 +28,9 @@ _int = ctypes.c_int
 SIGNATURES = {
     "fused_conv_f32": (_int, [_ptr] * 6 + [_int] * 12 + [_ptr]),
     "fused_conv_error_string": (ctypes.c_char_p, [_int]),
+    "flash_attention_fwd": (_int, [_ptr] * 4 + [_int] * 7
+                            + [ctypes.c_float, _int, _ptr]),
+    "flash_attention_error_string": (ctypes.c_char_p, [_int]),
 }
 
 
@@ -50,12 +54,26 @@ def library_path() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    reports = [proc.communicate()[0] for proc in procs]
+    for src, proc, report in zip(sources, procs, reports):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} "
+                               f"({proc.returncode}):\n{report}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
+    lib.with_suffix(".log").write_text("".join(reports))
     os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
     return lib
 

@@ -1,18 +1,44 @@
 """Public kernel entry points, mirroring ``repro.kernels.ops``.
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref``; a CUDA
-tensor goes to the hand-written kernel, which launches or raises.  The TPU
-tiling knobs of the JAX wrapper (``tile_h``, ``tile_w``, ``cout_block``)
-have no counterpart: the CUDA kernel fixes its own tile and masks ragged
+tensor goes to the hand-written kernel, which launches or raises.  The one
+way to run the plain version on a CUDA tensor is the explicit ``plain()``
+context, which exists to hold a whole model against its plain self on the
+card; the model path never enters it.  The TPU tiling knobs of the JAX
+wrappers (``tile_h``, ``tile_w``, ``cout_block``, ``block_q``, ``block_k``)
+have no counterpart: the CUDA kernels fix their own tiles and mask ragged
 edges.
 """
 
 from __future__ import annotations
 
+import contextlib
+from collections.abc import Iterator
+
 import torch
 
+from repro_torch.kernels.flash_attention import (
+    check_every_row_sees_a_key, flash_attention_kernel)
 from repro_torch.kernels.fused_conv import fused_conv_kernel
-from repro_torch.kernels.ref import fused_conv_ref
+from repro_torch.kernels.ref import attention_ref, fused_conv_ref
+
+_plain = False
+
+
+@contextlib.contextmanager
+def plain() -> Iterator[None]:
+    """Inside this context every op runs its plain PyTorch version, also on
+    CUDA tensors, and no kernel launches."""
+    global _plain
+    before, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = before
+
+
+def _use_plain(x: torch.Tensor) -> bool:
+    return _plain or x.device.type == "cpu"
 
 
 def fused_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -21,6 +47,25 @@ def fused_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                residual: torch.Tensor | None = None) -> torch.Tensor:
     """[relu](conv(x, w, stride, padding)·scale + shift [+ residual]),
     NHWC/HWIO, accumulated in f32."""
-    fn = fused_conv_ref if x.device.type == "cpu" else fused_conv_kernel
+    fn = fused_conv_ref if _use_plain(x) else fused_conv_kernel
     return fn(x, w, scale, shift, stride=stride, padding=padding, relu=relu,
               residual=residual)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """(B, S, H, hd) × (B, T, KV, hd)² → (B, S, H, hd): GQA attention with
+    f32 softmax, causal (top-left), ``window`` (0 = none) and ``softcap``
+    (0 = none), through the kernel's (B·H, S, hd) layout.  A window that
+    leaves a query row with no visible key (S >= T + window) raises, on
+    every device."""
+    Bt, S, H, D = q.shape
+    _, T, KV, _ = k.shape
+    check_every_row_sees_a_key(S, T, window)
+    fn = attention_ref if _use_plain(q) else flash_attention_kernel
+    out = fn(q.transpose(1, 2).reshape(Bt * H, S, D).contiguous(),
+             k.transpose(1, 2).reshape(Bt * KV, T, D).contiguous(),
+             v.transpose(1, 2).reshape(Bt * KV, T, D).contiguous(),
+             causal=causal, window=window, softcap=softcap)
+    return out.reshape(Bt, H, S, D).transpose(1, 2)

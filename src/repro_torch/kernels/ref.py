@@ -3,6 +3,8 @@ reference each kernel is held against on the card."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -23,3 +25,32 @@ def fused_conv_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype).contiguous()
+
+
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """q: (BH, S, D); k/v: (BKV, T, D), BH = BKV·group — the flash kernel's
+    layout.  f32 inside, masked logits -1e30, returned in ``q.dtype``.  The
+    causal mask is top-left: query i sees keys ≤ i, also when S ≠ T."""
+    BH, S, D = q.shape
+    BKV, T, _ = k.shape
+    group = BH // BKV
+    kf = k.repeat_interleave(group, dim=0).float()
+    vf = v.repeat_interleave(group, dim=0).float()
+    s = torch.einsum("hsd,htd->hst", q.float(), kf) / math.sqrt(D)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hst,htd->hsd", p, vf).to(q.dtype)

@@ -1,15 +1,32 @@
 """Model assembly: config → (init, forward, init_cache, decode_step), as in
-the JAX package.  This port serves the CNN family; the other families come
-with later slices of the port."""
+the JAX package.  The port serves the CNN family (``models/resnet.py``) and
+the decoder-only transformer (dense, and vlm without prefix tokens), e.g.
+gemma2-2b; the other families come with later slices of the port.
+
+The decoder's layers are STACKED as in JAX: every leaf of
+``params["layers"]`` has a leading ``num_layers`` axis.  JAX scans over
+that axis; the port loops over it in Python, handing each layer its own
+sliding window (``cfg.window_for_layer``).  ``forward`` is the prefill,
+whose every self-attention runs through ``ops.flash_attention``;
+``decode_step`` is the one-token serving path against a pre-allocated KV
+cache, which it updates in place.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
+from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+
+Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,13 +39,199 @@ class Model:
     decode_step: Callable[..., Any]
 
 
+def _dt(cfg: ModelConfig) -> tuple[torch.dtype, torch.dtype]:
+    return getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
+
+
+def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
+    """``n`` trees from ``init_fn``, stacked leaf by leaf on a new axis 0."""
+    layers = [init_fn() for _ in range(n)]
+
+    def stack(trees: list[Params]) -> Params:
+        return {k: stack([t[k] for t in trees]) if isinstance(v, dict)
+                else torch.stack([t[k] for t in trees])
+                for k, v in trees[0].items()}
+    return stack(layers)
+
+
+def _layer(tree: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked tree, as views."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def param_count(params: Params) -> int:
+    return sum(t.numel() for t in L.flatten_tree(params).values())
+
+
+# ---------------------------------------------------------------------------
+# shared embed / head
+# ---------------------------------------------------------------------------
+
+def _init_embed(gen: torch.Generator, cfg: ModelConfig, pdt: torch.dtype,
+                device=None) -> Params:
+    p = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, pdt,
+                               device),
+         "final_norm": L.init_rmsnorm(cfg.d_model, pdt, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, pdt,
+                                    device)
+    return p
+
+
+def _embed(params: Params, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embed_by_sqrt_dim:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, tied (or separate) head, f32 logits, final softcap.  The
+    softcap runs in place on the fresh logits: at gemma2-2b's 256000-word
+    vocabulary they are 1 GiB per thousand tokens."""
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]
+    logits = logits.float()
+    if cfg.final_softcap:
+        c = cfg.final_softcap
+        logits.div_(c).tanh_().mul_(c)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# decoder-only transformer family (dense / vlm)
+# ---------------------------------------------------------------------------
+
+def init_decoder_params(gen: torch.Generator, cfg: ModelConfig,
+                        device=None) -> Params:
+    """The JAX package's decoder-only tree: ``embed``, ``final_norm`` and
+    the stacked ``layers``.  Each tensor is drawn on the CPU and moved to
+    ``device`` before the next is drawn; ``device="meta"`` draws nothing."""
+    _, pdt = _dt(cfg)
+    p = _init_embed(gen, cfg, pdt, device)
+    p["layers"] = _stack_init(
+        lambda: B.init_attn_block(gen, cfg, pdt, device=device),
+        cfg.num_layers)
+    return p
+
+
+class DecoderLM(nn.Module):
+    """Holds a decoder-only LM's parameter tree (as buffers: this is an
+    inference model) with the JAX package's keys and stacked layout.
+
+    ``params`` is such a tree, e.g. from ``repro_torch.weights.
+    params_from_jax``; without it the weights are drawn from ``seed``.
+    ``device`` defaults to ``cuda`` and raises if no card is present; pass
+    ``device="cpu"`` for the plain CPU path."""
+
+    def __init__(self, cfg: ModelConfig, *, params: Params | None = None,
+                 seed: int = 0, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        if params is None:
+            params = init_decoder_params(torch.Generator().manual_seed(seed),
+                                         cfg, device)
+        self.params = L.tree_to(params, device)
+        for name, t in L.flatten_tree(self.params).items():
+            self.register_buffer(name, t)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S) → f32 logits (B, S, vocab)."""
+        return decoder_forward(self, {"tokens": tokens})[0]
+
+
+def decoder_forward(model: DecoderLM, batch: dict[str, torch.Tensor]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence forward (prefill): ``batch["tokens"]`` (B, S) →
+    (f32 logits (B, S, vocab), aux)."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    tokens = batch["tokens"].to(params["embed"].device)
+    x = _embed(params, cfg, tokens).to(dt)
+    Btch, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(Btch, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, a = B.attn_block(_layer(params["layers"], i), x, cfg,
+                            positions=positions,
+                            window=cfg.window_for_layer(i))
+        aux = aux + a
+    return _head(params, cfg, x), aux
+
+
+def decoder_init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+                       device) -> Params:
+    dt, _ = _dt(cfg)
+    c = B.init_attn_cache(cfg, batch_size, max_len, dt, device)
+    n = cfg.num_layers
+    return {"layers": {k: v[None].repeat(n, *[1] * v.dim())
+                       for k, v in c.items()}}
+
+
+def decoder_decode_step(model: DecoderLM, cache: Params,
+                        tokens: torch.Tensor, index: int
+                        ) -> tuple[torch.Tensor, Params]:
+    """tokens: (B, 1) at position ``index`` → (f32 logits (B, 1, vocab),
+    cache).  The cache is updated in place and returned."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    index = int(index)
+    x = _embed(params, cfg, tokens.to(params["embed"].device)).to(dt)
+    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+    for i in range(cfg.num_layers):
+        x, _, _ = B.attn_block_decode(
+            _layer(params["layers"], i), {"k": ks[i], "v": vs[i]}, x, cfg,
+            index=index, window=cfg.window_for_layer(i))
+    return _head(params, cfg, x), cache
+
+
+def _win_mask(S: int, window: int) -> torch.Tensor:
+    """(1, S, S): keys within ``window`` of each query (all when 0); the
+    JAX decoder ANDs it with ``causal_mask``.  The port's forward passes the
+    window to the kernel instead; the parity tests build the JAX mask."""
+    qpos = torch.arange(S)[:, None]
+    kpos = torch.arange(S)[None, :]
+    if window > 0:
+        return (kpos > qpos - window)[None]
+    return torch.ones((1, S, S), dtype=torch.bool)
+
+
+def _build_decoder_only(cfg: ModelConfig, device=None) -> Model:
+    device = resolve_device(device)
+
+    def init(seed: int = 0) -> DecoderLM:
+        return DecoderLM(cfg, seed=seed, device=device)
+
+    def init_cache(batch_size: int, max_len: int) -> Params:
+        return decoder_init_cache(cfg, batch_size, max_len, device)
+
+    return Model(cfg, device, init, decoder_forward, init_cache,
+                 decoder_decode_step)
+
+
+# ---------------------------------------------------------------------------
+# entry point
+# ---------------------------------------------------------------------------
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """``device`` defaults to ``cuda`` and raises if no card is present;
     ``device="cpu"`` runs the plain PyTorch path."""
     if cfg.family == "cnn":
         from repro_torch.models.resnet import build_resnet_model
         return build_resnet_model(cfg, device)
+    if cfg.family in ("dense", "vlm") and not cfg.moe_num_experts:
+        return _build_decoder_only(cfg, device)
+    item = {"moe": "item 9 (models/moe.py)",
+            "dense": "item 9 (models/moe.py)",
+            "audio": "item 9 (_build_encdec)",
+            "hybrid": "item 10 (models/ssm.py, _build_hybrid)",
+            "ssm": "items 10-11 (models/ssm.py, models/xlstm.py)"}
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: the decoder-only, MoE and "
-        "encoder-decoder builders are ROADMAP queue 1 item 9, the hybrid "
-        "item 10, xLSTM item 11")
+        f"family {cfg.family!r} with {cfg.moe_num_experts} experts is not "
+        f"ported yet: ROADMAP queue 1 {item.get(cfg.family, 'items 9-11')}")

@@ -1,0 +1,112 @@
+"""The attention (+ gated MLP) residual block of the decoder-only LM:
+per-layer init, full-sequence forward and one-token decode against a KV
+cache, as in the JAX package's ``repro.models.blocks``.  Pre-norm residual,
+with gemma2's post-norms (``ln1_post``, ``ln2_post``) when the config asks.
+
+The MoE FFN and cross-attention of the other block kinds are not ported
+(ROADMAP queue 1 item 9); asking for them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.models import layers as L
+
+Params = dict[str, Any]
+
+_NOT_PORTED = ("is not ported yet: ROADMAP queue 1 item 9 (models/moe.py "
+               "and _build_encdec)")
+
+
+def init_attn_block(gen: torch.Generator, cfg, dtype: torch.dtype, *,
+                    use_moe: bool = False, cross: bool = False,
+                    device=None) -> Params:
+    if use_moe or cross:
+        raise NotImplementedError(
+            f"{'the MoE FFN' if use_moe else 'cross-attention'} {_NOT_PORTED}")
+    p: Params = {
+        "ln1": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "attn": L.init_attention(gen, cfg, dtype, device),
+        "ln2": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+    if cfg.post_attn_norm:
+        p["ln1_post"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+    if cfg.post_mlp_norm:
+        p["ln2_post"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+    return p
+
+
+def _ffn(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    if "moe" in p:
+        raise NotImplementedError(f"the MoE FFN {_NOT_PORTED}")
+    return L.mlp(p["mlp"], x, cfg.mlp_activation), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def attn_block(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+               window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal attention block over (B, S, d) with the given
+    sliding ``window`` (0 = global).  Returns (x, aux_loss)."""
+    h = L.attention(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                    positions=positions, window=window)
+    if "ln1_post" in p:
+        h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
+    x = x + h
+    h, aux = _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    if "ln2_post" in p:
+        h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
+    return x + h, aux
+
+
+# ---- decode with KV cache ----
+
+def init_attn_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
+                    device=None) -> Params:
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"k": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
+                             device=device)}
+
+
+def attn_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg, *,
+                      index: int, window: int = 0):
+    """One-token decode.  x: (B, 1, d); ``index`` is the position.  Writes
+    this token's k and v into ``cache`` at ``index`` in place (the JAX
+    version returns an updated copy) and attends, through the plain
+    ``attention_scores``, to keys ``kpos <= index`` and, when
+    ``window > 0``, ``kpos > index - window``.  Returns (x, cache, aux)."""
+    B = x.shape[0]
+    kv, hd, h_ = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+    xin = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q = (xin @ p["attn"]["wq"]).reshape(B, 1, h_, hd)
+    k = (xin @ p["attn"]["wk"]).reshape(B, 1, kv, hd)
+    v = (xin @ p["attn"]["wv"]).reshape(B, 1, kv, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(p["attn"]["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm(p["attn"]["k_norm"], k, cfg.norm_eps)
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, index] = k[:, 0].to(ck.dtype)
+    cv[:, index] = v[:, 0].to(cv.dtype)
+    kpos = torch.arange(ck.shape[1], device=x.device)
+    m = kpos <= index
+    if window > 0:
+        m &= kpos > index - window
+    attn_out = L.attention_scores(q, ck, cv, m[None, None, :],
+                                  cfg.attn_softcap)
+    h = attn_out.reshape(B, 1, h_ * hd) @ p["attn"]["wo"]
+    if "ln1_post" in p:
+        h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
+    x = x + h
+    h, aux = _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    if "ln2_post" in p:
+        h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
+    return x + h, cache, aux

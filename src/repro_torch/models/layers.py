@@ -1,9 +1,12 @@
-"""The conv/bn/pool layers of ResNet in PyTorch, with the JAX package's
-layouts: NHWC activations, HWIO conv weights, parameters as plain dicts.
+"""Core NN layers in PyTorch, with the JAX package's layouts: norms, RoPE,
+GQA attention and gated MLPs for the LM (``(B, S, H, hd)`` activations,
+``(d_in, d_out)`` weights), and the conv/bn/pool set of ResNet (NHWC
+activations, HWIO conv weights); parameters are plain dicts.
 
-Every ``init_*`` draws from an explicit ``torch.Generator`` on the CPU and
-then moves to ``device`` (``None`` is PyTorch's default device), so the same
-seed gives the same weights on every device.
+Every ``init_*`` draws from an explicit ``torch.Generator`` on the CPU, one
+tensor at a time, and then moves it to ``device`` (``None`` is PyTorch's
+default device), so the same seed gives the same weights on every device.
+On the ``meta`` device nothing is drawn: only shapes and dtypes are made.
 """
 
 from __future__ import annotations
@@ -14,13 +17,38 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+
 Params = dict[str, Any]
+
+
+_SEP = "__"   # joins nested keys into buffer names; keys hold single "_" only
+
+
+def flatten_tree(tree: Params, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A nested parameter dict as ``{"a__b__c": tensor}``, for registering
+    its leaves as an ``nn.Module``'s buffers."""
+    flat: dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        name = prefix + k
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, name + _SEP))
+        else:
+            flat[name] = v
+    return flat
+
+
+def tree_to(tree: Params, device: torch.device) -> Params:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
 
 
 def _randn(gen: torch.Generator, shape: tuple[int, ...], scale: float,
            dtype: torch.dtype, device) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            * scale).to(device=device, dtype=dtype)
+    if torch.device(device or "cpu").type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32).mul_(
+        scale).to(device=device, dtype=dtype)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -28,6 +56,158 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
     return _randn(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim), dtype,
                   device)
 
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int,
+               dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    return _randn(gen, (vocab, dim), 0.02, dtype, device)
+
+
+# --- norms -------------------------------------------------------------------
+
+def init_rmsnorm(dim: int, dtype: torch.dtype = torch.float32,
+                 device=None) -> torch.Tensor:
+    return torch.ones(dim, dtype=dtype, device=device)
+
+
+def rmsnorm(w: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """Normalises in f32 and casts back to ``x.dtype`` before the scale,
+    as the JAX version does."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+# --- rotary position embeddings ----------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotates the
+    two halves of head_dim (not interleaved pairs); the identity when
+    ``theta <= 0``."""
+    if theta <= 0:
+        return x
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs      # (.., S, half)
+    cos = torch.cos(angles)[..., :, None, :]              # (.., S, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- attention (GQA, sliding window, softcap, qk-norm) -----------------------
+
+def init_attention(gen: torch.Generator, cfg, dtype: torch.dtype = torch.float32,
+                   device=None) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    p: Params = {
+        "wq": dense_init(gen, d, h * hd, dtype, device),
+        "wk": dense_init(gen, d, kv * hd, dtype, device),
+        "wv": dense_init(gen, d, kv * hd, dtype, device),
+        "wo": dense_init(gen, h * hd, d, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, device)
+        p["k_norm"] = init_rmsnorm(hd, dtype, device)
+    return p
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0:
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
+def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
+    """q: (B,S,H,hd)  k/v: (B,T,KV,hd) with H = KV*G.  mask: broadcastable
+    to (B,H,S,T), True = attend.  f32 inside; masked logits are -1e30."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          k.float()) / math.sqrt(hd)
+    logits = _softcap(logits, softcap)
+    m = mask.reshape(B, KV, G, S, T) if mask.dim() == 4 and \
+        mask.shape[1] == H else mask[:, None, None, :, :] \
+        if mask.dim() == 3 else mask
+    logits = torch.where(m, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def causal_mask(S: int, T: int, q_offset: int = 0,
+                window: int = 0) -> torch.Tensor:
+    """(1, S, T) boolean mask: query i (global pos q_offset+i) attends to
+    keys ≤ its position, within ``window`` if nonzero."""
+    qpos = torch.arange(S)[:, None] + q_offset
+    kpos = torch.arange(T)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m[None]
+
+
+def attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              window: int, kv_override=None) -> torch.Tensor:
+    """Full self-attention block (projections + scores) over the whole
+    sequence, through ``ops.flash_attention``.
+
+    The JAX version takes a ``mask``; its decoder builds it as
+    ``causal_mask(S, S) & _win_mask(S, window)``, which is exactly the
+    kernel's ``k_pos <= q_pos`` and, when ``window > 0``,
+    ``k_pos > q_pos - window``.  So the port passes ``window`` (0 = global)
+    and ``causal=True`` instead of a mask."""
+    if kv_override is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_override) is not ported yet: ROADMAP "
+            "queue 1 item 9 (_build_encdec)")
+    B, S, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, S, h, hd)
+    k = (x @ p["wk"]).reshape(B, S, kv, hd)
+    v = (x @ p["wv"]).reshape(B, S, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.attn_softcap)
+    return out.reshape(B, S, h * hd) @ p["wo"]
+
+
+# --- gated MLP (SwiGLU / GeGLU) ----------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype: torch.dtype = torch.float32, device=None) -> Params:
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff, dtype, device),
+        "w_up": dense_init(gen, d_model, d_ff, dtype, device),
+        "w_down": dense_init(gen, d_ff, d_model, dtype, device),
+    }
+
+
+def mlp(p: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    """``jax.nn.gelu`` is the tanh approximation by default, so GeGLU here
+    is ``F.gelu(approximate="tanh")``, not torch's exact-erf default."""
+    g = x @ p["w_gate"]
+    g = F.silu(g) if activation == "silu" else F.gelu(g, approximate="tanh")
+    return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# --- conv/bn/pool for ResNet -------------------------------------------------
 
 def init_conv(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
               dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:

@@ -145,25 +145,6 @@ def forward_fused_groups(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 # --- the module that holds the parameters ---
 
-_SEP = "__"   # joins nested keys into buffer names; keys hold single "_" only
-
-
-def _flatten(tree: Params, prefix: str = "") -> dict[str, torch.Tensor]:
-    flat: dict[str, torch.Tensor] = {}
-    for k, v in tree.items():
-        name = prefix + k
-        if isinstance(v, dict):
-            flat.update(_flatten(v, name + _SEP))
-        else:
-            flat[name] = v
-    return flat
-
-
-def _tree_to(tree: Params, device: torch.device) -> Params:
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
-
-
 class ResNet18(nn.Module):
     """Holds ResNet18's parameters (as buffers: this is an inference model)
     and runs ``forward`` / ``forward_fused_groups`` on them.
@@ -183,8 +164,8 @@ class ResNet18(nn.Module):
         if params is None:
             params = init_resnet18(torch.Generator().manual_seed(seed),
                                    num_classes, dtype, device)
-        self.params = _tree_to(params, device)   # the JAX layout
-        for name, t in _flatten(self.params).items():
+        self.params = L.tree_to(params, device)   # the JAX layout
+        for name, t in L.flatten_tree(self.params).items():
             self.register_buffer(name, t)
         self.folded = fold_bn(self.params)       # what the forwards run on
 

@@ -1,8 +1,11 @@
 """Carries parameters made by the JAX package into the port.
 
-The layouts are the same on both sides (HWIO conv weights, nested dicts
-with the same keys), so this is a structured copy, checked key by key and
-shape by shape against the port's own ``init_resnet18``.
+The layouts are the same on both sides (HWIO conv weights, ``(d_in,
+d_out)`` dense weights, stacked decoder layers, nested dicts with the same
+keys), so this is a structured copy, checked key by key and shape by shape
+against the tree the port's own ``init`` makes on the ``meta`` device.
+bf16 leaves (``ml_dtypes.bfloat16`` in numpy, which ``torch`` cannot take)
+are carried bit for bit through their 16-bit pattern.
 """
 
 from __future__ import annotations
@@ -13,7 +16,19 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.api import init_decoder_params
 from repro_torch.models.resnet import init_resnet18
+
+
+def _tensor(arr: np.ndarray, where: str, device: torch.device) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)   # the same 16 bits
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    if arr.dtype.kind != "f":
+        raise TypeError(f"params_from_jax: {where} has dtype {arr.dtype}"
+                        ", expected floating point")
+    return torch.tensor(arr, device=device)
 
 
 def _copy(tree: dict[str, Any], ref: dict[str, Any], device: torch.device,
@@ -36,21 +51,25 @@ def _copy(tree: dict[str, Any], ref: dict[str, Any], device: torch.device,
         if arr.shape != tuple(want.shape):
             raise ValueError(f"params_from_jax: {where} has shape {arr.shape}"
                              f", expected {tuple(want.shape)}")
-        if arr.dtype.kind != "f":
-            raise TypeError(f"params_from_jax: {where} has dtype {arr.dtype}"
-                            ", expected floating point")
-        out[k] = torch.tensor(arr, device=device)
+        out[k] = _tensor(arr, where, device)
     return out
 
 
-def params_from_jax(tree: dict[str, Any], device=None) -> dict[str, Any]:
-    """``tree``: the nested dict of arrays from
-    ``repro.models.resnet.init_resnet18`` (numpy or anything
-    ``np.asarray`` takes).  Returns the same tree as tensors on ``device``
-    (default ``cuda``); raises on a missing or extra key or a wrong shape."""
+def params_from_jax(tree: dict[str, Any], device=None,
+                    cfg: ModelConfig | None = None) -> dict[str, Any]:
+    """``tree``: the nested dict of arrays from the JAX package (numpy or
+    anything ``np.asarray`` takes): ``repro.models.resnet.init_resnet18``'s
+    when ``cfg`` is None or a CNN config, else the ``init`` of
+    ``repro.models.build_model(cfg)`` for the decoder-only ``cfg``.  Returns
+    the same tree as tensors on ``device`` (default ``cuda``) in the
+    arrays' own dtypes; raises on a missing or extra key or a wrong
+    shape."""
     device = resolve_device(device)
-    if not isinstance(tree, dict) or "fc_b" not in tree:
-        raise KeyError("params_from_jax: not a ResNet18 tree (no 'fc_b')")
-    num_classes = int(np.asarray(tree["fc_b"]).shape[0])
-    ref = init_resnet18(torch.Generator(), num_classes, device="meta")
+    if cfg is None or cfg.family == "cnn":
+        if not isinstance(tree, dict) or "fc_b" not in tree:
+            raise KeyError("params_from_jax: not a ResNet18 tree (no 'fc_b')")
+        num_classes = int(np.asarray(tree["fc_b"]).shape[0])
+        ref = init_resnet18(torch.Generator(), num_classes, device="meta")
+    else:
+        ref = init_decoder_params(torch.Generator(), cfg, device="meta")
     return _copy(tree, ref, device, "")

@@ -7,12 +7,17 @@ an NVIDIA H100 and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_conv as fc
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import fused_conv_ref
+from repro_torch.kernels.ref import attention_ref, fused_conv_ref
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -73,3 +78,87 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         ops.fused_conv(x, w, scale[:4], shift)
     with pytest.raises(ValueError, match="on cpu"):
         ops.fused_conv(x, w.cpu(), scale, shift)
+
+
+# --- flash attention -------------------------------------------------------------
+
+# Per element against the plain version in f32, as chip_smoke.py holds the
+# kernel: reordered f32 sums (the f32 limit of test_kernels.py) and, for
+# bf16, half an ulp of the output's one rounding.
+FLASH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-8}
+FLASH_ATOL = 2e-5
+
+
+def _qkv(dev, BH, BKV, S, T, D, dtype):
+    g = torch.Generator(device=dev).manual_seed(S * 7 + T + D)
+    return tuple(torch.randn(n, L, D, generator=g, device=dev).to(dtype)
+                 for n, L in ((BH, S), (BKV, T), (BKV, T)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,BKV,S,T,D,causal,window,softcap", [
+    (8, 4, 200, 200, 256, True, 0, 50.0),     # gemma2 heads, ragged S
+    (8, 4, 333, 333, 256, True, 100, 50.0),   # ragged, windowed
+    (4, 1, 64, 150, 64, True, 0, 0.0),        # GQA 4:1, S != T, top-left
+    (6, 3, 100, 77, 32, False, 0, 30.0),      # non-causal, ragged T
+    (4, 2, 96, 96, 16, True, 8, 50.0),        # smoke head dim and window
+    (4, 2, 52, 37, 16, True, 16, 50.0),       # last row sees one key
+    (4, 2, 52, 37, 16, False, 16, 0.0),       # the same, non-causal
+])
+def test_flash_kernel_matches_plain(cuda, dtype, BH, BKV, S, T, D, causal,
+                                    window, softcap):
+    q, k, v = _qkv(cuda, BH, BKV, S, T, D, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = FA.launches
+    out = FA.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    ref = attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref, atol=FLASH_ATOL,
+                               rtol=FLASH_RTOL[dtype])
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = _qkv(cuda, 4, 2, 8, 8, 32, torch.float32)
+    with pytest.raises(TypeError):
+        FA.flash_attention_kernel(q, k.bfloat16(), v)
+    with pytest.raises(TypeError):
+        FA.flash_attention_kernel(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention_kernel(q.transpose(0, 1), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        FA.flash_attention_kernel(q[:3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="no visible key"):
+        FA.flash_attention_kernel(*_qkv(cuda, 4, 2, 53, 37, 32,
+                                        torch.float32), window=16)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_kernel(q[..., :24].contiguous(),
+                                  k[..., :24].contiguous(),
+                                  v[..., :24].contiguous())
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b-smoke", "gemma2-2b"])
+def test_forward_launches_once_per_layer_and_plain_none(cuda, name):
+    """One flash launch per layer in each forward; none under
+    ``ops.plain()``, whose logits agree with the kernel path's."""
+    cfg = get_config(name)
+    if name == "gemma2-2b":   # full width, cut to 2 layers to save time
+        cfg = dataclasses.replace(cfg, num_layers=2)
+    model = build_model(cfg)
+    net = model.init(seed=0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=g,
+                                     device=cuda)}
+    for _ in range(2):
+        before = FA.launches
+        logits, _ = model.forward(net, batch)
+        torch.cuda.synchronize()
+        assert FA.launches == before + cfg.num_layers
+    before = FA.launches
+    with ops.plain():
+        plain, _ = model.forward(net, batch)
+    torch.cuda.synchronize()
+    assert FA.launches == before
+    atol = 1e-4 if cfg.dtype == "float32" else 0.25
+    assert (logits - plain).abs().max().item() <= atol
