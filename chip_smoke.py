@@ -30,7 +30,7 @@ Phases, each of which raises (exit code 1) on failure:
    forward made exactly 26 flash launches, and it agrees with the same
    forward under ``ops.plain()`` (no launches) on the card: last-position
    logits within PREFILL_ATOL, top-1 equal wherever the plain top-2 margin
-   exceeds it.
+   exceeds it; the error at any position is printed too.
 8. serve: ``ServeEngine.run_lockstep`` decodes 32 tokens for 4 prompts of
    64; each first token is the kernel-path forward's argmax (same margin
    rule).
@@ -40,12 +40,40 @@ Phases, each of which raises (exit code 1) on failure:
    bound; the prefill, with the flash kernel's share of device time and the
    idle share from torch.profiler; the decode step at batch 4, with its
    idle share.
-10. prints the ``kernels`` JSON line, 11. the final ``{"ok": true, ...}``
-line.  The full record goes to ``build/chip_smoke.json``.
+10. scan check: the SSD-scan (mamba_scan) kernel against its plain version
+    in f32 on the card at zamba2-2.7b's heads (H=80, P=64, N=64): the full
+    prefill shape 1×4096, the serving prompts 4×64, a ragged S=1000 and the
+    full-reset property (a_log = -30: y_t = (C_t·B_t)·dtx_t); every element
+    within SCAN_ATOL.
+11. flash check at zamba2-2.7b's heads (D=80, 32 query and 32 KV heads, no
+    softcap): S=4096 and B=4 at S=64 in bf16, a ragged S=1000 in f32, with
+    the limits of phase 6.
+12. hybrid prefill: zamba2-2.7b at full width and depth (54 layers: 9 units
+    of 5 Mamba2 blocks and one attention block, d 2560, vocab 32000, bf16,
+    random weights from a seed) built through ``build_model`` runs
+    ``forward`` at 1×4096; the logits are finite and of the right shape,
+    the forward made exactly 45 mamba_scan and 9 flash launches, and it
+    agrees with the same forward under ``ops.plain()`` (no launches) by
+    the rule of phase 7.
+13. hybrid serve: ``run_lockstep`` decodes 32 tokens for 4 prompts of 64;
+    each first token is the kernel-path forward's argmax (same rule).
+14. f32 twin: phases 12 and 13 again for zamba2-2.7b at full width cut to
+    one unit (6 layers: 5 mamba_scan and 1 flash launch), in f32, with the
+    limit TWIN_ATOL held at every position.  This is the check that
+    carries the hybrid's correctness; the bf16 phases show only that the
+    full depth runs within bf16 noise.
+15. timings: per scan shape the kernel, its plain version and the bound (no
+    single PyTorch call computes the scan, so no library time); per D=80
+    flash shape as in phase 9; the hybrid prefill with each kernel's share
+    of device time and the idle share; the decode step at batch 4.
+16. prints the ``kernels`` JSON line (all three kernels), 17. the final
+``{"ok": true, ...}`` line.  The full record goes to
+``build/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -92,7 +120,7 @@ PREFILL_S = 8192         # longer than the 4096 window of the local layers
 # (2**-7) of a logit of size 1.
 PREFILL_ATOL = 0.25
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 64, 32
-FLASH_BIG_ITERS = 5      # timing launches at S=8192 (tens of ms each)
+FLASH_BIG_ITERS = 5      # timing launches at S>=4096 (ms to tens of ms each)
 
 # (name, launches per prefill forward, batch, S, causal, window, dtype)
 # at gemma2-2b's heads: 8 query heads over 4 KV heads per batch row,
@@ -106,6 +134,52 @@ FLASH_SHAPES = [
     ("s512_noncausal_bf16", 0, 1, 512, False, 0, torch.bfloat16),
     ("s1000_ragged_window300_f32", 0, 1, 1000, True, 300, torch.float32),
 ]
+
+# zamba2-2.7b serving: the SSD-scan kernel, flash at D=80 and the hybrid path.
+HYBRID_CONFIG = "zamba2-2.7b"
+HYBRID_PREFILL_S = 4096
+# The scan kernel vs its plain version, both f32 on the card, element by
+# element: |kernel − plain| ≤ SCAN_ATOL, the 1e-4 of tests/test_kernels.py.
+# Inputs are drawn as that file draws them (dtx·0.3, a_log = −softplus(N(0,
+# 1)), B and C ·0.3), so |y| reaches about 3 at N = 64.  The kernel sums
+# each chunk's products in another order than the plain step-by-step
+# recurrence, and takes e^{Σa} where the recurrence multiplies up to 64
+# factors e^{a}: a relative error of a few 1e-6 of |y|, about 1e-5 at
+# |y| ≈ 3.  The state forgets by e^{a_t} per step, about 0.5 on average, so
+# an error made at one step has shrunk below f32's resolution some 25 steps
+# later: it does not pile up along S, and the same limit holds at S = 4096
+# as at S = 64.
+SCAN_ATOL = 1e-4
+SCAN_CHUNK = 64          # the kernel's chunk, for counting its operations
+# (name, launches per prefill forward, batch, S, a_log: None for
+# −softplus(N(0, 1)), else that constant) at zamba2's H=80 heads of P=64,
+# N=64.  The prefill runs the first, once per Mamba2 layer.
+SCAN_SHAPES = [
+    ("b1_s4096", 45, 1, 4096, None),
+    ("b4_s64", 0, 4, 64, None),
+    ("b1_s1000_ragged", 0, 1, 1000, None),
+    ("b1_s256_reset", 0, 1, 256, -30.0),
+]
+# Flash at zamba2's heads: 32 query and 32 KV heads of 80, no softcap, S = T.
+# The prefill runs the first, once per attention block.
+HYBRID_FLASH_SHAPES = [
+    ("s4096_d80_bf16", 9, 1, 4096, True, 0, torch.bfloat16),
+    ("b4_s64_d80_bf16", 0, 4, 64, True, 0, torch.bfloat16),
+    ("s1000_ragged_d80_f32", 0, 1, 1000, True, 0, torch.float32),
+]
+# The hybrid prefill against its plain self is held to PREFILL_ATOL, for the
+# reason given there: the kernels and the plain versions differ only in the
+# order of f32 sums, which shows as bf16 rounding at other ties in the scan
+# and attention outputs, carried on by the layers.  Its logits are about
+# N(0, 1) too (final norm × 0.02-scale tied embedding over d = 2560).  So
+# that a fault cannot hide in that bf16 noise, an f32 twin (full width, one
+# unit: 5 Mamba2 layers and an attention block) is held to TWIN_ATOL at
+# every position: the scan's reordering error is some 4e-6 of |y| (exp of
+# summed log decays against a product of exps, up to 64 terms), the flash
+# kernel's 1e-6, and 6 layers carry that to 1e-5 of logits of size 1–5.
+# Its serving engine's first tokens must equal the forward's argmax wherever
+# the margin exceeds TWIN_ATOL, which in f32 is nearly everywhere.
+TWIN_ATOL = 1e-3
 
 # Distinct convs of ResNet18 at 224²: (name, launches per forward, input hw,
 # Cin, Cout, k, stride, padding, relu, residual).  Stage n's first block has
@@ -146,6 +220,22 @@ def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_modules() -> dict:
+    """Each kernel's wrapper module, whose ``launches`` counts its launches."""
+    from repro_torch.kernels import flash_attention, fused_conv, mamba_scan
+    return {"fused_conv": fused_conv, "flash_attention": flash_attention,
+            "mamba_scan": mamba_scan}
+
+
+def zero_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
 def card() -> str:
@@ -240,7 +330,7 @@ def model_path() -> dict:
     requests = [torch.randn(BATCH, IMAGE_HW, IMAGE_HW, 3, generator=g,
                             device="cuda") for _ in range(REQUESTS)]
 
-    fc.launches = 0
+    zero_launches()
     logits, latency_ms = [], []
     for x in requests:
         before = fc.launches
@@ -257,7 +347,8 @@ def model_path() -> dict:
     torch.cuda.synchronize()
     check(fc.launches - before == CONVS_PER_FORWARD,
           f"{fc.launches - before} launches in forward_fused_groups")
-    launches = fc.launches
+    launches = check_launches({"fused_conv": fc.launches},
+                              "ResNet18 requests")["fused_conv"]
     print(f"[model] {REQUESTS} requests of {BATCH}x{IMAGE_HW}x{IMAGE_HW}x3, "
           f"{cfg.vocab_size} classes: latency ms "
           f"{[round(t, 3) for t in latency_ms]}, fused_conv launches "
@@ -397,9 +488,9 @@ def profile(model: dict) -> dict:
 
 # --- gemma2-2b serving: the flash-attention kernel and the LM path ---------------
 
-def flash_inputs(i: int, shape, cfg):
+def flash_inputs(seed: int, shape, cfg):
     _, _, b, s, _, _, dtype = shape
-    g = torch.Generator(device="cuda").manual_seed(SEED + 200 + i)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     hd = cfg.resolved_head_dim
 
     def randn(heads):
@@ -414,7 +505,7 @@ def flash_kw(shape, cfg) -> dict:
     return dict(causal=causal, window=window, softcap=cfg.attn_softcap)
 
 
-def flash_check(cfg) -> list[dict]:
+def flash_check(cfg, shapes, seed: int) -> list[dict]:
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.ref import attention_ref
     rows = []
@@ -422,9 +513,9 @@ def flash_check(cfg) -> list[dict]:
           f"|kernel - plain| <= rtol*|plain| + {FLASH_ATOL}, rtol "
           f"{FLASH_RTOL[torch.float32]} (f32), {FLASH_RTOL[torch.bfloat16]} "
           f"(bf16, half an ulp), inputs N(0, 1)")
-    for i, shape in enumerate(FLASH_SHAPES):
+    for i, shape in enumerate(shapes):
         name, count, b, s, causal, window, dtype = shape
-        q, k, v = flash_inputs(i, shape, cfg)
+        q, k, v = flash_inputs(seed + i, shape, cfg)
         out = flash_attention_kernel(q, k, v, **flash_kw(shape, cfg))
         torch.cuda.synchronize()
         ref = attention_ref(q.float(), k.float(), v.float(),
@@ -455,15 +546,30 @@ def top2(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def margin_agree(top: torch.Tensor, ref_top: torch.Tensor,
-                 ref_margin: torch.Tensor) -> tuple[bool, int]:
-    """Top-1 equal wherever the reference's top-2 margin exceeds
-    PREFILL_ATOL; returns (all equal there, how many positions that is)."""
-    sure = ref_margin > PREFILL_ATOL
+                 ref_margin: torch.Tensor, limit: float) -> tuple[bool, int]:
+    """Top-1 equal wherever the reference's top-2 margin exceeds ``limit``;
+    returns (all equal there, how many positions that is)."""
+    sure = ref_margin > limit
     return bool((top[sure] == ref_top[sure]).all()), int(sure.sum())
 
 
-def prefill_path(cfg) -> dict:
-    from repro_torch.kernels import flash_attention as fa
+def check_launches(expect: dict[str, int], what: str) -> dict[str, int]:
+    """The counts since ``zero_launches``: exactly ``expect`` of each kernel
+    it names, none of the others."""
+    got = launch_counts()
+    want = {name: expect.get(name, 0) for name in got}
+    check(got == want, f"{what}: kernel launches {got}, want {want}")
+    return got
+
+
+def prefill_path(cfg, seq: int, expect: dict[str, int],
+                 limit: float = PREFILL_ATOL,
+                 every_position: bool = False) -> dict:
+    """``cfg`` at full width, random weights from SEED, one 1×``seq``
+    forward that launches exactly ``expect`` of each kernel, held against
+    the same forward under ``ops.plain()``: the logits within ``limit`` at
+    the last position, or at ``every_position``, and top-1 equal wherever
+    the plain margin exceeds ``limit``."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.models.api import param_count
@@ -481,51 +587,57 @@ def prefill_path(cfg) -> dict:
           f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
           f"card; init from seed {SEED} in {init_s:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_S),
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq),
                                      generator=g, device="cuda")}
-    want = (1, PREFILL_S, cfg.vocab_size)
+    want = (1, seq, cfg.vocab_size)
 
-    fa.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    zero_launches()
     logits, _ = model.forward(net, batch)
     torch.cuda.synchronize()
-    launches = fa.launches
-    check(launches == cfg.num_layers,
-          f"{launches} flash launches in a forward, want {cfg.num_layers}")
+    launches = check_launches(expect, f"{cfg.name} prefill forward")
     check(tuple(logits.shape) == want, f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     top, _ = top2(logits[0])
-    last = logits[0, -1].clone()
-    del logits
 
-    before = fa.launches
+    before = launch_counts()
+    t0 = time.perf_counter()
     with ops.plain():
         plain, _ = model.forward(net, batch)
     torch.cuda.synchronize()
-    check(fa.launches == before, "ops.plain() launched the flash kernel")
+    plain_s = time.perf_counter() - t0
+    check(launch_counts() == before, "ops.plain() launched a kernel")
     check(tuple(plain.shape) == want, f"plain logits {tuple(plain.shape)}")
     ref_top, ref_margin = top2(plain[0])
-    ref_last = plain[0, -1].clone()
-    del plain
-    err = (last - ref_last).abs().max().item()
-    agree, n_sure = margin_agree(top, ref_top, ref_margin)
-    print(f"[prefill] 1x{PREFILL_S}: {launches} flash launches; peak "
-          f"{peak_gb:.1f} GB; last-position logits vs plain forward on the "
-          f"card: max_abs_err {err:.3e} (limit {PREFILL_ATOL}), |logit| max "
-          f"{ref_last.abs().max().item():.3f}; top-1 equal at "
-          f"{n_sure}/{PREFILL_S} positions with plain margin > "
-          f"{PREFILL_ATOL}: {agree}; top-1 equal at all positions: "
-          f"{int((top == ref_top).sum())}/{PREFILL_S}")
-    check(err <= PREFILL_ATOL, f"prefill last logits vs plain {err:.3e}")
+    err_last = (logits[0, -1] - plain[0, -1]).abs().max().item()
+    err_all = max((logits[0, i:i + 512] - plain[0, i:i + 512]).abs().max()
+                  .item() for i in range(0, seq, 512))
+    big = plain.abs().max().item()
+    del logits, plain
+    err = err_all if every_position else err_last
+    agree, n_sure = margin_agree(top, ref_top, ref_margin, limit)
+    print(f"[prefill] {cfg.name} 1x{seq}: launches {launches}; peak "
+          f"{peak_gb:.1f} GB; logits vs plain forward on the card "
+          f"({plain_s:.1f} s): max_abs_err {err_last:.3e} at the last "
+          f"position, {err_all:.3e} at any position (limit {limit} "
+          f"{'at any' if every_position else 'at the last'} position), "
+          f"|logit| max {big:.3f}; top-1 equal at {n_sure}/{seq} positions "
+          f"with plain margin > {limit}: {agree}; top-1 equal at all "
+          f"positions: {int((top == ref_top).sum())}/{seq}")
+    check(err <= limit, f"prefill logits vs plain {err:.3e} > {limit}")
     check(agree, "prefill top-1 differs from plain where the margin is clear")
     return {"model": model, "net": net, "batch": batch, "launches": launches,
             "init_s": init_s, "params": n_params, "peak_gb": peak_gb,
-            "logits_max_abs_err": err, "positions_checked": n_sure}
+            "plain_forward_s": plain_s, "logits_max_abs_err": err,
+            "last_position_err": err_last, "any_position_err": err_all,
+            "limit": limit, "positions_checked": n_sure}
 
 
-def serve_path(cfg, lm: dict) -> dict:
-    from repro_torch.kernels import flash_attention as fa
+def serve_path(cfg, lm: dict, expect: dict[str, int],
+               limit: float = PREFILL_ATOL) -> dict:
+    """``run_lockstep`` on SERVE_BATCH prompts; each first token equal to
+    the forward's argmax wherever its margin exceeds ``limit``."""
     from repro_torch.serve import ServeEngine
     model, net = lm["model"], lm["net"]
     g = torch.Generator().manual_seed(SEED + 4)
@@ -542,18 +654,16 @@ def serve_path(cfg, lm: dict) -> dict:
         len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
         for o in outs), "engine output shape or token range")
 
-    fa.launches = 0
+    zero_launches()
     logits, _ = model.forward(net, {"tokens": prompts.to("cuda")})
     torch.cuda.synchronize()
-    launches = fa.launches
-    check(launches == cfg.num_layers, f"{launches} flash launches in the "
-          f"cross-check forward")
+    launches = check_launches(expect, f"{cfg.name} cross-check forward")
     ref_top, ref_margin = top2(logits[:, -1])
     del logits
     first = torch.tensor([o[0] for o in outs], device="cuda")
-    agree, n_sure = margin_agree(first, ref_top, ref_margin)
-    print(f"[serve] {SERVE_BATCH} prompts of {PROMPT_LEN} + {NEW_TOKENS} new "
-          f"tokens through run_lockstep in {wall_s:.2f} s "
+    agree, n_sure = margin_agree(first, ref_top, ref_margin, limit)
+    print(f"[serve] {cfg.name}: {SERVE_BATCH} prompts of {PROMPT_LEN} + "
+          f"{NEW_TOKENS} new tokens through run_lockstep in {wall_s:.2f} s "
           f"({PROMPT_LEN + NEW_TOKENS} decode steps); first tokens "
           f"{first.tolist()} vs forward argmax {ref_top.tolist()} (margins "
           f"{[round(m, 3) for m in ref_margin.tolist()]}): equal at "
@@ -587,7 +697,7 @@ def flash_bounds(shape, cfg) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def flash_timings(rows: list[dict], cfg) -> None:
+def flash_timings(rows: list[dict], cfg, shapes, seed: int) -> None:
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.ref import attention_ref
     if cfg.attn_softcap:
@@ -595,9 +705,13 @@ def flash_timings(rows: list[dict], cfg) -> None:
               f"same boolean mask and enable_gqa: it has no softcap, so at "
               f"softcap {cfg.attn_softcap} it computes another function; "
               f"a yardstick only, the port never calls it")
-    for i, (shape, row) in enumerate(zip(FLASH_SHAPES, rows)):
+    else:
+        print("[time] library = F.scaled_dot_product_attention with the "
+              "same boolean mask and enable_gqa, the same function (no "
+              "softcap); a yardstick only, the port never calls it")
+    for i, (shape, row) in enumerate(zip(shapes, rows)):
         _, _, b, s, causal, window, _ = shape
-        q, k, v = flash_inputs(i, shape, cfg)
+        q, k, v = flash_inputs(seed + i, shape, cfg)
         kw = flash_kw(shape, cfg)
         pos = torch.arange(s, device="cuda")
         mask = torch.ones(s, s, dtype=torch.bool, device="cuda")
@@ -623,7 +737,7 @@ def flash_timings(rows: list[dict], cfg) -> None:
         del q, k, v, q4, k4, v4, mask
 
 
-def lm_timings(cfg, lm: dict) -> dict:
+def lm_timings(cfg, lm: dict, seq: int) -> dict:
     from torch.profiler import ProfilerActivity, record_function
     model, net, batch = lm["model"], lm["net"], lm["batch"]
     prefill_ms = cuda_ms(lambda: model.forward(net, batch), iters=3,
@@ -632,8 +746,8 @@ def lm_timings(cfg, lm: dict) -> dict:
     tok = torch.zeros(SERVE_BATCH, 1, dtype=torch.long, device="cuda")
     decode_ms = cuda_ms(lambda: model.decode_step(net, cache, tok,
                                                   PROMPT_LEN), iters=10)
-    print(f"[time] prefill 1x{PREFILL_S}: {prefill_ms:.2f} ms "
-          f"({PREFILL_S / prefill_ms * 1e3:.0f} tokens/s; CUDA events, mean "
+    print(f"[time] {cfg.name} prefill 1x{seq}: {prefill_ms:.2f} ms "
+          f"({seq / prefill_ms * 1e3:.0f} tokens/s; CUDA events, mean "
           f"of 3); decode step at batch {SERVE_BATCH}: {decode_ms:.3f} ms "
           f"({SERVE_BATCH / decode_ms * 1e3:.1f} tokens/s; mean of 10)")
 
@@ -648,13 +762,16 @@ def lm_timings(cfg, lm: dict) -> dict:
            "prefill_profile": device_breakdown(prof.events(), "prefill", 1)}
     prof_ = out["prefill_profile"]
     if prof_ is not None:
-        flash_us = sum(k["us"] for k in prof_["all_kernels"]
-                       if "flash_attention" in k["name"])
-        prof_["flash_share_of_busy"] = flash_us / prof_["device_busy_us"]
-        print(f"[profile] prefill: flash kernel {flash_us / 1e3:.2f} ms of "
-              f"{prof_['device_busy_us'] / 1e3:.2f} ms device busy "
-              f"({prof_['flash_share_of_busy']:.3f}); idle share "
-              f"{prof_['idle_share']:.3f}")
+        for name, n in lm["launches"].items():
+            if not n:
+                continue
+            us = sum(k["us"] for k in prof_["all_kernels"]
+                     if name in k["name"])
+            prof_[f"{name}_share_of_busy"] = us / prof_["device_busy_us"]
+            print(f"[profile] prefill: {name} kernel {us / 1e3:.2f} ms of "
+                  f"{prof_['device_busy_us'] / 1e3:.2f} ms device busy "
+                  f"({us / prof_['device_busy_us']:.3f})")
+        print(f"[profile] prefill: idle share {prof_['idle_share']:.3f}")
         del prof_["all_kernels"]
 
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -669,6 +786,107 @@ def lm_timings(cfg, lm: dict) -> dict:
         print(f"[profile] decode step: {out['decode_profile']['launches']} "
               f"device kernels")
     return out
+
+
+# --- zamba2-2.7b: the SSD-scan kernel -------------------------------------------
+
+def scan_inputs(i: int, shape, cfg):
+    from repro_torch.models.ssm import ssm_dims
+    _, _, b, s, a_log = shape
+    _, H, P, N = ssm_dims(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 400 + i)
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device="cuda")
+    dtx = randn(b, s, H, P) * 0.3
+    a = (-F.softplus(randn(b, s, H)) if a_log is None
+         else torch.full((b, s, H), a_log, device="cuda"))
+    return dtx, a, randn(b, s, N) * 0.3, randn(b, s, N) * 0.3
+
+
+def scan_check(cfg) -> list[dict]:
+    from repro_torch.kernels.mamba_scan import mamba_scan_kernel
+    from repro_torch.kernels.ref import mamba_scan_ref
+    rows = []
+    print(f"[scan] limit, per element against the plain version in f32: "
+          f"|kernel - plain| <= {SCAN_ATOL}; the reset shape also against "
+          f"(C_t.B_t) dtx_t")
+    for i, shape in enumerate(SCAN_SHAPES):
+        name, count, b, s, a_log = shape
+        dtx, a, Bm, Cm = scan_inputs(i, shape, cfg)
+        out = mamba_scan_kernel(dtx, a, Bm, Cm)
+        torch.cuda.synchronize()
+        ref = mamba_scan_ref(dtx, a, Bm, Cm)
+        check(out.shape == ref.shape and out.dtype == torch.float32,
+              f"{name}: {out.shape} {out.dtype} vs {ref.shape}")
+        err = (out - ref).abs().max().item()
+        row = {"name": name, "per_forward": count, "batch": b, "S": s,
+               "a_log": a_log, "max_abs_err": err,
+               "limit_used": err / SCAN_ATOL,
+               "max_abs_y": ref.abs().max().item()}
+        if a_log is not None:   # the full reset: y_t = (C_t . B_t) dtx_t
+            closed = (Cm * Bm).sum(-1)[..., None, None] * dtx
+            row["closed_form_err"] = (out - closed).abs().max().item()
+            check(row["closed_form_err"] <= SCAN_ATOL,
+                  f"{name}: kernel vs (C.B) dtx {row['closed_form_err']:.3e}")
+        print(f"[scan] {name:16s} dtx {tuple(dtx.shape)} max_abs_err "
+              f"{err:.3e} (|y| max {row['max_abs_y']:.3f}) limit used "
+              f"{row['limit_used']:.4f}"
+              + (f"; vs closed form {row['closed_form_err']:.3e}"
+                 if a_log is not None else ""))
+        check(err <= SCAN_ATOL, f"{name}: kernel vs plain {err:.3e} > "
+              f"{SCAN_ATOL}")
+        rows.append(row)
+        del dtx, a, Bm, Cm, out, ref
+    return rows
+
+
+def scan_bounds(shape, cfg) -> dict:
+    """The operations the function needs over the f32 CUDA cores' peak, and
+    each input read and output written once over the memory rate.  The
+    operations are the fewer of two ways to compute it: the chunked form at
+    the kernel's chunk, with the masked scores C·Bᵀ (upper half skipped)
+    formed once per (batch, chunk) since every head shares B and C, and
+    per head the decay-weighted scores times dtx, the inter term and the
+    carry; or the sequential recurrence at 5·N·P a step and head."""
+    from repro_torch.models.ssm import ssm_dims
+    _, _, b, s, _ = shape
+    _, H, P, N = ssm_dims(cfg)
+    lens = [min(SCAN_CHUNK, s - t0) for t0 in range(0, s, SCAN_CHUNK)]
+    chunked = b * sum(L * (L + 1) * N + H * (L * (L + 1) * P + 4 * L * N * P)
+                      for L in lens)
+    ops_ = min(chunked, b * H * s * 5 * N * P)
+    nbytes = 4 * b * s * (2 * H * P + H + 2 * N)
+    ops_ms, bytes_ms = ops_ / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"ops": ops_, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def scan_timings(rows: list[dict], cfg) -> None:
+    from repro_torch.kernels.mamba_scan import mamba_scan_kernel
+    from repro_torch.kernels.ref import mamba_scan_ref
+    print("[time] library: none; no single PyTorch call computes the SSD "
+          "scan")
+    for i, (shape, row) in enumerate(zip(SCAN_SHAPES, rows)):
+        s = shape[3]
+        dtx, a, Bm, Cm = scan_inputs(i, shape, cfg)
+        row.update(scan_bounds(shape, cfg))
+        row["ms"] = cuda_ms(lambda: mamba_scan_kernel(dtx, a, Bm, Cm))
+        plain_iters = 2 if s >= 1000 else 5   # one launch-bound step per t
+        row["plain_ms"] = cuda_ms(lambda: mamba_scan_ref(dtx, a, Bm, Cm),
+                                  iters=plain_iters, warmup=1)
+        row["library_ms"] = None
+        print(f"[time] {row['name']:16s} x{row['per_forward']:<2d} kernel "
+              f"{row['ms']:.4f} ms ({row['ops'] / row['ms'] / 1e9:.2f} "
+              f"TFLOP/s)  plain {row['plain_ms']:.3f}  bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']})")
+        del dtx, a, Bm, Cm
+
+
+def lm_record(*parts: dict) -> dict:
+    return {k: v for part in parts for k, v in part.items()
+            if k not in ("model", "net", "batch")}
 
 
 def per_forward(rows: list[dict], key: str) -> float:
@@ -691,53 +909,106 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     cfg = get_config(LM_CONFIG)
-    flash_rows = flash_check(cfg)
-    lm = prefill_path(cfg)
-    served = serve_path(cfg, lm)
-    flash_timings(flash_rows, cfg)
-    lm_times = lm_timings(cfg, lm)
+    expect = {"flash_attention": cfg.num_layers}
+    flash_rows = flash_check(cfg, FLASH_SHAPES, SEED + 200)
+    lm = prefill_path(cfg, PREFILL_S, expect)
+    served = serve_path(cfg, lm, expect)
+    flash_timings(flash_rows, cfg, FLASH_SHAPES, SEED + 200)
+    lm_times = lm_timings(cfg, lm, PREFILL_S)
+    del lm["model"], lm["net"], lm["batch"]
+    torch.cuda.empty_cache()
+
+    from repro_torch.models.api import hybrid_units
+    hcfg = get_config(HYBRID_CONFIG)
+    units, per_unit = hybrid_units(hcfg)
+    h_expect = {"mamba_scan": units * per_unit, "flash_attention": units}
+    scan_rows = scan_check(hcfg)
+    h_flash_rows = flash_check(hcfg, HYBRID_FLASH_SHAPES, SEED + 300)
+    hlm = prefill_path(hcfg, HYBRID_PREFILL_S, h_expect)
+    h_served = serve_path(hcfg, hlm, h_expect)
+    # The f32 twin: full width cut to one unit, held at every position.
+    tcfg = dataclasses.replace(hcfg, name=f"{hcfg.name}-f32-twin",
+                               num_layers=hcfg.hybrid_attn_every,
+                               dtype="float32", param_dtype="float32")
+    t_units, t_per_unit = hybrid_units(tcfg)
+    t_expect = {"mamba_scan": t_units * t_per_unit,
+                "flash_attention": t_units}
+    tlm = prefill_path(tcfg, HYBRID_PREFILL_S, t_expect, limit=TWIN_ATOL,
+                       every_position=True)
+    twin = lm_record(tlm, serve_path(tcfg, tlm, t_expect, limit=TWIN_ATOL))
+    del tlm
+    torch.cuda.empty_cache()
+    scan_timings(scan_rows, hcfg)
+    flash_timings(h_flash_rows, hcfg, HYBRID_FLASH_SHAPES, SEED + 300)
+    h_times = lm_timings(hcfg, hlm, HYBRID_PREFILL_S)
 
     check(sum(r["per_forward"] for r in rows) == CONVS_PER_FORWARD,
           "CONV_SHAPES do not add up to one forward")
     check(sum(r["per_forward"] for r in flash_rows) == cfg.num_layers,
           "FLASH_SHAPES do not add up to one prefill forward")
-    f_ops_ms = per_forward(flash_rows, "ops_ms")
-    f_bytes_ms = per_forward(flash_rows, "bytes_ms")
-    ops_ms, bytes_ms = per_forward(rows, "ops_ms"), per_forward(rows,
-                                                                "bytes_ms")
+    check(sum(r["per_forward"] for r in h_flash_rows) == units,
+          "HYBRID_FLASH_SHAPES do not add up to one prefill forward")
+    check(sum(r["per_forward"] for r in scan_rows) == units * per_unit,
+          "SCAN_SHAPES do not add up to one prefill forward")
+
+    def totals(rs: list[dict]) -> dict:
+        """A kernel's numbers summed over the launches of one forward; no
+        library time if a shape has none."""
+        ops_ms, bytes_ms = per_forward(rs, "ops_ms"), per_forward(rs,
+                                                                  "bytes_ms")
+        no_library = any(r["library_ms"] is None for r in rs)
+        return {"ms": per_forward(rs, "ms"),
+                "plain_ms": per_forward(rs, "plain_ms"),
+                "bound_ms": per_forward(rs, "bound_ms"),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": (None if no_library
+                               else per_forward(rs, "library_ms"))}
+
+    h_flash = totals(h_flash_rows)
     kernels = {"kernels": [{
         "name": "fused_conv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_conv.cu",
         "replaces": "src/repro/kernels/fused_conv.py:82",
         "launches": model["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": per_forward(rows, "ms"),
-        "plain_ms": per_forward(rows, "plain_ms"),
-        "bound_ms": per_forward(rows, "bound_ms"),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": per_forward(rows, "library_ms"),
+        **totals(rows),
         "times_are": f"sums over the {CONVS_PER_FORWARD} launches of one "
                      f"batch-{BATCH} forward; per shape in chip_smoke.json",
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
-        "launches": lm["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
-        "ms": per_forward(flash_rows, "ms"),
-        "plain_ms": per_forward(flash_rows, "plain_ms"),
-        "bound_ms": per_forward(flash_rows, "bound_ms"),
-        "bound_by": "operations" if f_ops_ms >= f_bytes_ms else "bytes",
-        "library_ms": per_forward(flash_rows, "library_ms"),
+        "launches": lm["launches"]["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in flash_rows + h_flash_rows),
+        **totals(flash_rows),
         "times_are": f"sums over the {cfg.num_layers} launches of one "
                      f"1x{PREFILL_S} {cfg.name} prefill; per shape in "
                      f"chip_smoke.json",
+        hcfg.name: {"launches": hlm["launches"]["flash_attention"],
+                    **h_flash,
+                    "times_are": f"sums over the {units} launches of one "
+                                 f"1x{HYBRID_PREFILL_S} prefill"},
+    }, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:62",
+        "launches": hlm["launches"]["mamba_scan"],
+        "max_abs_err": max(r["max_abs_err"] for r in scan_rows),
+        **totals(scan_rows),
+        "library": "none: no single PyTorch call computes the SSD scan",
+        "times_are": f"sums over the {units * per_unit} launches of one "
+                     f"1x{HYBRID_PREFILL_S} {hcfg.name} prefill; per shape "
+                     f"in chip_smoke.json",
     }]}
-    lm_record = {k: v for k, v in {**lm, **served, **lm_times}.items()
-                 if k not in ("model", "net", "batch")}
+
     record = {"card": smi, "torch": torch.__version__,
               "build_s": build_s, "shapes": rows, **fwd, **model,
-              "flash_shapes": flash_rows, cfg.name: lm_record, **kernels}
+              "flash_shapes": flash_rows,
+              cfg.name: lm_record(lm, served, lm_times),
+              "scan_shapes": scan_rows, "hybrid_flash_shapes": h_flash_rows,
+              hcfg.name: lm_record(hlm, h_served, h_times),
+              f"{hcfg.name}_f32_twin": twin, **kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -746,7 +1017,12 @@ def main() -> int:
           f"fused_conv {kernels['kernels'][0]['ms']:.3f} ms per forward; "
           f"{cfg.name} prefill 1x{PREFILL_S} {lm_times['prefill_ms']:.2f} ms "
           f"with flash_attention {kernels['kernels'][1]['ms']:.2f} ms; decode "
-          f"step {lm_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}")
+          f"step {lm_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
+          f"{hcfg.name} prefill 1x{HYBRID_PREFILL_S} "
+          f"{h_times['prefill_ms']:.2f} ms with mamba_scan "
+          f"{kernels['kernels'][2]['ms']:.2f} ms and flash_attention "
+          f"{h_flash['ms']:.2f} ms; decode step "
+          f"{h_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}")
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

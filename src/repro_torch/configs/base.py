@@ -1,6 +1,7 @@
 """The fields of ``ModelConfig`` that the ported paths read (the ResNet18
-CNN and the decoder-only LM), under the same names and with the same
-defaults as in the JAX package's config, plus ``get_config``."""
+CNN, the decoder-only LM and the Mamba2 hybrid), under the same names and
+with the same defaults as in the JAX package's config, plus
+``get_config``."""
 
 from __future__ import annotations
 
@@ -45,6 +46,14 @@ class ModelConfig:
     # --- MoE (read only to refuse it: not ported) ---
     moe_num_experts: int = 0
 
+    # --- SSM / hybrid (zamba2: mamba2 + shared attention) ---
+    ssm_state_dim: int = 0
+    ssm_conv_width: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    hybrid_attn_every: int = 0        # a shared attn block every N ssm layers
+
     # --- norm/numerics ---
     norm_eps: float = 1e-6
     dtype: str = "float32"            # activation/computation dtype
@@ -78,13 +87,18 @@ class ModelConfig:
             dtype="float32",
             param_dtype="float32",
         )
+        if self.ssm_state_dim:
+            small.update(ssm_state_dim=16, ssm_head_dim=16, ssm_chunk=16)
+        if self.hybrid_attn_every:
+            small.update(hybrid_attn_every=2)
         if self.sliding_window:
             small.update(sliding_window=8)
         return dataclasses.replace(self, **small)
 
 
 _MODULE_FOR = {"resnet18": "repro_torch.configs.resnet18",
-               "gemma2-2b": "repro_torch.configs.gemma2_2b"}
+               "gemma2-2b": "repro_torch.configs.gemma2_2b",
+               "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b"}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -93,6 +107,7 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULE_FOR:
         raise KeyError(
             f"no port of config {name!r}; the port serves {sorted(_MODULE_FOR)}"
-            " (the other LM configs arrive with ROADMAP queue 1, items 9-11)")
+            " (the other LM configs arrive with ROADMAP queue 1, items 9 and"
+            " 11)")
     cfg: ModelConfig = importlib.import_module(_MODULE_FOR[name]).CONFIG
     return cfg.smoke() if smoke else cfg

@@ -31,6 +31,8 @@ SIGNATURES = {
     "flash_attention_fwd": (_int, [_ptr] * 4 + [_int] * 7
                             + [ctypes.c_float, _int, _ptr]),
     "flash_attention_error_string": (ctypes.c_char_p, [_int]),
+    "mamba_scan_f32": (_int, [_ptr] * 5 + [_int] * 5 + [_ptr]),
+    "mamba_scan_error_string": (ctypes.c_char_p, [_int]),
 }
 
 

@@ -40,7 +40,7 @@
 //     alpha = exp(-1e30 - m) = 0 wipes; keys past T (the ragged edge) are
 //     -inf and add nothing at all.  The final divide is by max(l, 1e-30).
 // Shared memory is 4 * (2*68*D + 64*D + 64*68) bytes: 222,208 at D = 256,
-// so one block per SM.  What it leaves on the table: the tensor cores
+// so one block per SM; 81,408 at zamba2's D = 80, two.  What it leaves on the table: the tensor cores
 // (bf16 wgmma or mma.sync), TMA loads and a double-buffered K/V ring that
 // overlaps the next tile's loads with this tile's math, more than one block
 // per SM, and split-KV for the single-query decode step.
@@ -89,8 +89,9 @@ constexpr int smem_floats() {
 template <typename Tin, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_fwd_kernel(const FlashArgs a) {
-  // Each thread owns output columns c(m, e) = m*16*VEC + tx*VEC + e.
-  constexpr int VEC = D >= 64 ? 4 : D / 16;
+  // Each thread owns output columns c(m, e) = m*16*VEC + tx*VEC + e: VEC
+  // is the widest of 4, 2 and 1 that divides D / 16 (1 at D = 80).
+  constexpr int VEC = (D / 16) % 4 == 0 ? 4 : (D / 16) % 2 == 0 ? 2 : 1;
   constexpr int NCH = D / (16 * VEC);
   constexpr int DC = NCH * VEC;             // = D / 16
   static_assert(D % 16 == 0 && DC == D / 16, "head dim");
@@ -273,6 +274,7 @@ int dispatch(const FlashArgs& a, int BH, int D, cudaStream_t stream) {
     case 16: return launch<Tin, 16>(a, BH, stream);
     case 32: return launch<Tin, 32>(a, BH, stream);
     case 64: return launch<Tin, 64>(a, BH, stream);
+    case 80: return launch<Tin, 80>(a, BH, stream);
     case 128: return launch<Tin, 128>(a, BH, stream);
     case 256: return launch<Tin, 256>(a, BH, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -283,7 +285,8 @@ int dispatch(const FlashArgs& a, int BH, int D, cudaStream_t stream) {
 
 // Launches on `stream` and returns the CUDA error (0 on success).  q, k, v
 // and o are contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1);
-// the caller checks shapes, BH % BKV == 0, D in {16, 32, 64, 128, 256},
+// the caller checks shapes, BH % BKV == 0, D in {16, 32, 64, 80, 128,
+// 256},
 // BH <= 65535 and every index below 2**31.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int BH, int BKV,

@@ -17,7 +17,8 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the head dims the kernel is built for
+# the head dims the kernel is built for
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _INDEX_LIMIT = 2**31                 # the kernel indexes with 32-bit ints
 _GRID_Y_LIMIT = 65535                # one grid row per query head
 

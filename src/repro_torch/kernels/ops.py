@@ -5,9 +5,9 @@ tensor goes to the hand-written kernel, which launches or raises.  The one
 way to run the plain version on a CUDA tensor is the explicit ``plain()``
 context, which exists to hold a whole model against its plain self on the
 card; the model path never enters it.  The TPU tiling knobs of the JAX
-wrappers (``tile_h``, ``tile_w``, ``cout_block``, ``block_q``, ``block_k``)
-have no counterpart: the CUDA kernels fix their own tiles and mask ragged
-edges.
+wrappers (``tile_h``, ``tile_w``, ``cout_block``, ``block_q``, ``block_k``,
+``chunk``) have no counterpart: the CUDA kernels fix their own tiles and
+mask ragged edges.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ import torch
 from repro_torch.kernels.flash_attention import (
     check_every_row_sees_a_key, flash_attention_kernel)
 from repro_torch.kernels.fused_conv import fused_conv_kernel
-from repro_torch.kernels.ref import attention_ref, fused_conv_ref
+from repro_torch.kernels.mamba_scan import mamba_scan_kernel
+from repro_torch.kernels.ref import (attention_ref, fused_conv_ref,
+                                     mamba_scan_ref)
 
 _plain = False
 
@@ -69,3 +71,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              v.transpose(1, 2).reshape(Bt * KV, T, D).contiguous(),
              causal=causal, window=window, softcap=softcap)
     return out.reshape(Bt, H, S, D).transpose(1, 2)
+
+
+def mamba_scan(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor) -> torch.Tensor:
+    """The SSD recurrence ``S_t = e^{a_t}·S_{t-1} + dtx_t ⊗ B_t``,
+    ``y_t = S_t·C_t``: dtx (b, S, H, P), a_log (b, S, H), B/C (b, S, N)
+    shared by all heads, all f32 → y (b, S, H, P) in f32."""
+    fn = mamba_scan_ref if _use_plain(dtx) else mamba_scan_kernel
+    return fn(dtx.contiguous(), a_log.contiguous(), B.contiguous(),
+              C.contiguous())

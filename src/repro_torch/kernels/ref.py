@@ -54,3 +54,23 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hst,htd->hsd", p, vf).to(q.dtype)
+
+
+def mamba_scan_ref(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor) -> torch.Tensor:
+    """The SSD recurrence, one step at a time in f32:
+    ``S_t = e^{a_t}·S_{t-1} + dtx_t ⊗ B_t``, ``y_t = S_t·C_t`` per (batch,
+    head), with the (P, N) state starting at 0.  dtx: (b, S, H, P); a_log:
+    (b, S, H); B/C: (b, S, N), shared by all heads.  Returns y: (b, S, H,
+    P) in f32."""
+    b, S, H, P = dtx.shape
+    N = B.shape[-1]
+    dtx, B, C = dtx.float(), B.float(), C.float()
+    decay = a_log.float().exp()
+    state = torch.zeros((b, H, P, N), dtype=torch.float32, device=dtx.device)
+    y = torch.empty((b, S, H, P), dtype=torch.float32, device=dtx.device)
+    for t in range(S):
+        state.mul_(decay[:, t, :, None, None])
+        state.addcmul_(dtx[:, t, :, :, None], B[:, t, None, None, :])
+        y[:, t] = (state @ C[:, t, None, :, None])[..., 0]
+    return y

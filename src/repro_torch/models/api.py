@@ -1,15 +1,19 @@
 """Model assembly: config → (init, forward, init_cache, decode_step), as in
-the JAX package.  The port serves the CNN family (``models/resnet.py``) and
+the JAX package.  The port serves the CNN family (``models/resnet.py``),
 the decoder-only transformer (dense, and vlm without prefix tokens), e.g.
-gemma2-2b; the other families come with later slices of the port.
+gemma2-2b, and the Mamba2 hybrid, zamba2; the other families come with
+later slices of the port.
 
-The decoder's layers are STACKED as in JAX: every leaf of
-``params["layers"]`` has a leading ``num_layers`` axis.  JAX scans over
-that axis; the port loops over it in Python, handing each layer its own
-sliding window (``cfg.window_for_layer``).  ``forward`` is the prefill,
-whose every self-attention runs through ``ops.flash_attention``;
-``decode_step`` is the one-token serving path against a pre-allocated KV
-cache, which it updates in place.
+Layer stacks are STACKED as in JAX: every leaf of the decoder's
+``params["layers"]`` has a leading ``num_layers`` axis, and the hybrid's
+``params["mamba"]`` leaves a leading ``(units, mamba per unit)`` pair of
+axes and its ``params["attn"]`` a leading ``units`` axis.  JAX scans over
+those axes; the port loops over them in Python, handing each decoder
+layer its own sliding window (``cfg.window_for_layer``).  ``forward`` is
+the prefill, whose every self-attention runs through
+``ops.flash_attention`` and every Mamba2 scan through ``ops.mamba_scan``;
+``decode_step`` is the one-token serving path against a pre-allocated
+KV/state cache, which it updates in place.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = dict[str, Any]
 
@@ -129,14 +134,16 @@ class DecoderLM(nn.Module):
     ``device`` defaults to ``cuda`` and raises if no card is present; pass
     ``device="cpu"`` for the plain CPU path."""
 
+    init_params = staticmethod(init_decoder_params)
+
     def __init__(self, cfg: ModelConfig, *, params: Params | None = None,
                  seed: int = 0, device=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         if params is None:
-            params = init_decoder_params(torch.Generator().manual_seed(seed),
-                                         cfg, device)
+            params = self.init_params(torch.Generator().manual_seed(seed),
+                                      cfg, device)
         self.params = L.tree_to(params, device)
         for name, t in L.flatten_tree(self.params).items():
             self.register_buffer(name, t)
@@ -216,6 +223,120 @@ def _build_decoder_only(cfg: ModelConfig, device=None) -> Model:
 
 
 # ---------------------------------------------------------------------------
+# hybrid (zamba2): units of (E-1) mamba + 1 attn
+# ---------------------------------------------------------------------------
+
+def hybrid_units(cfg: ModelConfig) -> tuple[int, int]:
+    """(U, K): U units of K Mamba2 blocks and one attention block."""
+    E = cfg.hybrid_attn_every
+    if not E or cfg.num_layers % E:
+        raise ValueError(f"hybrid layers must tile into units: "
+                         f"{cfg.num_layers} layers, attention every {E}")
+    return cfg.num_layers // E, E - 1
+
+
+def init_hybrid_params(gen: torch.Generator, cfg: ModelConfig,
+                       device=None) -> Params:
+    """The JAX package's hybrid tree: ``embed``, ``final_norm``, ``mamba``
+    with leaves stacked ``(U, K, ...)`` and ``attn`` stacked ``(U, ...)``.
+    Each tensor is drawn on the CPU and moved to ``device`` before the next
+    is drawn; ``device="meta"`` draws nothing."""
+    _, pdt = _dt(cfg)
+    U, K = hybrid_units(cfg)
+    p = _init_embed(gen, cfg, pdt, device)
+    p["mamba"] = _stack_init(lambda: _stack_init(
+        lambda: B.init_mamba_block(gen, cfg, pdt, device=device), K), U)
+    p["attn"] = _stack_init(
+        lambda: B.init_attn_block(gen, cfg, pdt, device=device), U)
+    return p
+
+
+class HybridLM(DecoderLM):
+    """Holds a Mamba2 hybrid's parameter tree (zamba2), as ``DecoderLM``
+    holds a decoder's: buffers with the JAX package's keys and stacked
+    layout, drawn from ``seed`` unless ``params`` is given."""
+
+    init_params = staticmethod(init_hybrid_params)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S) → f32 logits (B, S, vocab)."""
+        return hybrid_forward(self, {"tokens": tokens})[0]
+
+
+def hybrid_forward(model: HybridLM, batch: dict[str, torch.Tensor]
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence forward (prefill): each unit's K Mamba2 blocks (one
+    ``ops.mamba_scan`` each), then its causal global attention block (one
+    ``ops.flash_attention``).  ``batch["tokens"]`` (B, S) → (f32 logits
+    (B, S, vocab), aux = 0)."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    U, K = hybrid_units(cfg)
+    tokens = batch["tokens"].to(params["embed"].device)
+    x = _embed(params, cfg, tokens).to(dt)
+    Btch, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(Btch, S)
+    for u in range(U):
+        mp = _layer(params["mamba"], u)
+        for k in range(K):
+            x = B.mamba_block(_layer(mp, k), x, cfg)
+        x, _ = B.attn_block(_layer(params["attn"], u), x, cfg,
+                            positions=positions, window=0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, cfg, x), aux
+
+
+def hybrid_init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+                      device) -> Params:
+    """``mamba``: the SSM and conv states stacked ``(U, K, ...)``;
+    ``attn``: the KV cache stacked ``(U, ...)``."""
+    dt, _ = _dt(cfg)
+    U, K = hybrid_units(cfg)
+    m = SSM.mamba2_init_cache(cfg, batch_size, dt, device)
+    a = B.init_attn_cache(cfg, batch_size, max_len, dt, device)
+    return {"mamba": {k: v[None, None].repeat(U, K, *[1] * v.dim())
+                      for k, v in m.items()},
+            "attn": {k: v[None].repeat(U, *[1] * v.dim())
+                     for k, v in a.items()}}
+
+
+def hybrid_decode_step(model: HybridLM, cache: Params, tokens: torch.Tensor,
+                       index: int) -> tuple[torch.Tensor, Params]:
+    """tokens: (B, 1) at position ``index`` → (f32 logits (B, 1, vocab),
+    cache).  The cache is updated in place and returned."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    U, K = hybrid_units(cfg)
+    index = int(index)
+    x = _embed(params, cfg, tokens.to(params["embed"].device)).to(dt)
+    mc, ac = cache["mamba"], cache["attn"]
+    for u in range(U):
+        mp = _layer(params["mamba"], u)
+        for k in range(K):
+            x, _ = B.mamba_block_decode(
+                _layer(mp, k), {"ssm": mc["ssm"][u, k],
+                                "conv": mc["conv"][u, k]}, x, cfg)
+        x, _, _ = B.attn_block_decode(
+            _layer(params["attn"], u), {"k": ac["k"][u], "v": ac["v"][u]},
+            x, cfg, index=index)
+    return _head(params, cfg, x), cache
+
+
+def _build_hybrid(cfg: ModelConfig, device=None) -> Model:
+    device = resolve_device(device)
+    hybrid_units(cfg)
+
+    def init(seed: int = 0) -> HybridLM:
+        return HybridLM(cfg, seed=seed, device=device)
+
+    def init_cache(batch_size: int, max_len: int) -> Params:
+        return hybrid_init_cache(cfg, batch_size, max_len, device)
+
+    return Model(cfg, device, init, hybrid_forward, init_cache,
+                 hybrid_decode_step)
+
+
+# ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
@@ -227,11 +348,13 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         return build_resnet_model(cfg, device)
     if cfg.family in ("dense", "vlm") and not cfg.moe_num_experts:
         return _build_decoder_only(cfg, device)
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg, device)
     item = {"moe": "item 9 (models/moe.py)",
             "dense": "item 9 (models/moe.py)",
             "audio": "item 9 (_build_encdec)",
-            "hybrid": "item 10 (models/ssm.py, _build_hybrid)",
-            "ssm": "items 10-11 (models/ssm.py, models/xlstm.py)"}
+            "ssm": "item 11 (models/xlstm.py, _build_xlstm)"}
     raise NotImplementedError(
         f"family {cfg.family!r} with {cfg.moe_num_experts} experts is not "
-        f"ported yet: ROADMAP queue 1 {item.get(cfg.family, 'items 9-11')}")
+        f"ported yet: ROADMAP queue 1 "
+        f"{item.get(cfg.family, 'items 9 and 11')}")

@@ -1,7 +1,9 @@
-"""The attention (+ gated MLP) residual block of the decoder-only LM:
-per-layer init, full-sequence forward and one-token decode against a KV
-cache, as in the JAX package's ``repro.models.blocks``.  Pre-norm residual,
-with gemma2's post-norms (``ln1_post``, ``ln2_post``) when the config asks.
+"""The residual blocks of the LMs, as in the JAX package's
+``repro.models.blocks``: the attention (+ gated MLP) block of the
+decoder-only LM and of the hybrid, with per-layer init, full-sequence
+forward and one-token decode against a KV cache (pre-norm residual, with
+gemma2's post-norms ``ln1_post``, ``ln2_post`` when the config asks), and
+the pre-norm residual around the hybrid's Mamba2 cell.
 
 The MoE FFN and cross-attention of the other block kinds are not ported
 (ROADMAP queue 1 item 9); asking for them raises ``NotImplementedError``.
@@ -14,6 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = dict[str, Any]
 
@@ -110,3 +113,24 @@ def attn_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg, *,
     if "ln2_post" in p:
         h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
     return x + h, cache, aux
+
+
+# ---- mamba block (pre-norm residual around the cell) ----
+
+def init_mamba_block(gen: torch.Generator, cfg, dtype: torch.dtype,
+                     device=None) -> Params:
+    return {"ln": L.init_rmsnorm(cfg.d_model, dtype, device),
+            "cell": SSM.init_mamba2(gen, cfg, dtype, device)}
+
+
+def mamba_block(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    return x + SSM.mamba2_forward(p["cell"],
+                                  L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
+
+
+def mamba_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg
+                       ) -> tuple[torch.Tensor, Params]:
+    """One-token decode; updates ``cache`` in place and returns it."""
+    y, c = SSM.mamba2_decode_step(p["cell"], cache,
+                                  L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
+    return x + y, c

@@ -176,6 +176,16 @@ def test_attention_ref_window_softcap_matches_jax(window, softcap):
     _close(out, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_head_dim_80_matches_jax(dtype, causal):
+    """zamba2's heads: D = 80, as many KV heads as query heads, no
+    softcap."""
+    out, ref = _both(*_qkv(4, 4, 96, 96, 80, seed=11), dtype=dtype,
+                     causal=causal)
+    _close(out, ref, atol=ATOL if dtype == torch.float32 else BF16_ATOL)
+
+
 def test_attention_ref_bf16_matches_jax():
     out, ref = _both(*_qkv(2, 2, 128, 128, 64, seed=6), dtype=torch.bfloat16)
     assert out.dtype == torch.bfloat16
@@ -217,6 +227,7 @@ def test_attention_ref_rowsum(BH, BKV, D, seed):
     (4, 2, 128, 128, 32, True, 0, 0.0),
     (2, 1, 64, 128, 32, True, 0, 50.0),
     (4, 2, 128, 128, 16, True, 48, 50.0),
+    (2, 2, 128, 128, 80, True, 0, 0.0),      # zamba2's head dim
 ])
 def test_plain_version_matches_pallas_kernel(BH, BKV, S, T, D, causal, window,
                                              softcap):

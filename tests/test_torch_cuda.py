@@ -15,8 +15,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_conv as fc
+from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_ref, fused_conv_ref
+from repro_torch.kernels.ref import (attention_ref, fused_conv_ref,
+                                     mamba_scan_ref)
 from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
@@ -104,6 +106,8 @@ def _qkv(dev, BH, BKV, S, T, D, dtype):
     (4, 2, 96, 96, 16, True, 8, 50.0),        # smoke head dim and window
     (4, 2, 52, 37, 16, True, 16, 50.0),       # last row sees one key
     (4, 2, 52, 37, 16, False, 16, 0.0),       # the same, non-causal
+    (8, 8, 200, 200, 80, True, 0, 0.0),       # zamba2 heads, ragged S
+    (6, 3, 100, 77, 80, False, 0, 30.0),      # D = 80, GQA, ragged T
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, BH, BKV, S, T, D, causal,
                                     window, softcap):
@@ -160,5 +164,100 @@ def test_forward_launches_once_per_layer_and_plain_none(cuda, name):
         plain, _ = model.forward(net, batch)
     torch.cuda.synchronize()
     assert FA.launches == before
+    atol = 1e-4 if cfg.dtype == "float32" else 0.25
+    assert (logits - plain).abs().max().item() <= atol
+
+
+# --- mamba scan ------------------------------------------------------------------
+
+# Per element against the plain version, both in f32 on the card: the JAX
+# test's 1e-4.  The chunked kernel sums in another order than the
+# step-by-step plain version; the state forgets at e^{a} per step, so the
+# reordering error does not grow with S.
+SCAN_ATOL = 1e-4
+
+
+def _scan_inputs(dev, b, S, H, P, N, a_log=None):
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + S + H + P + N)
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device=dev)
+    a = (-torch.nn.functional.softplus(randn(b, S, H)) if a_log is None
+         else torch.full((b, S, H), a_log, device=dev))
+    return randn(b, S, H, P) * 0.3, a, randn(b, S, N) * 0.3, \
+        randn(b, S, N) * 0.3
+
+
+@pytest.mark.parametrize("b,S,H,P,N", [
+    (2, 64, 3, 16, 8),        # the grid of tests/test_kernels.py
+    (1, 128, 2, 8, 4),
+    (4, 64, 80, 64, 64),      # zamba2's heads at the serving prompt
+    (1, 1000, 4, 64, 64),     # ragged last chunk
+    (2, 37, 5, 33, 17),       # ragged everything
+    (1, 1, 1, 1, 1),
+])
+def test_scan_kernel_matches_plain(cuda, b, S, H, P, N):
+    dtx, a_log, Bm, Cm = _scan_inputs(cuda, b, S, H, P, N)
+    before = MS.launches
+    out = ops.mamba_scan(dtx, a_log, Bm, Cm)
+    torch.cuda.synchronize()
+    assert MS.launches == before + 1
+    ref = mamba_scan_ref(dtx, a_log, Bm, Cm)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=SCAN_ATOL, rtol=0)
+
+
+def test_scan_kernel_full_reset(cuda):
+    """a_log = -30: y_t = (C_t·B_t)·dtx_t, e^{cum} underflowing to 0."""
+    dtx, a_log, Bm, Cm = _scan_inputs(cuda, 1, 200, 3, 64, 64, a_log=-30.0)
+    out = MS.mamba_scan_kernel(dtx, a_log, Bm, Cm)
+    expect = (Cm * Bm).sum(-1)[..., None, None] * dtx
+    torch.testing.assert_close(out, expect, atol=SCAN_ATOL, rtol=0)
+
+
+def test_scan_kernel_refuses_what_it_cannot_take(cuda):
+    dtx, a_log, Bm, Cm = _scan_inputs(cuda, 1, 16, 2, 8, 4)
+    with pytest.raises(TypeError, match="float32"):
+        MS.mamba_scan_kernel(dtx.double(), a_log, Bm, Cm)
+    with pytest.raises(ValueError, match="on cpu"):
+        MS.mamba_scan_kernel(dtx, a_log, Bm.cpu(), Cm)
+    with pytest.raises(ValueError, match="4-d"):
+        MS.mamba_scan_kernel(dtx[0], a_log, Bm, Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        MS.mamba_scan_kernel(dtx, a_log, Bm.transpose(1, 2).contiguous()
+                             .transpose(1, 2), Cm)
+    with pytest.raises(ValueError, match="shape"):
+        MS.mamba_scan_kernel(dtx, a_log[:, :8], Bm, Cm)
+    big = _scan_inputs(cuda, 1, 4, 1, 65, 4)
+    with pytest.raises(ValueError, match="P, N <= 64"):
+        MS.mamba_scan_kernel(*big)
+
+
+@pytest.mark.parametrize("name,layers", [("zamba2-2.7b-smoke", 4),
+                                         ("zamba2-2.7b", 6)])
+def test_hybrid_forward_launches_per_layer_and_plain_none(cuda, name,
+                                                          layers):
+    """One mamba_scan launch per Mamba2 layer and one flash launch per
+    attention block in each forward; none under ``ops.plain()``, whose
+    logits agree with the kernel path's.  zamba2 at full width is cut to
+    one unit (5 Mamba2 layers and one attention block) to save time."""
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    units = layers // cfg.hybrid_attn_every
+    model = build_model(cfg)
+    net = model.init(seed=0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                                     device=cuda)}
+    for _ in range(2):
+        before = (MS.launches, FA.launches)
+        logits, _ = model.forward(net, batch)
+        torch.cuda.synchronize()
+        assert (MS.launches - before[0], FA.launches - before[1]) == \
+            (layers - units, units)
+    before = (MS.launches, FA.launches)
+    with ops.plain():
+        plain, _ = model.forward(net, batch)
+    torch.cuda.synchronize()
+    assert (MS.launches, FA.launches) == before
     atol = 1e-4 if cfg.dtype == "float32" else 0.25
     assert (logits - plain).abs().max().item() <= atol

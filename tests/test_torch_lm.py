@@ -143,7 +143,8 @@ def test_engine_refuses_what_lockstep_cannot_take(case):
 
 # --- configs and the full-width tree -------------------------------------------
 
-@pytest.mark.parametrize("name", ["gemma2-2b", "gemma2-2b-smoke"])
+@pytest.mark.parametrize("name", ["gemma2-2b", "gemma2-2b-smoke",
+                                  "zamba2-2.7b", "zamba2-2.7b-smoke"])
 def test_config_matches_jax(name):
     cfg, ref = get_config(name), jax_get_config(name)
     for f in dataclasses.fields(cfg):
@@ -252,7 +253,7 @@ def test_lm_entry_points_need_a_card_unless_cpu(monkeypatch, entry):
 
 @pytest.mark.parametrize("family,experts,item", [
     ("moe", 4, "item 9"), ("dense", 4, "item 9"), ("audio", 0, "item 9"),
-    ("hybrid", 0, "item 10"), ("ssm", 0, "items 10-11")])
+    ("moe", 0, "item 9"), ("ssm", 0, "item 11")])
 def test_unported_families_raise(family, experts, item):
     cfg = ModelConfig(name="x", family=family, moe_num_experts=experts)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):

@@ -241,7 +241,7 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch, entry):
 
 def test_other_families_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ModelConfig(name="x", family="hybrid"), device="cpu")
+        build_model(ModelConfig(name="x", family="ssm"), device="cpu")
     with pytest.raises(KeyError):
         get_config("qwen3-32b")
 
