@@ -1,5 +1,5 @@
 """The fields of ``ModelConfig`` that the ported paths read (the ResNet18
-CNN, the decoder-only LM and the Mamba2 hybrid), under the same names and
+CNN, the decoder-only LM, the Mamba2 hybrid and xLSTM), under the same names and
 with the same defaults as in the JAX package's config, plus
 ``get_config``."""
 
@@ -54,6 +54,9 @@ class ModelConfig:
     ssm_chunk: int = 128
     hybrid_attn_every: int = 0        # a shared attn block every N ssm layers
 
+    # --- xLSTM ---
+    xlstm_slstm_every: int = 0        # an sLSTM block every N layers (else mLSTM)
+
     # --- norm/numerics ---
     norm_eps: float = 1e-6
     dtype: str = "float32"            # activation/computation dtype
@@ -91,6 +94,8 @@ class ModelConfig:
             small.update(ssm_state_dim=16, ssm_head_dim=16, ssm_chunk=16)
         if self.hybrid_attn_every:
             small.update(hybrid_attn_every=2)
+        if self.xlstm_slstm_every:
+            small.update(xlstm_slstm_every=2)
         if self.sliding_window:
             small.update(sliding_window=8)
         return dataclasses.replace(self, **small)
@@ -98,7 +103,8 @@ class ModelConfig:
 
 _MODULE_FOR = {"resnet18": "repro_torch.configs.resnet18",
                "gemma2-2b": "repro_torch.configs.gemma2_2b",
-               "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b"}
+               "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+               "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b"}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -107,7 +113,6 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULE_FOR:
         raise KeyError(
             f"no port of config {name!r}; the port serves {sorted(_MODULE_FOR)}"
-            " (the other LM configs arrive with ROADMAP queue 1, items 9 and"
-            " 11)")
+            " (the other LM configs arrive with ROADMAP queue 1, item 9)")
     cfg: ModelConfig = importlib.import_module(_MODULE_FOR[name]).CONFIG
     return cfg.smoke() if smoke else cfg

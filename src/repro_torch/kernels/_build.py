@@ -33,6 +33,8 @@ SIGNATURES = {
     "flash_attention_error_string": (ctypes.c_char_p, [_int]),
     "mamba_scan_f32": (_int, [_ptr] * 5 + [_int] * 5 + [_ptr]),
     "mamba_scan_error_string": (ctypes.c_char_p, [_int]),
+    "mlstm_scan_f32": (_int, [_ptr] * 6 + [_int] * 4 + [_ptr]),
+    "mlstm_scan_error_string": (ctypes.c_char_p, [_int]),
 }
 
 

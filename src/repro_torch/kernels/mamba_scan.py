@@ -15,11 +15,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._operands import check_f32_operands
 
 launches = 0
 
 MAX_STATE = 64            # P and N the kernel holds, each at most this
-_INDEX_LIMIT = 2**31      # the kernel indexes with 32-bit ints
 
 
 def mamba_scan_kernel(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
@@ -28,31 +28,15 @@ def mamba_scan_kernel(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     contiguous, on one CUDA device, with P and N at most 64.  Returns y:
     (b, S, H, P) float32, the SSD recurrence's output."""
     global launches
-    if dtx.device.type != "cuda":
-        raise ValueError(f"mamba_scan_kernel runs on CUDA tensors, dtx is on "
-                         f"{dtx.device}")
     if dtx.dim() != 4 or a_log.dim() != 3 or B.dim() != 3 or C.dim() != 3:
         raise ValueError(f"mamba_scan: dtx must be 4-d and a_log, B, C 3-d, "
                          f"got {tuple(dtx.shape)}, {tuple(a_log.shape)}, "
                          f"{tuple(B.shape)}, {tuple(C.shape)}")
     b, S, H, P = dtx.shape
     N = B.shape[2]
-    want = {"a_log": (b, S, H), "B": (b, S, N), "C": (b, S, N)}
-    for name, t in (("dtx", dtx), ("a_log", a_log), ("B", B), ("C", C)):
-        if t.device != dtx.device:
-            raise ValueError(f"mamba_scan: {name} is on {t.device}, dtx on "
-                             f"{dtx.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"mamba_scan: the kernel takes float32 only, "
-                            f"{name} is {t.dtype}")
-        if name in want and tuple(t.shape) != want[name]:
-            raise ValueError(f"mamba_scan: {name} has shape "
-                             f"{tuple(t.shape)}, expected {want[name]}")
-        if not t.is_contiguous():
-            raise ValueError(f"mamba_scan: {name} must be contiguous")
-        if t.numel() >= _INDEX_LIMIT:
-            raise ValueError(f"mamba_scan: {name} has {t.numel()} elements, "
-                             f"the kernel indexes below {_INDEX_LIMIT}")
+    check_f32_operands("mamba_scan", {"dtx": dtx, "a_log": a_log, "B": B,
+                                      "C": C},
+                       {"a_log": (b, S, H), "B": (b, S, N), "C": (b, S, N)})
     if min(b, S, H, P, N) < 1 or P > MAX_STATE or N > MAX_STATE:
         raise ValueError(f"mamba_scan: b {b}, S {S}, H {H}, P {P}, N {N}: "
                          f"needs each >= 1 and P, N <= {MAX_STATE}")

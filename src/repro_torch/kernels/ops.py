@@ -7,7 +7,10 @@ context, which exists to hold a whole model against its plain self on the
 card; the model path never enters it.  The TPU tiling knobs of the JAX
 wrappers (``tile_h``, ``tile_w``, ``cout_block``, ``block_q``, ``block_k``,
 ``chunk``) have no counterpart: the CUDA kernels fix their own tiles and
-mask ragged edges.
+mask ragged edges.  The scans' ``chunk`` in particular only tiled the
+sequence for the TPU's sequential grid; their results do not depend on it
+(the JAX tests' chunk-invariance cases), so ``mamba_scan`` and
+``mlstm_scan`` take none.
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ from repro_torch.kernels.flash_attention import (
     check_every_row_sees_a_key, flash_attention_kernel)
 from repro_torch.kernels.fused_conv import fused_conv_kernel
 from repro_torch.kernels.mamba_scan import mamba_scan_kernel
+from repro_torch.kernels.mlstm_scan import mlstm_scan_kernel
 from repro_torch.kernels.ref import (attention_ref, fused_conv_ref,
-                                     mamba_scan_ref)
+                                     mamba_scan_ref, mlstm_ref)
 
 _plain = False
 
@@ -81,3 +85,13 @@ def mamba_scan(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     fn = mamba_scan_ref if _use_plain(dtx) else mamba_scan_kernel
     return fn(dtx.contiguous(), a_log.contiguous(), B.contiguous(),
               C.contiguous())
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
+    """The stabilised mLSTM recurrence: q, k, v (b, S, H, P), i_pre and
+    f_pre (b, S, H), all f32 → h (b, S, H, P) in f32 (``ref.mlstm_ref``
+    gives the formulas)."""
+    fn = mlstm_ref if _use_plain(q) else mlstm_scan_kernel
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(),
+              i_pre.contiguous(), f_pre.contiguous())

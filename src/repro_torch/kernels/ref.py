@@ -74,3 +74,41 @@ def mamba_scan_ref(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
         state.addcmul_(dtx[:, t, :, :, None], B[:, t, None, None, :])
         y[:, t] = (state @ C[:, t, None, :, None])[..., 0]
     return y
+
+
+MLSTM_M0 = -1e30   # the stabiliser before the first step, as in JAX
+
+
+def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
+    """The stabilised mLSTM recurrence, one step at a time in f32, in the
+    order of the JAX oracle: per (batch, head), with log f = logσ(f_pre),
+
+        m_t = max(log f_t + m_{t-1}, i_t)
+        i_s = exp(i_t - m_t),  f_s = exp(log f_t + m_{t-1} - m_t)
+        C_t = f_s·C_{t-1} + i_s·v_t k_tᵀ,  n_t = f_s·n_{t-1} + i_s·k_t
+        h_t = C_t q_t / max(|n_t·q_t|, 1)
+
+    with C and n starting at 0 and m at -1e30.  q, k, v: (b, S, H, P);
+    i_pre, f_pre: (b, S, H).  Returns h: (b, S, H, P) in f32."""
+    b, S, H, P = q.shape
+    q, k, v = q.float(), k.float(), v.float()
+    i_pre = i_pre.float()
+    log_f = F.logsigmoid(f_pre.float())
+    C = torch.zeros((b, H, P, P), dtype=torch.float32, device=q.device)
+    n = torch.zeros((b, H, P), dtype=torch.float32, device=q.device)
+    m = torch.full((b, H), MLSTM_M0, dtype=torch.float32, device=q.device)
+    h = torch.empty((b, S, H, P), dtype=torch.float32, device=q.device)
+    for t in range(S):
+        lf, it = log_f[:, t], i_pre[:, t]
+        m_new = torch.maximum(lf + m, it)
+        i_s = torch.exp(it - m_new)
+        f_s = torch.exp(lf + m - m_new)
+        C = f_s[..., None, None] * C \
+            + i_s[..., None, None] * (v[:, t, :, :, None] * k[:, t, :, None, :])
+        n = f_s[..., None] * n + i_s[..., None] * k[:, t]
+        num = (C @ q[:, t, :, :, None])[..., 0]
+        den = (n * q[:, t]).sum(-1).abs().clamp_min(1.0)
+        h[:, t] = num / den[..., None]
+        m = m_new
+    return h

@@ -1,19 +1,22 @@
 """Model assembly: config → (init, forward, init_cache, decode_step), as in
 the JAX package.  The port serves the CNN family (``models/resnet.py``),
 the decoder-only transformer (dense, and vlm without prefix tokens), e.g.
-gemma2-2b, and the Mamba2 hybrid, zamba2; the other families come with
-later slices of the port.
+gemma2-2b, the Mamba2 hybrid, zamba2, and xLSTM (the ``ssm`` family with
+sLSTM blocks), xlstm-1.3b; the other families come with later slices of
+the port.
 
 Layer stacks are STACKED as in JAX: every leaf of the decoder's
-``params["layers"]`` has a leading ``num_layers`` axis, and the hybrid's
-``params["mamba"]`` leaves a leading ``(units, mamba per unit)`` pair of
-axes and its ``params["attn"]`` a leading ``units`` axis.  JAX scans over
-those axes; the port loops over them in Python, handing each decoder
-layer its own sliding window (``cfg.window_for_layer``).  ``forward`` is
-the prefill, whose every self-attention runs through
-``ops.flash_attention`` and every Mamba2 scan through ``ops.mamba_scan``;
-``decode_step`` is the one-token serving path against a pre-allocated
-KV/state cache, which it updates in place.
+``params["layers"]`` has a leading ``num_layers`` axis; the hybrid's
+``params["mamba"]`` and xLSTM's ``params["mlstm"]`` leaves a leading
+``(units, blocks per unit)`` pair of axes, and the hybrid's
+``params["attn"]`` and xLSTM's ``params["slstm"]`` a leading ``units``
+axis.  JAX scans over those axes; the port loops over them in Python,
+handing each decoder layer its own sliding window
+(``cfg.window_for_layer``).  ``forward`` is the prefill, whose every
+self-attention runs through ``ops.flash_attention``, every Mamba2 scan
+through ``ops.mamba_scan`` and every mLSTM recurrence through
+``ops.mlstm_scan``; ``decode_step`` is the one-token serving path against
+a pre-allocated KV/state cache, which it updates in place.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 
 Params = dict[str, Any]
 
@@ -209,19 +213,6 @@ def _win_mask(S: int, window: int) -> torch.Tensor:
     return torch.ones((1, S, S), dtype=torch.bool)
 
 
-def _build_decoder_only(cfg: ModelConfig, device=None) -> Model:
-    device = resolve_device(device)
-
-    def init(seed: int = 0) -> DecoderLM:
-        return DecoderLM(cfg, seed=seed, device=device)
-
-    def init_cache(batch_size: int, max_len: int) -> Params:
-        return decoder_init_cache(cfg, batch_size, max_len, device)
-
-    return Model(cfg, device, init, decoder_forward, init_cache,
-                 decoder_decode_step)
-
-
 # ---------------------------------------------------------------------------
 # hybrid (zamba2): units of (E-1) mamba + 1 attn
 # ---------------------------------------------------------------------------
@@ -322,23 +313,122 @@ def hybrid_decode_step(model: HybridLM, cache: Params, tokens: torch.Tensor,
     return _head(params, cfg, x), cache
 
 
-def _build_hybrid(cfg: ModelConfig, device=None) -> Model:
-    device = resolve_device(device)
-    hybrid_units(cfg)
+# ---------------------------------------------------------------------------
+# xLSTM: units of (E-1) mLSTM + 1 sLSTM
+# ---------------------------------------------------------------------------
 
-    def init(seed: int = 0) -> HybridLM:
-        return HybridLM(cfg, seed=seed, device=device)
+def xlstm_units(cfg: ModelConfig) -> tuple[int, int]:
+    """(U, K): U units of K mLSTM blocks and one sLSTM block."""
+    E = cfg.xlstm_slstm_every
+    if not E or cfg.num_layers % E:
+        raise ValueError(f"xLSTM layers must tile into units: "
+                         f"{cfg.num_layers} layers, sLSTM every {E}")
+    return cfg.num_layers // E, E - 1
 
-    def init_cache(batch_size: int, max_len: int) -> Params:
-        return hybrid_init_cache(cfg, batch_size, max_len, device)
 
-    return Model(cfg, device, init, hybrid_forward, init_cache,
-                 hybrid_decode_step)
+def init_xlstm_params(gen: torch.Generator, cfg: ModelConfig,
+                      device=None) -> Params:
+    """The JAX package's xLSTM tree: ``embed``, ``final_norm``, ``mlstm``
+    with leaves stacked ``(U, K, ...)`` and ``slstm`` stacked ``(U, ...)``.
+    Each tensor is drawn on the CPU and moved to ``device`` before the next
+    is drawn; ``device="meta"`` draws nothing."""
+    _, pdt = _dt(cfg)
+    U, K = xlstm_units(cfg)
+    p = _init_embed(gen, cfg, pdt, device)
+    p["mlstm"] = _stack_init(lambda: _stack_init(
+        lambda: B.init_mlstm_block(gen, cfg, pdt, device=device), K), U)
+    p["slstm"] = _stack_init(
+        lambda: B.init_slstm_block(gen, cfg, pdt, device=device), U)
+    return p
+
+
+class XLSTMLM(DecoderLM):
+    """Holds an xLSTM LM's parameter tree (xlstm-1.3b), as ``DecoderLM``
+    holds a decoder's: buffers with the JAX package's keys and stacked
+    layout, drawn from ``seed`` unless ``params`` is given."""
+
+    init_params = staticmethod(init_xlstm_params)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S) → f32 logits (B, S, vocab)."""
+        return xlstm_forward(self, {"tokens": tokens})[0]
+
+
+def xlstm_forward(model: XLSTMLM, batch: dict[str, torch.Tensor]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence forward (prefill): each unit's K mLSTM blocks (one
+    ``ops.mlstm_scan`` each), then its sLSTM block (a plain loop over
+    time).  ``batch["tokens"]`` (B, S) → (f32 logits (B, S, vocab),
+    aux = 0)."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    U, K = xlstm_units(cfg)
+    tokens = batch["tokens"].to(params["embed"].device)
+    x = _embed(params, cfg, tokens).to(dt)
+    for u in range(U):
+        mp = _layer(params["mlstm"], u)
+        for k in range(K):
+            x = B.mlstm_block(_layer(mp, k), x, cfg)
+        x = B.slstm_block(_layer(params["slstm"], u), x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, cfg, x), aux
+
+
+def xlstm_init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+                     device) -> Params:
+    """``mlstm``: C, n and m stacked ``(U, K, ...)``; ``slstm``: c, n, m
+    and h stacked ``(U, ...)``.  The state has a fixed size: ``max_len`` is
+    not read."""
+    U, K = xlstm_units(cfg)
+    m = XL.mlstm_init_cache(cfg, batch_size, device)
+    s = XL.slstm_init_cache(cfg, batch_size, device)
+    return {"mlstm": {k: v[None, None].repeat(U, K, *[1] * v.dim())
+                      for k, v in m.items()},
+            "slstm": {k: v[None].repeat(U, *[1] * v.dim())
+                      for k, v in s.items()}}
+
+
+def xlstm_decode_step(model: XLSTMLM, cache: Params, tokens: torch.Tensor,
+                      index: int) -> tuple[torch.Tensor, Params]:
+    """tokens: (B, 1) → (f32 logits (B, 1, vocab), cache).  The cache is
+    updated in place and returned; ``index`` is not read, since the state
+    carries the position."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    U, K = xlstm_units(cfg)
+    x = _embed(params, cfg, tokens.to(params["embed"].device)).to(dt)
+    mc, sc = cache["mlstm"], cache["slstm"]
+    for u in range(U):
+        mp = _layer(params["mlstm"], u)
+        for k in range(K):
+            x, _ = B.mlstm_block_decode(
+                _layer(mp, k), {n: mc[n][u, k] for n in ("C", "n", "m")},
+                x, cfg)
+        x, _ = B.slstm_block_decode(
+            _layer(params["slstm"], u),
+            {n: sc[n][u] for n in ("c", "n", "m", "h")}, x, cfg)
+    return _head(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
+
+def _build_lm(cfg: ModelConfig, device, lm_cls: type[DecoderLM],
+              forward: Callable, init_cache: Callable,
+              decode_step: Callable) -> Model:
+    """The ``Model`` of an LM family: ``init(seed)`` draws an ``lm_cls``,
+    ``init_cache(batch_size, max_len)`` allocates on the model's device."""
+    device = resolve_device(device)
+
+    def init(seed: int = 0) -> DecoderLM:
+        return lm_cls(cfg, seed=seed, device=device)
+
+    def cache(batch_size: int, max_len: int) -> Params:
+        return init_cache(cfg, batch_size, max_len, device)
+
+    return Model(cfg, device, init, forward, cache, decode_step)
+
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """``device`` defaults to ``cuda`` and raises if no card is present;
@@ -347,14 +437,25 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         from repro_torch.models.resnet import build_resnet_model
         return build_resnet_model(cfg, device)
     if cfg.family in ("dense", "vlm") and not cfg.moe_num_experts:
-        return _build_decoder_only(cfg, device)
+        return _build_lm(cfg, device, DecoderLM, decoder_forward,
+                         decoder_init_cache, decoder_decode_step)
     if cfg.family == "hybrid":
-        return _build_hybrid(cfg, device)
+        hybrid_units(cfg)
+        return _build_lm(cfg, device, HybridLM, hybrid_forward,
+                         hybrid_init_cache, hybrid_decode_step)
+    if cfg.family == "ssm" and cfg.xlstm_slstm_every:
+        xlstm_units(cfg)
+        return _build_lm(cfg, device, XLSTMLM, xlstm_forward,
+                         xlstm_init_cache, xlstm_decode_step)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "family 'ssm' without xlstm_slstm_every is not ported: the port "
+            "builds the ssm family as xLSTM only (ROADMAP queue 1 item 11), "
+            "which needs xlstm_slstm_every > 0 (an sLSTM block every that "
+            "many layers)")
     item = {"moe": "item 9 (models/moe.py)",
             "dense": "item 9 (models/moe.py)",
-            "audio": "item 9 (_build_encdec)",
-            "ssm": "item 11 (models/xlstm.py, _build_xlstm)"}
+            "audio": "item 9 (_build_encdec)"}
     raise NotImplementedError(
         f"family {cfg.family!r} with {cfg.moe_num_experts} experts is not "
-        f"ported yet: ROADMAP queue 1 "
-        f"{item.get(cfg.family, 'items 9 and 11')}")
+        f"ported yet: ROADMAP queue 1 {item.get(cfg.family, 'item 9')}")

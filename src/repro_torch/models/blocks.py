@@ -3,7 +3,8 @@
 decoder-only LM and of the hybrid, with per-layer init, full-sequence
 forward and one-token decode against a KV cache (pre-norm residual, with
 gemma2's post-norms ``ln1_post``, ``ln2_post`` when the config asks), and
-the pre-norm residual around the hybrid's Mamba2 cell.
+the pre-norm residuals around the hybrid's Mamba2 cell and xLSTM's mLSTM
+and sLSTM cells.
 
 The MoE FFN and cross-attention of the other block kinds are not ported
 (ROADMAP queue 1 item 9); asking for them raises ``NotImplementedError``.
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 
 Params = dict[str, Any]
 
@@ -133,4 +135,44 @@ def mamba_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg
     """One-token decode; updates ``cache`` in place and returns it."""
     y, c = SSM.mamba2_decode_step(p["cell"], cache,
                                   L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
+    return x + y, c
+
+
+# ---- xLSTM blocks (pre-norm residual around each cell) ----
+
+def init_mlstm_block(gen: torch.Generator, cfg, dtype: torch.dtype,
+                     device=None) -> Params:
+    return {"ln": L.init_rmsnorm(cfg.d_model, dtype, device),
+            "cell": XL.init_mlstm(gen, cfg, dtype, device)}
+
+
+def mlstm_block(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    return x + XL.mlstm_forward(p["cell"],
+                                L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
+
+
+def mlstm_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg
+                       ) -> tuple[torch.Tensor, Params]:
+    """One-token decode; updates ``cache`` in place and returns it."""
+    y, c = XL.mlstm_decode_step(p["cell"], cache,
+                                L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
+    return x + y, c
+
+
+def init_slstm_block(gen: torch.Generator, cfg, dtype: torch.dtype,
+                     device=None) -> Params:
+    return {"ln": L.init_rmsnorm(cfg.d_model, dtype, device),
+            "cell": XL.init_slstm(gen, cfg, dtype, device)}
+
+
+def slstm_block(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    return x + XL.slstm_forward(p["cell"],
+                                L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
+
+
+def slstm_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg
+                       ) -> tuple[torch.Tensor, Params]:
+    """One-token decode; updates ``cache`` in place and returns it."""
+    y, c = XL.slstm_decode_step(p["cell"], cache,
+                                L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
     return x + y, c

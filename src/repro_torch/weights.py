@@ -1,9 +1,10 @@
 """Carries parameters made by the JAX package into the port.
 
 The layouts are the same on both sides (HWIO conv weights, ``(d_in,
-d_out)`` dense weights, stacked decoder layers and hybrid units, nested
-dicts with the same keys), so this is a structured copy, checked key by key and shape by shape
-against the tree the port's own ``init`` makes on the ``meta`` device.
+d_out)`` dense weights, stacked decoder layers, hybrid and xLSTM units,
+nested dicts with the same keys), so this is a structured copy, checked key
+by key and shape by shape against the tree the port's own ``init`` makes on
+the ``meta`` device.
 bf16 leaves (``ml_dtypes.bfloat16`` in numpy, which ``torch`` cannot take)
 are carried bit for bit through their 16-bit pattern.
 """
@@ -17,7 +18,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import init_decoder_params, init_hybrid_params
+from repro_torch.models.api import (init_decoder_params, init_hybrid_params,
+                                    init_xlstm_params)
 from repro_torch.models.resnet import init_resnet18
 
 
@@ -60,8 +62,8 @@ def params_from_jax(tree: dict[str, Any], device=None,
     """``tree``: the nested dict of arrays from the JAX package (numpy or
     anything ``np.asarray`` takes): ``repro.models.resnet.init_resnet18``'s
     when ``cfg`` is None or a CNN config, else the ``init`` of
-    ``repro.models.build_model(cfg)`` for the decoder-only or hybrid
-    ``cfg``.  Returns the same tree as tensors on ``device`` (default
+    ``repro.models.build_model(cfg)`` for the decoder-only, hybrid or
+    xLSTM ``cfg``.  Returns the same tree as tensors on ``device`` (default
     ``cuda``) in the arrays' own dtypes; raises on a missing or extra key
     or a wrong shape."""
     device = resolve_device(device)
@@ -72,6 +74,8 @@ def params_from_jax(tree: dict[str, Any], device=None,
         ref = init_resnet18(torch.Generator(), num_classes, device="meta")
     elif cfg.family == "hybrid":
         ref = init_hybrid_params(torch.Generator(), cfg, device="meta")
+    elif cfg.family == "ssm":
+        ref = init_xlstm_params(torch.Generator(), cfg, device="meta")
     else:
         ref = init_decoder_params(torch.Generator(), cfg, device="meta")
     return _copy(tree, ref, device, "")

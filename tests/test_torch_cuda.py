@@ -16,9 +16,10 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_conv as fc
 from repro_torch.kernels import mamba_scan as MS
+from repro_torch.kernels import mlstm_scan as ML
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (attention_ref, fused_conv_ref,
-                                     mamba_scan_ref)
+                                     mamba_scan_ref, mlstm_ref)
 from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
@@ -259,5 +260,108 @@ def test_hybrid_forward_launches_per_layer_and_plain_none(cuda, name,
         plain, _ = model.forward(net, batch)
     torch.cuda.synchronize()
     assert (MS.launches, FA.launches) == before
+    atol = 1e-4 if cfg.dtype == "float32" else 0.25
+    assert (logits - plain).abs().max().item() <= atol
+
+
+# --- mlstm_scan ---------------------------------------------------------------
+
+MLSTM_ATOL = 1e-4   # as tests/test_kernels.py holds the Pallas mLSTM scan
+
+
+def _mlstm_inputs(dev, b, S, H, P, f_pre=None, i_scale=1.0):
+    """Drawn as tests/test_kernels.py draws them: q, k, v ·0.4, i_pre
+    N(0, 1) (times ``i_scale``), f_pre N(0, 1) + 2 unless given."""
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + S + H + P)
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device=dev)
+    q, k, v = (randn(b, S, H, P) * 0.4 for _ in range(3))
+    i_pre = randn(b, S, H) * i_scale
+    f = (randn(b, S, H) + 2 if f_pre is None
+         else torch.full((b, S, H), f_pre, device=dev))
+    return q, k, v, i_pre, f
+
+
+@pytest.mark.parametrize("b,S,H,P", [
+    (2, 32, 2, 16),           # the grid of tests/test_kernels.py
+    (1, 32, 1, 8),            # its chunk-invariance case
+    (4, 64, 4, 512),          # xlstm-1.3b's heads at the serving prompt
+    (1, 300, 4, 512),         # ragged last run
+    (2, 37, 3, 33),           # ragged everything (4-byte copies)
+    (1, 1, 1, 1),
+])
+def test_mlstm_kernel_matches_plain(cuda, b, S, H, P):
+    args = _mlstm_inputs(cuda, b, S, H, P)
+    before = ML.launches
+    out = ops.mlstm_scan(*args)
+    torch.cuda.synchronize()
+    assert ML.launches == before + 1
+    ref = mlstm_ref(*args)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=MLSTM_ATOL, rtol=0)
+
+
+def test_mlstm_kernel_forget_all(cuda):
+    """f_pre = -30: f_s = 0, so h_t = v_t (k_t·q_t) / max(|k_t·q_t|, 1)."""
+    q, k, v, i_pre, f_pre = _mlstm_inputs(cuda, 1, 100, 4, 512, f_pre=-30.0)
+    out = ML.mlstm_scan_kernel(q, k, v, i_pre, f_pre)
+    kq = (k * q).sum(-1, keepdim=True)
+    expect = v * kq / kq.abs().clamp_min(1.0)
+    torch.testing.assert_close(out, expect, atol=MLSTM_ATOL, rtol=0)
+
+
+def test_mlstm_kernel_stabiliser(cuda):
+    """i_pre ·10: the stabiliser m_t follows i_t."""
+    args = _mlstm_inputs(cuda, 2, 200, 2, 512, i_scale=10.0)
+    torch.testing.assert_close(ML.mlstm_scan_kernel(*args), mlstm_ref(*args),
+                               atol=MLSTM_ATOL, rtol=0)
+
+
+def test_mlstm_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v, i_pre, f_pre = _mlstm_inputs(cuda, 1, 16, 2, 8)
+    with pytest.raises(TypeError, match="float32"):
+        ML.mlstm_scan_kernel(q.double(), k, v, i_pre, f_pre)
+    with pytest.raises(ValueError, match="on cpu"):
+        ML.mlstm_scan_kernel(q, k.cpu(), v, i_pre, f_pre)
+    with pytest.raises(ValueError, match="4-d"):
+        ML.mlstm_scan_kernel(q[0], k, v, i_pre, f_pre)
+    with pytest.raises(ValueError, match="contiguous"):
+        ML.mlstm_scan_kernel(q, k, v.transpose(1, 2).contiguous()
+                             .transpose(1, 2), i_pre, f_pre)
+    with pytest.raises(ValueError, match="shape"):
+        ML.mlstm_scan_kernel(q, k, v, i_pre[:, :8], f_pre)
+    big = _mlstm_inputs(cuda, 1, 4, 1, 513)
+    with pytest.raises(ValueError, match="P <= 512"):
+        ML.mlstm_scan_kernel(*big)
+
+
+@pytest.mark.parametrize("name,layers", [("xlstm-1.3b-smoke", 4),
+                                         ("xlstm-1.3b", 4)])
+def test_xlstm_forward_launches_per_mlstm_layer_and_plain_none(cuda, name,
+                                                               layers):
+    """One mlstm_scan launch per mLSTM layer and no other kernel in each
+    forward; none under ``ops.plain()``, whose logits agree with the kernel
+    path's.  xlstm-1.3b at full width is cut to one unit (3 mLSTM layers and
+    one sLSTM layer) to save time."""
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    units = layers // cfg.xlstm_slstm_every
+    model = build_model(cfg)
+    net = model.init(seed=0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                                     device=cuda)}
+    others = (MS.launches, FA.launches, fc.launches)
+    for _ in range(2):
+        before = ML.launches
+        logits, _ = model.forward(net, batch)
+        torch.cuda.synchronize()
+        assert ML.launches - before == layers - units
+    assert (MS.launches, FA.launches, fc.launches) == others
+    before = ML.launches
+    with ops.plain():
+        plain, _ = model.forward(net, batch)
+    torch.cuda.synchronize()
+    assert ML.launches == before
     atol = 1e-4 if cfg.dtype == "float32" else 0.25
     assert (logits - plain).abs().max().item() <= atol

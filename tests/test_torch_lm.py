@@ -253,7 +253,8 @@ def test_lm_entry_points_need_a_card_unless_cpu(monkeypatch, entry):
 
 @pytest.mark.parametrize("family,experts,item", [
     ("moe", 4, "item 9"), ("dense", 4, "item 9"), ("audio", 0, "item 9"),
-    ("moe", 0, "item 9"), ("ssm", 0, "item 11")])
+    ("moe", 0, "item 9"),
+    ("ssm", 0, r"item 11\), which needs xlstm_slstm_every")])
 def test_unported_families_raise(family, experts, item):
     cfg = ModelConfig(name="x", family=family, moe_num_experts=experts)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
