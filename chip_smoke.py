@@ -6,7 +6,8 @@ Phases, each of which raises (exit code 1) on failure:
 1. card: needs CUDA; prints the card's name and power limit; TF32 off.
 2. build: compiles the hand-written kernels from ``src/repro_torch/kernels/
    csrc`` with nvcc for sm_90a (one process per source); prints the build
-   time and ptxas's report.
+   time and ptxas's report, and per head dim the bf16 flash kernel's
+   registers, spills and dynamic shared memory.
 3. kernel check: the fused-conv kernel against its plain PyTorch version on
    the card, at every distinct conv shape of ResNet18 at batch 8.
 4. model path: ResNet18 at the paper's width (224×224×3, 1000 classes,
@@ -18,16 +19,20 @@ Phases, each of which raises (exit code 1) on failure:
    the library conv (``torch.nn.functional.conv2d`` without the epilogue; a
    yardstick only, the port never calls it) and the bound; the forward; then
    device time by kernel and the idle share, from torch.profiler.
-6. flash check: the flash-attention kernel against its plain version on the
-   card at gemma2-2b's head shapes (D=256, 8 query and 4 KV heads per batch
-   row, softcap 50): S=8192 global and with the 4096 window, a ragged
-   S=1000, B=4 at S=64 and a non-causal S=512, in bf16, and a ragged,
-   windowed S=1000 in f32; every element within FLASH_RTOL·|plain| +
-   FLASH_ATOL of the plain version computed in f32.
+6. flash check: the flash-attention kernels against their plain version on
+   the card at gemma2-2b's head shapes (D=256, 8 query and 4 KV heads per
+   batch row, softcap 50): S=8192 global and with the 4096 window, a ragged
+   S=1000, B=4 at S=64 and a non-causal S=512, in bf16 (the tensor-core
+   kernel), and a ragged, windowed S=1000 in f32 (the CUDA-core kernel);
+   then small bf16 shapes at the other head dims (16, 32, 64, 128); every
+   element within FLASH_RTOL·|plain| + FLASH_ATOL of the plain version
+   computed in f32.
 7. prefill: gemma2-2b at full width (26 layers, d 2304, vocab 256000,
    bf16, random weights from a seed) built through ``build_model`` runs
    ``forward`` at 1×8192; the logits are finite and of the right shape, the
-   forward made exactly 26 flash launches, and it agrees with the same
+   forward made exactly 26 flash launches, all on the tensor-core route
+   (bf16 launches go there, f32 ones to the CUDA-core kernel; every path
+   holds its launches by route), and it agrees with the same
    forward under ``ops.plain()`` (no launches) on the card: last-position
    logits within PREFILL_ATOL, top-1 equal wherever the plain top-2 margin
    exceeds it; the error at any position is printed too.
@@ -35,11 +40,13 @@ Phases, each of which raises (exit code 1) on failure:
    64; each first token is the kernel-path forward's argmax (same margin
    rule).
 9. timings: per flash shape the kernel, its plain version, the library's
-   ``scaled_dot_product_attention`` (a yardstick the port never calls; it
-   has no softcap, so at softcap 50 it computes another function) and the
-   bound; the prefill, with the flash kernel's share of device time and the
-   idle share from torch.profiler; the decode step at batch 4, with its
-   idle share.
+   ``scaled_dot_product_attention`` (yardsticks the port never calls,
+   without a softcap, so at softcap 50 they compute another function) with
+   the boolean mask and, on the causal shapes without a window, with
+   ``is_causal=True``, which can reach a faster backend (``library_ms`` is
+   the faster of the two), and the bound; the prefill, with the flash
+   kernel's share of device time and the idle share from torch.profiler;
+   the decode step at batch 4, with its idle share.
 10. scan check: the SSD-scan (mamba_scan) kernel against its plain version
     in f32 on the card at zamba2-2.7b's heads (H=80, P=64, N=64): the full
     prefill shape 1×4096, the serving prompts 4×64, a ragged S=1000 and the
@@ -47,18 +54,20 @@ Phases, each of which raises (exit code 1) on failure:
     within SCAN_ATOL.
 11. flash check at zamba2-2.7b's heads (D=80, 32 query and 32 KV heads, no
     softcap): S=4096 and B=4 at S=64 in bf16, a ragged S=1000 in f32, with
-    the limits of phase 6.
+    the limits of phase 6; each launch moves only its dtype's route.
 12. hybrid prefill: zamba2-2.7b at full width and depth (54 layers: 9 units
     of 5 Mamba2 blocks and one attention block, d 2560, vocab 32000, bf16,
     random weights from a seed) built through ``build_model`` runs
     ``forward`` at 1×4096; the logits are finite and of the right shape,
-    the forward made exactly 45 mamba_scan and 9 flash launches, and it
+    the forward made exactly 45 mamba_scan and 9 flash launches (bf16, on
+    the tensor-core route), and it
     agrees with the same forward under ``ops.plain()`` (no launches) by
     the rule of phase 7.
 13. hybrid serve: ``run_lockstep`` decodes 32 tokens for 4 prompts of 64;
     each first token is the kernel-path forward's argmax (same rule).
 14. f32 twin: phases 12 and 13 again for zamba2-2.7b at full width cut to
-    one unit (6 layers: 5 mamba_scan and 1 flash launch), in f32, with the
+    one unit (6 layers: 5 mamba_scan and 1 flash launch, on the CUDA-core
+    route), in f32, with the
     limit TWIN_ATOL held at every position.  This is the check that
     carries the hybrid's correctness; the bf16 phases show only that the
     full depth runs within bf16 noise.
@@ -100,6 +109,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -129,10 +139,12 @@ PROFILE_FORWARDS = 5
 # gemma2-2b serving.  Flash kernel vs plain, on N(0, 1) inputs, element by
 # element: |kernel − plain| ≤ FLASH_RTOL·|plain| + FLASH_ATOL, with the
 # plain version run in f32 on the same inputs (bf16 inputs upcast, no
-# rounding of its output).  The kernel computes in f32 too, so what is left
-# is reordered f32 sums (FLASH_ATOL, the f32 limit of tests/test_kernels.py)
-# and, for bf16, the one rounding of its output: half a bf16 ulp, at most
-# 2**-8 of the value.  Outputs shrink as 1/sqrt(visible keys) along S, so a
+# rounding of its output).  Both kernels keep f32 statistics and sums (the
+# bf16 one multiplies bf16 values exactly on the tensor cores and carries
+# P as hi + lo bf16, within 2**-17 of f32), so what is left is reordered
+# f32 sums (FLASH_ATOL, the f32 limit of tests/test_kernels.py) and, for
+# bf16, the one rounding of its output: half a bf16 ulp, at most 2**-8 of
+# the value.  Outputs shrink as 1/sqrt(visible keys) along S, so a
 # flat limit would let a late row's dropped key tile pass; this one does not.
 FLASH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-8}
 FLASH_ATOL = 2e-5
@@ -158,6 +170,14 @@ FLASH_SHAPES = [
     ("b4_s64_bf16", 0, 4, 64, True, 0, torch.bfloat16),
     ("s512_noncausal_bf16", 0, 1, 512, False, 0, torch.bfloat16),
     ("s1000_ragged_window300_f32", 0, 1, 1000, True, 300, torch.float32),
+]
+# The tensor-core kernel's other builds, in bf16 with the limits above:
+# (name, BH, BKV, S, T, head dim, causal, window, softcap).
+FLASH_HEAD_DIM_SHAPES = [
+    ("d16_s300_group2_window64", 4, 2, 300, 300, 16, True, 64, 50.0),
+    ("d32_s257_t191_noncausal", 6, 3, 257, 191, 32, False, 0, 30.0),
+    ("d64_s200_group8", 8, 1, 200, 200, 64, True, 0, 0.0),
+    ("d128_s333_window128", 8, 4, 333, 333, 128, True, 128, 50.0),
 ]
 
 # zamba2-2.7b serving: the SSD-scan kernel, flash at D=80 and the hybrid path.
@@ -300,6 +320,15 @@ def kernel_modules() -> dict:
 def zero_launches() -> None:
     for mod in kernel_modules().values():
         mod.launches = 0
+    routes = kernel_modules()["flash_attention"].launches_by_kernel
+    for route in routes:
+        routes[route] = 0
+
+
+def flash_route(cfg) -> str:
+    """The flash kernel that serves ``cfg``'s activations: the tensor-core
+    kernel for bf16, the CUDA-core kernel for f32."""
+    return "wgmma_bf16" if cfg.dtype == "bfloat16" else "simt_f32"
 
 
 def launch_counts() -> dict[str, int]:
@@ -319,15 +348,37 @@ def card() -> str:
     return smi
 
 
-def build() -> float:
+def build() -> tuple[float, dict]:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     path = _build.library_path()
-    _build.library()
+    lib = _build.library()
     secs = time.perf_counter() - t0
     print(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s")
-    print(path.with_suffix(".log").read_text().strip())
-    return secs
+    log = path.with_suffix(".log").read_text().strip()
+    print(log)
+    # The bf16 flash kernel per head dim: ptxas's registers (at launch; the
+    # consumers raise theirs to 240 with setmaxnreg) and spills, and the
+    # dynamic shared memory it asks for.
+    sm90, d = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_attention_sm90_kernelILi(\d+)E", line)
+            d = int(m[1]) if m else None
+        elif d is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            sm90.setdefault(d, {})["spill_bytes"] = int(m[1]) + int(m[2])
+        elif d is not None and (m := re.search(r"Used (\d+) registers",
+                                               line)):
+            sm90.setdefault(d, {})["registers"] = int(m[1])
+    for d, row in sorted(sm90.items()):
+        row["dynamic_smem_bytes"] = lib.flash_attention_sm90_smem_bytes(d)
+        print(f"[build] flash_attention_sm90 D={d}: {row.get('registers')} "
+              f"registers at launch, {row.get('spill_bytes')} B spilled, "
+              f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
+    check(sorted(sm90) == [16, 32, 64, 80, 128, 256],
+          f"flash_attention_sm90 ptxas report: {sm90}")
+    return secs, sm90
 
 
 def conv_inputs(i: int, shape):
@@ -581,36 +632,61 @@ def flash_kw(shape, cfg) -> dict:
     return dict(causal=causal, window=window, softcap=cfg.attn_softcap)
 
 
-def flash_check(cfg, shapes, seed: int) -> list[dict]:
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
+def flash_held(name: str, q, k, v, kw: dict) -> dict:
+    """One launch of the flash kernel of q's dtype, held element by element
+    against the plain version in f32, and only that kernel's route moved."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.ref import attention_ref
+    route = "wgmma_bf16" if q.dtype == torch.bfloat16 else "simt_f32"
+    before = dict(FA.launches_by_kernel)
+    out = FA.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in FA.launches_by_kernel.items()}
+    check(moved == {r: int(r == route) for r in moved},
+          f"{name}: flash launches by route moved {moved}, want one {route}")
+    ref = attention_ref(q.float(), k.float(), v.float(), **kw)
+    check(out.shape == ref.shape and out.dtype == q.dtype,
+          f"{name}: {out.shape} {out.dtype} vs {ref.shape}")
+    err, rel = rel_err(out, ref)
+    used = ((out.float() - ref).abs()
+            / (FLASH_RTOL[q.dtype] * ref.abs() + FLASH_ATOL)).max().item()
+    print(f"[flash] {name:27s} q {tuple(q.shape)} k {tuple(k.shape)} "
+          f"{route}: max_abs_err {err:.3e} rel {rel:.3e} limit used "
+          f"{used:.3f}")
+    check(used <= 1.0, f"{name}: kernel vs plain exceeds its limit "
+          f"{used:.3f}-fold (max abs err {err:.3e})")
+    return {"name": name, "route": route,
+            "dtype": str(q.dtype).removeprefix("torch."), "max_abs_err": err,
+            "rel_err": rel, "limit_used": used}
+
+
+def flash_check(cfg, shapes, seed: int) -> list[dict]:
     rows = []
     print(f"[flash] limits, per element against the plain version in f32: "
           f"|kernel - plain| <= rtol*|plain| + {FLASH_ATOL}, rtol "
           f"{FLASH_RTOL[torch.float32]} (f32), {FLASH_RTOL[torch.bfloat16]} "
           f"(bf16, half an ulp), inputs N(0, 1)")
     for i, shape in enumerate(shapes):
-        name, count, b, s, causal, window, dtype = shape
+        name, count, b, s, causal, window, _ = shape
         q, k, v = flash_inputs(seed + i, shape, cfg)
-        out = flash_attention_kernel(q, k, v, **flash_kw(shape, cfg))
-        torch.cuda.synchronize()
-        ref = attention_ref(q.float(), k.float(), v.float(),
-                            **flash_kw(shape, cfg))
-        check(out.shape == ref.shape and out.dtype == dtype,
-              f"{name}: {out.shape} {out.dtype} vs {ref.shape}")
-        err, rel = rel_err(out, ref)
-        used = ((out.float() - ref).abs()
-                / (FLASH_RTOL[dtype] * ref.abs() + FLASH_ATOL)).max().item()
-        print(f"[flash] {name:27s} q {tuple(q.shape)} k {tuple(k.shape)} "
-              f"max_abs_err {err:.3e} rel {rel:.3e} limit used {used:.3f}")
-        check(used <= 1.0, f"{name}: kernel vs plain exceeds its limit "
-              f"{used:.3f}-fold (max abs err {err:.3e})")
-        rows.append({"name": name, "per_forward": count, "batch": b, "S": s,
-                     "causal": causal, "window": window,
-                     "dtype": str(dtype).removeprefix("torch."),
-                     "max_abs_err": err, "rel_err": rel,
-                     "limit_used": used})
-        del q, k, v, out, ref
+        rows.append({**flash_held(name, q, k, v, flash_kw(shape, cfg)),
+                     "per_forward": count, "batch": b, "S": s,
+                     "causal": causal, "window": window})
+        del q, k, v
+    return rows
+
+
+def flash_head_dim_check(seed: int) -> list[dict]:
+    """The tensor-core kernel at the head dims that no path runs."""
+    rows = []
+    for i, (name, bh, bkv, s, t, hd, causal, window,
+            softcap) in enumerate(FLASH_HEAD_DIM_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(seed + i)
+        q, k, v = (torch.randn(n, L, hd, generator=g, device="cuda")
+                   .bfloat16() for n, L in ((bh, s), (bkv, t), (bkv, t)))
+        rows.append({**flash_held(name, q, k, v, dict(
+            causal=causal, window=window, softcap=softcap)), "S": s, "T": t,
+            "head_dim": hd})
     return rows
 
 
@@ -629,12 +705,18 @@ def margin_agree(top: torch.Tensor, ref_top: torch.Tensor,
     return bool((top[sure] == ref_top[sure]).all()), int(sure.sum())
 
 
-def check_launches(expect: dict[str, int], what: str) -> dict[str, int]:
+def check_launches(expect: dict[str, int], what: str,
+                   route: str | None = None) -> dict[str, int]:
     """The counts since ``zero_launches``: exactly ``expect`` of each kernel
-    it names, none of the others."""
+    it names, none of the others, and every flash launch on ``route``."""
     got = launch_counts()
     want = {name: expect.get(name, 0) for name in got}
     check(got == want, f"{what}: kernel launches {got}, want {want}")
+    routes = dict(kernel_modules()["flash_attention"].launches_by_kernel)
+    want_routes = {r: want["flash_attention"] if r == route else 0
+                   for r in routes}
+    check(routes == want_routes, f"{what}: flash launches by route {routes}, "
+          f"want {want_routes}")
     return got
 
 
@@ -672,7 +754,8 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     zero_launches()
     logits, _ = model.forward(net, batch)
     torch.cuda.synchronize()
-    launches = check_launches(expect, f"{cfg.name} prefill forward")
+    launches = check_launches(expect, f"{cfg.name} prefill forward",
+                              flash_route(cfg))
     check(tuple(logits.shape) == want, f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -696,7 +779,8 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     held = limit is not None
     margin = limit if held else PREFILL_ATOL
     agree, n_sure = margin_agree(top, ref_top, ref_margin, margin)
-    print(f"[prefill] {cfg.name} 1x{seq}: launches {launches}; peak "
+    print(f"[prefill] {cfg.name} 1x{seq}: launches {launches}, flash on "
+          f"{flash_route(cfg)}; peak "
           f"{peak_gb:.1f} GB; logits vs plain forward on the card "
           f"({plain_s:.1f} s): max_abs_err {err_last:.3e} at the last "
           f"position, {err_all:.3e} at any position ("
@@ -740,7 +824,8 @@ def serve_path(cfg, lm: dict, expect: dict[str, int],
     zero_launches()
     logits, _ = model.forward(net, {"tokens": prompts.to("cuda")})
     torch.cuda.synchronize()
-    launches = check_launches(expect, f"{cfg.name} cross-check forward")
+    launches = check_launches(expect, f"{cfg.name} cross-check forward",
+                              flash_route(cfg))
     ref_top, ref_margin = top2(logits[:, -1])
     del logits
     first = torch.tensor([o[0] for o in outs], device="cuda")
@@ -783,15 +868,14 @@ def flash_bounds(shape, cfg) -> dict:
 def flash_timings(rows: list[dict], cfg, shapes, seed: int) -> None:
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.ref import attention_ref
-    if cfg.attn_softcap:
-        print(f"[time] library = F.scaled_dot_product_attention with the "
-              f"same boolean mask and enable_gqa: it has no softcap, so at "
-              f"softcap {cfg.attn_softcap} it computes another function; "
-              f"a yardstick only, the port never calls it")
-    else:
-        print("[time] library = F.scaled_dot_product_attention with the "
-              "same boolean mask and enable_gqa, the same function (no "
-              "softcap); a yardstick only, the port never calls it")
+    what = (f"it has no softcap, so at softcap {cfg.attn_softcap} it "
+            f"computes another function" if cfg.attn_softcap else
+            "the same function (no softcap)")
+    print(f"[time] library = F.scaled_dot_product_attention with enable_gqa,"
+          f" timed with the same boolean mask and, on the causal shapes "
+          f"without a window, with is_causal=True (which can reach a faster "
+          f"backend); library_ms is the faster: {what}; a yardstick only, "
+          f"the port never calls it")
     for i, (shape, row) in enumerate(zip(shapes, rows)):
         _, _, b, s, causal, window, _ = shape
         q, k, v = flash_inputs(seed + i, shape, cfg)
@@ -809,14 +893,23 @@ def flash_timings(rows: list[dict], cfg, shapes, seed: int) -> None:
                             iters=iters)
         row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, **kw),
                                   iters=iters)
-        row["library_ms"] = cuda_ms(
+        row["library_mask_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask, enable_gqa=True), iters=iters)
+        row["library_causal_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True),
+            iters=iters) if causal and not window else None
+        row["library_ms"] = min(t for t in (row["library_mask_ms"],
+                                            row["library_causal_ms"])
+                                if t is not None)
+        causal_ms = (f"{row['library_causal_ms']:.4f}"
+                     if row["library_causal_ms"] is not None else "-")
         print(f"[time] {row['name']:27s} x{row['per_forward']:<2d} kernel "
               f"{row['ms']:.4f} ms ({row['ops'] / row['ms'] / 1e9:.1f} "
-              f"TFLOP/s)  plain {row['plain_ms']:.4f}  library "
-              f"{row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
-              f"({row['bound_by']})")
+              f"TFLOP/s)  plain {row['plain_ms']:.4f}  library mask "
+              f"{row['library_mask_ms']:.4f} is_causal {causal_ms}  bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']})")
         del q, k, v, q4, k4, v4, mask
 
 
@@ -1043,7 +1136,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     smi = card()
-    build_s = build()
+    build_s, sm90_build = build()
     rows = kernel_check()
     model = model_path()
     fwd = timings(rows, model)
@@ -1054,6 +1147,7 @@ def main() -> int:
     cfg = get_config(LM_CONFIG)
     expect = {"flash_attention": cfg.num_layers}
     flash_rows = flash_check(cfg, FLASH_SHAPES, SEED + 200)
+    dim_rows = flash_head_dim_check(SEED + 250)
     lm = prefill_path(cfg, PREFILL_S, expect)
     served = serve_path(cfg, lm, expect)
     flash_timings(flash_rows, cfg, FLASH_SHAPES, SEED + 200)
@@ -1171,17 +1265,26 @@ def main() -> int:
                      f"batch-{BATCH} forward; per shape in chip_smoke.json",
     }, {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "launches": lm["launches"]["flash_attention"],
+        "launches_by_route": "every bf16 launch on wgmma_bf16 "
+                             "(flash_attention_sm90.cu), every f32 one on "
+                             "simt_f32 (flash_attention.cu), held per path",
+        "f32_route": {"source": "src/repro_torch/kernels/csrc/"
+                                "flash_attention.cu",
+                      "launches": twin["launches"]["flash_attention"],
+                      "in": f"the {tcfg.name} prefill"},
+        "library_mask_ms": per_forward(flash_rows, "library_mask_ms"),
         "max_abs_err": max(r["max_abs_err"]
-                           for r in flash_rows + h_flash_rows),
+                           for r in flash_rows + dim_rows + h_flash_rows),
         **totals(flash_rows),
         "times_are": f"sums over the {cfg.num_layers} launches of one "
                      f"1x{PREFILL_S} {cfg.name} prefill; per shape in "
                      f"chip_smoke.json",
         hcfg.name: {"launches": hlm["launches"]["flash_attention"],
-                    **h_flash,
+                    **h_flash, "library_mask_ms": per_forward(
+                        h_flash_rows, "library_mask_ms"),
                     "times_are": f"sums over the {units} launches of one "
                                  f"1x{HYBRID_PREFILL_S} prefill"},
     }, {
@@ -1210,8 +1313,9 @@ def main() -> int:
     }]}
 
     record = {"card": smi, "torch": torch.__version__,
-              "build_s": build_s, "shapes": rows, **fwd, **model,
-              "flash_shapes": flash_rows,
+              "build_s": build_s, "flash_attention_sm90_build": sm90_build,
+              "shapes": rows, **fwd, **model,
+              "flash_shapes": flash_rows, "flash_head_dim_shapes": dim_rows,
               cfg.name: lm_record(lm, served, lm_times),
               "scan_shapes": scan_rows, "hybrid_flash_shapes": h_flash_rows,
               hcfg.name: lm_record(hlm, h_served, h_times),

@@ -28,9 +28,13 @@ _int = ctypes.c_int
 SIGNATURES = {
     "fused_conv_f32": (_int, [_ptr] * 6 + [_int] * 12 + [_ptr]),
     "fused_conv_error_string": (ctypes.c_char_p, [_int]),
-    "flash_attention_fwd": (_int, [_ptr] * 4 + [_int] * 7
-                            + [ctypes.c_float, _int, _ptr]),
+    "flash_attention_f32": (_int, [_ptr] * 4 + [_int] * 7
+                            + [ctypes.c_float, _ptr]),
     "flash_attention_error_string": (ctypes.c_char_p, [_int]),
+    "flash_attention_sm90_bf16": (_int, [_ptr] * 4 + [_int] * 7
+                                  + [ctypes.c_float, _ptr]),
+    "flash_attention_sm90_error_string": (ctypes.c_char_p, [_int]),
+    "flash_attention_sm90_smem_bytes": (_int, [_int]),
     "mamba_scan_f32": (_int, [_ptr] * 5 + [_int] * 5 + [_ptr]),
     "mamba_scan_error_string": (ctypes.c_char_p, [_int]),
     "mlstm_scan_f32": (_int, [_ptr] * 6 + [_int] * 4 + [_ptr]),

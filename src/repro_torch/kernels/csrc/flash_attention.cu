@@ -1,9 +1,10 @@
-// Flash attention forward for Hopper (sm_90a): online softmax, GQA, causal
-// (top-left), optional sliding window and logit softcap; f32 or bf16 in and
-// out, f32 statistics and accumulation.
+// Flash attention forward in f32 for Hopper (sm_90a), on the CUDA cores:
+// online softmax, GQA, causal (top-left), optional sliding window and
+// logit softcap; f32 in and out, statistics and accumulation.  bf16 inputs
+// go to the tensor-core kernel in flash_attention_sm90.cu instead.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention_kernel, body _kernel):
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:84
+// (flash_attention_kernel, body _kernel) for f32 inputs:
 //
 //   o[bh, i] = sum_j softmax_j( mask(i, j) ? c*tanh(q_i.k_j / (c*sqrt(D)))
 //                                          : -1e30 ) * v_j
@@ -13,18 +14,14 @@
 // q is (BH, S, D), k and v are (BKV, T, D), BH = BKV * group.
 //
 // What bounds it on an H100 SXM: per (query, visible key) pair it does
-// 4*D operations (q.k and p*v) on 2 bytes (bf16) of q, k, v and o per
-// element of each, read once.  At gemma2-2b's prefill (S = T = 8192,
-// D = 256) that is some 10^4 operations per byte, far above the card's
-// balance (295 for bf16 tensor cores at 989 TFLOP/s over 3.35 TB/s; 20
-// for f32 on the CUDA cores at 67 TFLOP/s), so the bound is operations:
-// 989 TFLOP/s for bf16 inputs, 67 for f32.
-//
-// This first design is simple and right, not fast.  It runs the two
-// products in f32 on the CUDA cores, so for bf16 inputs it can reach at
-// most 67 of the 989 TFLOP/s the tensor cores offer:
+// 4*D operations (q.k and p*v) on 4 bytes of q, k, v and o per element of
+// each, read once: thousands of operations per byte at a prefill, far above
+// the balance of 20 for f32 on the CUDA cores (67 TFLOP/s over 3.35 TB/s),
+// so the bound is operations at 67 TFLOP/s.  It stays on the CUDA cores
+// because f32 inputs are held exact to reordered f32 sums, which the
+// tensor cores (TF32 at best for f32) cannot give.  The design:
 //   * one block of 256 threads owns 64 query rows of one query head; it
-//     keeps them in shared memory (f32, pre-scaled by 1/sqrt(D)) and walks
+//     keeps them in shared memory (pre-scaled by 1/sqrt(D)) and walks
 //     the key axis in 64-key tiles, staging K (transposed) and V in shared
 //     memory; the KV head bh / group is read in place, never copied;
 //   * each thread owns a 4x4 patch of the 64x64 score tile and 4 rows x
@@ -40,12 +37,10 @@
 //     alpha = exp(-1e30 - m) = 0 wipes; keys past T (the ragged edge) are
 //     -inf and add nothing at all.  The final divide is by max(l, 1e-30).
 // Shared memory is 4 * (2*68*D + 64*D + 64*68) bytes: 222,208 at D = 256,
-// so one block per SM; 81,408 at zamba2's D = 80, two.  What it leaves on the table: the tensor cores
-// (bf16 wgmma or mma.sync), TMA loads and a double-buffered K/V ring that
-// overlaps the next tile's loads with this tile's math, more than one block
-// per SM, and split-KV for the single-query decode step.
+// so one block per SM; 81,408 at zamba2's D = 80, two.  What it leaves on
+// the table: loads that overlap the previous tile's math, and more than one
+// block per SM at D = 256.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,20 +58,11 @@ constexpr float MASKED = -1e30f;    // the JAX kernel's NEG_INF
 
 static_assert(RQ == 4 && RK == 4, "the float4 paths assume 4x4 patches");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int S, T, group, causal, window;
   float scale, softcap;
 };
@@ -86,7 +72,7 @@ constexpr int smem_floats() {
   return 2 * D * QS + BK * D + BK * QS;   // Qt, Kt, Vs, Pt (QS == KS)
 }
 
-template <typename Tin, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_fwd_kernel(const FlashArgs a) {
   // Each thread owns output columns c(m, e) = m*16*VEC + tx*VEC + e: VEC
@@ -107,16 +93,16 @@ flash_attention_fwd_kernel(const FlashArgs a) {
   const int ty = tid / 16;          // query rows; 16 lanes share one ty
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const Tin* q = static_cast<const Tin*>(a.q) + (size_t)bh * a.S * D;
+  const float* q = a.q + (size_t)bh * a.S * D;
   const size_t kv_off = (size_t)(bh / a.group) * a.T * D;
-  const Tin* k = static_cast<const Tin*>(a.k) + kv_off;
-  const Tin* v = static_cast<const Tin*>(a.v) + kv_off;
-  Tin* o = static_cast<Tin*>(a.o) + (size_t)bh * a.S * D;
+  const float* k = a.k + kv_off;
+  const float* v = a.v + kv_off;
+  float* o = a.o + (size_t)bh * a.S * D;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int qi = q0 + r;
-    Qt[d * QS + r] = qi < a.S ? to_f32(q[(size_t)qi * D + d]) * a.scale : 0.f;
+    Qt[d * QS + r] = qi < a.S ? q[(size_t)qi * D + d] * a.scale : 0.f;
   }
 
   // Keys any row of this tile can see: none past the tile's last row when
@@ -140,8 +126,8 @@ flash_attention_fwd_kernel(const FlashArgs a) {
       const int kj = kb + r;
       float kv = 0.f, vv = 0.f;
       if (kj < a.T) {
-        kv = to_f32(k[(size_t)kj * D + d]);
-        vv = to_f32(v[(size_t)kj * D + d]);
+        kv = k[(size_t)kj * D + d];
+        vv = v[(size_t)kj * D + d];
       }
       Kt[d * KS + r] = kv;
       Vs[r * D + d] = vv;
@@ -251,48 +237,32 @@ flash_attention_fwd_kernel(const FlashArgs a) {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         const int c = mm * 16 * VEC + tx * VEC + e;
-        store(o + (size_t)qi * D + c, acc[i][mm * VEC + e] / denom);
+        o[(size_t)qi * D + c] = acc[i][mm * VEC + e] / denom;
       }
   }
 }
 
-template <typename Tin, int D>
+template <int D>
 int launch(const FlashArgs& a, int BH, cudaStream_t stream) {
   constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_fwd_kernel<Tin, D>,
+      flash_attention_fwd_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + BQ - 1) / BQ, BH);
-  flash_attention_fwd_kernel<Tin, D><<<grid, THREADS, smem, stream>>>(a);
+  flash_attention_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Tin>
-int dispatch(const FlashArgs& a, int BH, int D, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<Tin, 16>(a, BH, stream);
-    case 32: return launch<Tin, 32>(a, BH, stream);
-    case 64: return launch<Tin, 64>(a, BH, stream);
-    case 80: return launch<Tin, 80>(a, BH, stream);
-    case 128: return launch<Tin, 128>(a, BH, stream);
-    case 256: return launch<Tin, 256>(a, BH, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
 // Launches on `stream` and returns the CUDA error (0 on success).  q, k, v
-// and o are contiguous, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1);
-// the caller checks shapes, BH % BKV == 0, D in {16, 32, 64, 80, 128,
-// 256},
-// BH <= 65535 and every index below 2**31.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int BH, int BKV,
+// and o are contiguous float32; the caller checks shapes, BH % BKV == 0, D
+// in {16, 32, 64, 80, 128, 256}, BH <= 65535 and every index below 2**31.
+extern "C" int flash_attention_f32(const float* q, const float* k,
+                                   const float* v, float* o, int BH, int BKV,
                                    int S, int T, int D, int causal,
-                                   int window, float softcap, int bf16,
-                                   void* stream) {
+                                   int window, float softcap, void* stream) {
   FlashArgs a;
   a.q = q;
   a.k = k;
@@ -306,8 +276,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   a.softcap = softcap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(a, BH, D, s)
-              : dispatch<float>(a, BH, D, s);
+  switch (D) {
+    case 16: return launch<16>(a, BH, s);
+    case 32: return launch<32>(a, BH, s);
+    case 64: return launch<64>(a, BH, s);
+    case 80: return launch<80>(a, BH, s);
+    case 128: return launch<128>(a, BH, s);
+    case 256: return launch<256>(a, BH, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -1,12 +1,25 @@
-"""Wrapper of the hand-written Hopper flash-attention kernel
-(``csrc/flash_attention.cu``), the port of the Pallas
-``repro.kernels.flash_attention.flash_attention_kernel``.
+"""Wrapper of the hand-written Hopper flash-attention kernels, the port of
+the Pallas ``repro.kernels.flash_attention.flash_attention_kernel``
+(``src/repro/kernels/flash_attention.py:84``).
 
-It takes CUDA tensors only and raises on anything the kernel does not take;
+The wrapper routes by dtype; neither route falls back on the other:
+
+* bf16 → ``csrc/flash_attention_sm90.cu``: both products on the tensor
+  cores (``wgmma``), K/V tiles through a TMA-fed ring of mbarrier-guarded
+  stages, one producer and two consumer warpgroups.  Its bound on an H100
+  is the 4·D operations per visible (query, key) pair at 989 TFLOP/s; P
+  goes into the second product as hi + lo bf16, so that the output stays
+  within half a bf16 ulp of the f32 function (see the source's header).
+* f32 → ``csrc/flash_attention.cu``: the CUDA-core kernel, exact to
+  reordered f32 sums, which the tensor cores cannot give; bound at
+  67 TFLOP/s.
+
+It takes CUDA tensors only and raises on anything the kernels do not take;
 ``kernels.ops.flash_attention`` sends CPU tensors to the plain version.
-``launches`` counts the kernel's launches, so a run can show that its path
-went through the kernel.  The Pallas ``block_q``/``block_k`` knobs have no
-counterpart: the kernel fixes its own tiles and masks ragged S and T.
+``launches`` counts the launches of both, ``launches_by_kernel`` each
+route's, so a run can show that its path went through the kernel it
+expects.  The Pallas ``block_q``/``block_k`` knobs have no counterpart: the
+kernels fix their own tiles and mask ragged S and T.
 """
 
 from __future__ import annotations
@@ -16,11 +29,14 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0}
 
 # the head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _INDEX_LIMIT = 2**31                 # the kernel indexes with 32-bit ints
-_GRID_Y_LIMIT = 65535                # one grid row per query head
+_GRID_Y_LIMIT = 65535                # grid rows: f32 one per query head,
+_BF16_Q_TILE = 128                   # bf16 one per 128-query tile
+_TMA_ALIGN = 16                      # bytes, TMA's base-address alignment
 
 
 def check_every_row_sees_a_key(S: int, T: int, window: int) -> None:
@@ -74,12 +90,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S < 1 or T < 1 or BKV < 1 or BH % BKV:
         raise ValueError(f"flash_attention: BH {BH}, BKV {BKV}, S {S}, T {T}:"
                          " needs S, T >= 1 and BH a multiple of BKV")
-    if BH > _GRID_Y_LIMIT:
-        raise ValueError(f"flash_attention: BH {BH} > {_GRID_Y_LIMIT}")
+    if BH > _GRID_Y_LIMIT or -(-S // _BF16_Q_TILE) > _GRID_Y_LIMIT:
+        raise ValueError(f"flash_attention: BH {BH} or S {S} too large for "
+                         f"the grid")
     if window < 0 or softcap < 0:
         raise ValueError(f"flash_attention: window {window} and softcap "
                          f"{softcap} must be >= 0")
     check_every_row_sees_a_key(S, T, window)
+    bf16 = q.dtype == torch.bfloat16
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
@@ -87,17 +105,24 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: {name} has {t.numel()} "
                              f"elements, the kernel indexes below "
                              f"{_INDEX_LIMIT}")
+        if bf16 and t.data_ptr() % _TMA_ALIGN:
+            raise ValueError(f"flash_attention: {name} must be "
+                             f"{_TMA_ALIGN}-byte aligned for TMA")
     out = torch.empty_like(q)
 
     lib = _build.library()
+    route = "wgmma_bf16" if bf16 else "simt_f32"
+    fn, error_string = ((lib.flash_attention_sm90_bf16,
+                         lib.flash_attention_sm90_error_string) if bf16 else
+                        (lib.flash_attention_f32,
+                         lib.flash_attention_error_string))
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            BH, BKV, S, T, D, int(causal), int(window), float(softcap),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 BH, BKV, S, T, D, int(causal), int(window), float(softcap),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"{lib.flash_attention_error_string(err).decode()}")
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: "
+                           f"{error_string(err).decode()}")
     launches += 1
+    launches_by_kernel[route] += 1
     return out

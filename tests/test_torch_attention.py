@@ -240,6 +240,98 @@ def test_plain_version_matches_pallas_kernel(BH, BKV, S, T, D, causal, window,
     _close(out, ref)
 
 
+# --- the bf16 tensor-core kernel's arithmetic, emulated ------------------------
+
+# The card's per-element limit for bf16 (tests/test_torch_cuda.py,
+# chip_smoke.py): half an ulp of the output's one rounding plus 2e-5.
+CARD_RTOL, CARD_ATOL = 2.0**-8, 2e-5
+
+
+def _sm90_emulation(q, k, v, *, causal, window, softcap, block_k, split=True,
+                    round_out=True):
+    """The arithmetic of ``csrc/flash_attention_sm90.cu`` in plain torch:
+    bf16 q and k, scores in f32 with 1/sqrt(D) applied after the product,
+    key tiles of ``block_k`` with online rescaling in base 2, P as hi + lo
+    bf16 (one bf16 when not ``split``), f32 accumulation, the output
+    rounded once to bf16 (kept in f32 when not ``round_out``)."""
+    BH, S, D = q.shape
+    BKV, T, _ = k.shape
+    group = BH // BKV
+    kf = k.repeat_interleave(group, 0).float()
+    vf = v.repeat_interleave(group, 0).float()
+    scale = 1.0 / np.sqrt(D)
+    sl2 = (1.0 if softcap else scale) * np.log2(np.e)
+    rows = torch.arange(S)[:, None]
+    m = torch.full((BH, S, 1), -1e30)
+    lsum = torch.zeros(BH, S, 1)
+    acc = torch.zeros(BH, S, D)
+    for kb in range(0, T, block_k):
+        s = q.float() @ kf[:, kb:kb + block_k].transpose(1, 2)
+        if softcap:
+            s = softcap * torch.tanh(s * (scale / softcap))
+        keys = torch.arange(kb, min(kb + block_k, T))[None, :]
+        visible = torch.ones(S, keys.shape[1], dtype=torch.bool)
+        if causal:
+            visible &= keys <= rows
+        if window:
+            visible &= keys > rows - window
+        s = torch.where(visible, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * sl2)
+        p = torch.exp2((s - m_new) * sl2)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        acc = acc * alpha + hi @ vf[:, kb:kb + block_k] \
+            + lo @ vf[:, kb:kb + block_k]
+        lsum = lsum * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    out = acc / lsum.clamp_min(1e-30)
+    return out.bfloat16() if round_out else out
+
+
+_SM90_CASES = {   # the two head dims the LM paths run, S about 2048
+    "d256_gemma2_group2_softcap_window": dict(
+        BH=2, BKV=1, S=2048, D=256, causal=True, window=700, softcap=50.0,
+        block_k=64),
+    "d80_zamba2_causal": dict(BH=2, BKV=2, S=2048, D=80, causal=True,
+                              window=0, softcap=0.0, block_k=128),
+}
+
+
+def _sm90_inputs(case, seed):
+    c = _SM90_CASES[case]
+    q, k, v = _qkv(c["BH"], c["BKV"], c["S"], c["S"], c["D"], seed=seed)
+    kw = {n: c[n] for n in ("causal", "window", "softcap")}
+    return [torch.from_numpy(a).bfloat16() for a in (q, k, v)], kw, \
+        c["block_k"]
+
+
+@pytest.mark.parametrize("case", sorted(_SM90_CASES))
+def test_sm90_arithmetic_holds_the_card_limit(case):
+    """hi + lo P, f32 sums and one output rounding stay within half an ulp
+    plus 2e-5 of the f32 function, element by element."""
+    (q, k, v), kw, block_k = _sm90_inputs(case, seed=30)
+    out = _sm90_emulation(q, k, v, block_k=block_k, **kw)
+    ref = attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert out.dtype == torch.bfloat16
+    used = ((out.float() - ref).abs()
+            / (CARD_RTOL * ref.abs() + CARD_ATOL)).max().item()
+    assert used <= 1.0, used
+
+
+@pytest.mark.parametrize("case", sorted(_SM90_CASES))
+def test_sm90_single_bf16_p_is_16x_worse(case):
+    """Why P is split: carried as one bf16, its 2^-9 relative error per
+    weight gives at least 16x the error of the split, before the output's
+    rounding."""
+    (q, k, v), kw, block_k = _sm90_inputs(case, seed=31)
+    ref = attention_ref(q.float(), k.float(), v.float(), **kw)
+    errs = [(_sm90_emulation(q, k, v, block_k=block_k, split=split,
+                             round_out=False, **kw) - ref).abs().max().item()
+            for split in (True, False)]
+    assert errs[1] >= 16 * errs[0], errs
+
+
 # --- dispatch -------------------------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version():

@@ -98,6 +98,27 @@ def _qkv(dev, BH, BKV, S, T, D, dtype):
                  for n, L in ((BH, S), (BKV, T), (BKV, T)))
 
 
+def _route(dtype) -> str:
+    """The kernel that serves a dtype: tensor cores for bf16, CUDA cores
+    for f32."""
+    return "wgmma_bf16" if dtype == torch.bfloat16 else "simt_f32"
+
+
+def _held_against_plain(q, k, v, **kw):
+    """One kernel launch, on the route of q's dtype and no other, held
+    against the plain version in f32."""
+    before, by_route = FA.launches, dict(FA.launches_by_kernel)
+    out = FA.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    assert {r: n - by_route[r] for r, n in FA.launches_by_kernel.items()} == \
+        {r: int(r == _route(q.dtype)) for r in by_route}
+    ref = attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert out.dtype == q.dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref, atol=FLASH_ATOL,
+                               rtol=FLASH_RTOL[q.dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BH,BKV,S,T,D,causal,window,softcap", [
     (8, 4, 200, 200, 256, True, 0, 50.0),     # gemma2 heads, ragged S
@@ -112,16 +133,33 @@ def _qkv(dev, BH, BKV, S, T, D, dtype):
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, BH, BKV, S, T, D, causal,
                                     window, softcap):
-    q, k, v = _qkv(cuda, BH, BKV, S, T, D, dtype)
-    kw = dict(causal=causal, window=window, softcap=softcap)
-    before = FA.launches
-    out = FA.flash_attention_kernel(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert FA.launches == before + 1
-    ref = attention_ref(q.float(), k.float(), v.float(), **kw)
-    assert out.dtype == dtype and out.shape == ref.shape
-    torch.testing.assert_close(out.float(), ref, atol=FLASH_ATOL,
-                               rtol=FLASH_RTOL[dtype])
+    _held_against_plain(*_qkv(cuda, BH, BKV, S, T, D, dtype), causal=causal,
+                        window=window, softcap=softcap)
+
+
+# The tensor-core kernel's edges: its query tile is 128 rows, its key tile
+# 64 keys at D = 128 and 256 and 128 keys at the other head dims.
+@pytest.mark.parametrize("BH,BKV,S,T,D,causal,window,softcap", [
+    (4, 2, 129, 191, 16, True, 0, 50.0),      # S, T multiples of no tile
+    (4, 2, 129, 191, 32, False, 0, 0.0),
+    (4, 2, 191, 129, 64, True, 0, 30.0),
+    (4, 2, 129, 191, 80, True, 0, 0.0),
+    (4, 2, 191, 129, 128, False, 0, 50.0),
+    (4, 2, 129, 191, 256, True, 0, 50.0),
+    (8, 8, 1, 1, 80, True, 0, 0.0),           # S = T = 1
+    (8, 1, 1, 300, 256, False, 0, 50.0),      # one query, group 8
+    (8, 1, 300, 300, 64, True, 0, 0.0),       # group 8
+    (16, 2, 300, 300, 256, True, 0, 50.0),    # group 8 at gemma2's D
+    (8, 4, 512, 512, 256, True, 128, 50.0),   # window ends on a key tile
+    (8, 4, 512, 512, 80, True, 256, 0.0),     # the same at 128-key tiles
+    (8, 4, 640, 640, 128, True, 192, 0.0),    # and on a query tile
+    (4, 4, 300, 300, 80, True, 400, 0.0),     # window >= T
+    (4, 2, 300, 300, 256, False, 512, 50.0),  # window >= T, non-causal
+])
+def test_flash_bf16_kernel_edges_match_plain(cuda, BH, BKV, S, T, D, causal,
+                                             window, softcap):
+    _held_against_plain(*_qkv(cuda, BH, BKV, S, T, D, torch.bfloat16),
+                        causal=causal, window=window, softcap=softcap)
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
@@ -143,6 +181,16 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
                                   v[..., :24].contiguous())
 
 
+def test_flash_bf16_refuses_a_base_tma_cannot_take(cuda):
+    """TMA reads from 16-byte aligned bases only; the wrapper raises rather
+    than launch on another."""
+    q, k, v = _qkv(cuda, 4, 2, 8, 8, 32, torch.bfloat16)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    shifted = shifted.view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention_kernel(shifted, k, v)
+
+
 @pytest.mark.parametrize("name", ["gemma2-2b-smoke", "gemma2-2b"])
 def test_forward_launches_once_per_layer_and_plain_none(cuda, name):
     """One flash launch per layer in each forward; none under
@@ -155,11 +203,13 @@ def test_forward_launches_once_per_layer_and_plain_none(cuda, name):
     g = torch.Generator(device=cuda).manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=g,
                                      device=cuda)}
+    route = _route(getattr(torch, cfg.dtype))   # bf16 at full width
     for _ in range(2):
-        before = FA.launches
+        before, on_route = FA.launches, FA.launches_by_kernel[route]
         logits, _ = model.forward(net, batch)
         torch.cuda.synchronize()
         assert FA.launches == before + cfg.num_layers
+        assert FA.launches_by_kernel[route] == on_route + cfg.num_layers
     before = FA.launches
     with ops.plain():
         plain, _ = model.forward(net, batch)
@@ -249,12 +299,14 @@ def test_hybrid_forward_launches_per_layer_and_plain_none(cuda, name,
     g = torch.Generator(device=cuda).manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
                                      device=cuda)}
+    route = _route(getattr(torch, cfg.dtype))   # bf16 at full width
     for _ in range(2):
-        before = (MS.launches, FA.launches)
+        before = (MS.launches, FA.launches, FA.launches_by_kernel[route])
         logits, _ = model.forward(net, batch)
         torch.cuda.synchronize()
-        assert (MS.launches - before[0], FA.launches - before[1]) == \
-            (layers - units, units)
+        assert (MS.launches - before[0], FA.launches - before[1],
+                FA.launches_by_kernel[route] - before[2]) == \
+            (layers - units, units, units)
     before = (MS.launches, FA.launches)
     with ops.plain():
         plain, _ = model.forward(net, batch)
