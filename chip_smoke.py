@@ -6,19 +6,28 @@ Phases, each of which raises (exit code 1) on failure:
 1. card: needs CUDA; prints the card's name and power limit; TF32 off.
 2. build: compiles the hand-written kernels from ``src/repro_torch/kernels/
    csrc`` with nvcc for sm_90a (one process per source); prints the build
-   time and ptxas's report, and per head dim the bf16 flash kernel's
-   registers, spills and dynamic shared memory.
-3. kernel check: the fused-conv kernel against its plain PyTorch version on
-   the card, at every distinct conv shape of ResNet18 at batch 8.
+   time and ptxas's report, per head dim the bf16 flash kernel's registers,
+   spills and dynamic shared memory, and the same per tile width (64, 128)
+   for the fused-conv kernel, which must not spill.
+3. kernel check: the fused-conv kernel (the tensor-core kernel of
+   ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
+   split K over a cluster) against its plain PyTorch version on the card,
+   at every distinct conv shape of ResNet18 at batch 8, with the tile
+   width and split of K the wrapper picks; a second launch must give the
+   same bits.
 4. model path: ResNet18 at the paper's width (224×224×3, 1000 classes,
    random weights from a seed) built through ``build_model`` serves 4
    requests of 8 images, then runs ``forward_fused_groups``; the logits are
    finite, the two forwards agree, the first request agrees with the plain
    forward on the CPU, and each forward made exactly 20 kernel launches.
-5. timings with CUDA events: per conv shape the kernel, its plain version,
-   the library conv (``torch.nn.functional.conv2d`` without the epilogue; a
-   yardstick only, the port never calls it) and the bound; the forward; then
-   device time by kernel and the idle share, from torch.profiler.
+5. timings with CUDA events: per conv shape the tile and split, the
+   kernel, its plain version, the library conv (``torch.nn.functional.
+   conv2d`` without the epilogue, TF32 off; a yardstick only, the port never
+   calls it), two bounds (the kernel's three bf16 products on the tensor
+   cores, and the same f32 work on the CUDA cores) and TFLOP/s, and the
+   kernel's and the library conv's device time from torch.profiler (the
+   events time of a short call is its caller's host time); the forward;
+   then device time by kernel and the idle share, from torch.profiler.
 6. flash check: the flash-attention kernels against their plain version on
    the card at gemma2-2b's head shapes (D=256, 8 query and 4 KV heads per
    batch row, softcap 50): S=8192 global and with the 4096 window, a ragged
@@ -103,6 +112,13 @@ Phases, each of which raises (exit code 1) on failure:
 21. prints the ``kernels`` JSON line (all four kernels), 22. the final
 ``{"ok": true, ...}`` line.  The full record goes to
 ``build/chip_smoke.json``.
+
+    python3 chip_smoke.py --conv-times
+
+times only the fused conv, at every conv shape of phase 3, with CUDA
+events and on the card, through whatever ``src/repro_torch`` lies beside
+this file: a copy of this file beside an older checkout times that
+checkout's kernel the same way, for a comparison in one call.
 """
 
 from __future__ import annotations
@@ -360,17 +376,8 @@ def build() -> tuple[float, dict]:
     # The bf16 flash kernel per head dim: ptxas's registers (at launch; the
     # consumers raise theirs to 240 with setmaxnreg) and spills, and the
     # dynamic shared memory it asks for.
-    sm90, d = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"flash_attention_sm90_kernelILi(\d+)E", line)
-            d = int(m[1]) if m else None
-        elif d is not None and (m := re.search(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            sm90.setdefault(d, {})["spill_bytes"] = int(m[1]) + int(m[2])
-        elif d is not None and (m := re.search(r"Used (\d+) registers",
-                                               line)):
-            sm90.setdefault(d, {})["registers"] = int(m[1])
+    sm90 = ptxas_report(log, r"flash_attention_sm90_kernelILi(\d+)E",
+                        lambda m: int(m[1]))
     for d, row in sorted(sm90.items()):
         row["dynamic_smem_bytes"] = lib.flash_attention_sm90_smem_bytes(d)
         print(f"[build] flash_attention_sm90 D={d}: {row.get('registers')} "
@@ -378,7 +385,38 @@ def build() -> tuple[float, dict]:
               f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
     check(sorted(sm90) == [16, 32, 64, 80, 128, 256],
           f"flash_attention_sm90 ptxas report: {sm90}")
-    return secs, sm90
+    # The fused-conv kernel per tile width and patch copy (16 bytes along
+    # Cin, or 4 for the stem): registers, spills (none allowed) and dynamic
+    # shared memory.
+    conv = ptxas_report(log, r"fused_conv_sm90_kernelILi(\d+)ELb(\d)E",
+                        lambda m: f"BN{m[1]}_{('4', '16')[int(m[2])]}B")
+    for key, row in sorted(conv.items()):
+        row["dynamic_smem_bytes"] = lib.fused_conv_sm90_smem_bytes(
+            int(key[2:key.index("_")]))
+        print(f"[build] fused_conv_sm90 {key}: {row.get('registers')} "
+              f"registers, {row.get('spill_bytes')} B spilled, "
+              f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
+    check(sorted(conv) == ["BN128_16B", "BN128_4B", "BN64_16B", "BN64_4B"]
+          and all(row.get("spill_bytes") == 0 for row in conv.values()),
+          f"fused_conv_sm90 ptxas report: {conv}")
+    return secs, {"flash_attention_sm90": sm90, "fused_conv_sm90": conv}
+
+
+def ptxas_report(log: str, instance: str, key) -> dict:
+    """Registers and spilled bytes of each kernel instance whose mangled
+    name matches ``instance`` in ptxas's ``-v`` report, by ``key(match)``."""
+    report, n = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(instance, line)
+            n = key(m) if m else None
+        elif n is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            report.setdefault(n, {})["spill_bytes"] = int(m[1]) + int(m[2])
+        elif n is not None and (m := re.search(r"Used (\d+) registers",
+                                               line)):
+            report.setdefault(n, {})["registers"] = int(m[1])
+    return report
 
 
 def conv_inputs(i: int, shape):
@@ -396,6 +434,15 @@ def conv_inputs(i: int, shape):
     return x, w, scale, shift, residual
 
 
+def conv_plan(shape) -> tuple[int, int]:
+    """The tile width and split of K the wrapper picks for ``shape``."""
+    from repro_torch.kernels.fused_conv import plan, resident_blocks
+    _, _, hw, cin, cout, k, s, p, _, _ = shape
+    oh = (hw + 2 * p - k) // s + 1
+    return plan(BATCH * oh * oh, cout, k * k * cin,
+                resident_blocks(torch.cuda.current_device()))
+
+
 def kernel_check() -> list[dict]:
     from repro_torch.kernels.fused_conv import fused_conv_kernel
     from repro_torch.kernels.ref import fused_conv_ref
@@ -405,18 +452,21 @@ def kernel_check() -> list[dict]:
         x, w, scale, shift, res = conv_inputs(i, shape)
         kw = dict(stride=s, padding=p, relu=relu, residual=res)
         out = fused_conv_kernel(x, w, scale, shift, **kw)
+        again = fused_conv_kernel(x, w, scale, shift, **kw)
         torch.cuda.synchronize()
         ref = fused_conv_ref(x, w, scale, shift, **kw)
         check(out.shape == ref.shape, f"{name}: shape {out.shape} vs "
               f"{ref.shape}")
         err, rel = rel_err(out, ref)
-        print(f"[check] {name:16s} out {tuple(out.shape)} max_abs_err "
-              f"{err:.3e} rel {rel:.3e}")
+        tile_n, splits = conv_plan(shape)
+        print(f"[check] {name:16s} out {tuple(out.shape)} tile 128x{tile_n} "
+              f"split {splits} max_abs_err {err:.3e} rel {rel:.3e}")
         check(rel <= KERNEL_RTOL, f"{name}: kernel vs plain rel err {rel:.3e}"
               f" > {KERNEL_RTOL}")
+        check(torch.equal(out, again), f"{name}: two launches differ")
         rows.append({"name": name, "per_forward": count,
-                     "out": list(out.shape), "max_abs_err": err,
-                     "rel_err": rel})
+                     "out": list(out.shape), "tile_n": tile_n,
+                     "splits": splits, "max_abs_err": err, "rel_err": rel})
     return rows
 
 
@@ -520,13 +570,19 @@ def roofline(ops_: int, nbytes: int, peak: float = PEAK_F32_OPS,
 
 
 def bounds(shape) -> dict:
+    """The kernel's bound (its three bf16 products, 3·2·M·N·K operations at
+    the tensor cores' rate) and, as ``bound_f32_ms``, the bound of the same
+    f32 work on the CUDA cores; ``ops`` is the f32 work, for TFLOP/s."""
     _, _, hw, cin, cout, k, s, p, relu, res = shape
     oh = (hw + 2 * p - k) // s + 1
     m, kk = BATCH * oh * oh, k * k * cin
     ops = 2 * m * cout * kk + m * cout * (2 + int(res) + int(relu))
-    return roofline(ops, 4 * (BATCH * touched(hw, k, s, p) ** 2 * cin
-                              + kk * cout + 2 * cout + m * cout
-                              * (1 + int(res))))
+    nbytes = 4 * (BATCH * touched(hw, k, s, p) ** 2 * cin + kk * cout
+                  + 2 * cout + m * cout * (1 + int(res)))
+    f32 = roofline(ops, nbytes)
+    return {**roofline(3 * 2 * m * cout * kk, nbytes, peak=PEAK_BF16_OPS),
+            "ops": ops, "bound_f32_ms": f32["bound_ms"],
+            "bound_f32_by": f32["bound_by"]}
 
 
 def timings(rows: list[dict], model: dict) -> dict:
@@ -546,16 +602,47 @@ def timings(rows: list[dict], model: dict) -> dict:
                                                          **kw))
         row["library_ms"] = cuda_ms(lambda: F.conv2d(x_nchw, w_lib, stride=s,
                                                      padding=p))
-        print(f"[time] {row['name']:16s} x{row['per_forward']} kernel "
-              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f}  library "
-              f"{row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
-              f"({row['bound_by']}; {row['ops'] / row['ms'] / 1e9:.1f} "
-              f"TFLOP/s)")
+        # The calls above are timed back to back from Python, so a short
+        # kernel's time is its caller's host time; this is the card's own.
+        row["device_ms"] = device_ms(lambda: fused_conv_kernel(
+            x, w, scale, shift, **kw))
+        row["library_device_ms"] = device_ms(lambda: F.conv2d(
+            x_nchw, w_lib, stride=s, padding=p))
+        print(f"[time] {row['name']:16s} x{row['per_forward']} 128x"
+              f"{row['tile_n']}/{row['splits']} kernel {row['ms']:.4f} ms  "
+              f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}"
+              f"  bound {row['bound_ms']:.4f} ({row['bound_by']}, bf16x3) "
+              f"f32 {row['bound_f32_ms']:.4f} ({row['bound_f32_by']})  "
+              f"{row['ops'] / row['ms'] / 1e9:.1f} TFLOP/s; on the card "
+              f"kernel {fmt_ms(row['device_ms'])} library "
+              f"{fmt_ms(row['library_device_ms'])}")
     net, x = model["net"], model["x"]
     fwd_ms = cuda_ms(lambda: net(x), iters=10)
     print(f"[time] forward batch {BATCH} at {IMAGE_HW}²: {fwd_ms:.3f} ms "
           f"(CUDA events, mean of 10)")
     return {"forward_ms": fwd_ms}
+
+
+def device_ms(fn, runs: int = 10) -> float | None:
+    """The device time of the kernels one ``fn()`` launches, the mean over
+    ``runs`` calls, from torch.profiler's CUDA trace; None when the
+    profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return None
+    return sum(t.end - t.start for t in spans) / runs / 1e3
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def device_breakdown(events, window_name: str, runs: int) -> dict | None:
@@ -1129,6 +1216,31 @@ def per_forward(rows: list[dict], key: str) -> float:
     return sum(r["per_forward"] * r[key] for r in rows)
 
 
+def conv_times() -> None:
+    """Per conv shape of one forward, the fused conv's CUDA-event and device
+    time, and their sums over the forward."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_conv import fused_conv_kernel
+    _build.library()
+    total = {"events": 0.0, "device": 0.0}
+    measured = True
+    for i, shape in enumerate(CONV_SHAPES):
+        name, count, _, _, _, _, s, p, relu, _ = shape
+        x, w, scale, shift, res = conv_inputs(i, shape)
+        kw = dict(stride=s, padding=p, relu=relu, residual=res)
+
+        def call():
+            return fused_conv_kernel(x, w, scale, shift, **kw)
+        ms, dev = cuda_ms(call), device_ms(call)
+        total["events"] += count * ms
+        total["device"] += count * (dev or 0.0)
+        measured = measured and dev is not None
+        print(f"[conv] {name:16s} x{count} events {ms:.4f} ms  on the card "
+              f"{fmt_ms(dev)}")
+    print(f"[conv] per forward: events {total['events']:.4f} ms, on the card "
+          f"{fmt_ms(total['device'] if measured else None)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1136,7 +1248,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     smi = card()
-    build_s, sm90_build = build()
+    if "--conv-times" in sys.argv[1:]:
+        conv_times()
+        return 0
+    build_s, ptxas = build()
     rows = kernel_check()
     model = model_path()
     fwd = timings(rows, model)
@@ -1256,11 +1371,17 @@ def main() -> int:
     h_flash = totals(h_flash_rows)
     kernels = {"kernels": [{
         "name": "fused_conv", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_conv.cu",
+        "source": "src/repro_torch/kernels/csrc/fused_conv_sm90.cu",
         "replaces": "src/repro/kernels/fused_conv.py:82",
         "launches": model["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **totals(rows),
+        "bound_is": "three bf16 products on the tensor cores (989 TFLOP/s)",
+        "bound_f32_ms": per_forward(rows, "bound_f32_ms"),
+        **({} if any(r["device_ms"] is None or r["library_device_ms"] is None
+                     for r in rows) else {
+            "device_ms": per_forward(rows, "device_ms"),
+            "library_device_ms": per_forward(rows, "library_device_ms")}),
         "times_are": f"sums over the {CONVS_PER_FORWARD} launches of one "
                      f"batch-{BATCH} forward; per shape in chip_smoke.json",
     }, {
@@ -1313,7 +1434,7 @@ def main() -> int:
     }]}
 
     record = {"card": smi, "torch": torch.__version__,
-              "build_s": build_s, "flash_attention_sm90_build": sm90_build,
+              "build_s": build_s, "ptxas": ptxas,
               "shapes": rows, **fwd, **model,
               "flash_shapes": flash_rows, "flash_head_dim_shapes": dim_rows,
               cfg.name: lm_record(lm, served, lm_times),

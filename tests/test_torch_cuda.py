@@ -55,6 +55,14 @@ def _inputs(dev, B, hw, cin, cout, k, s, p, residual):
     (2, 14, 64, 128, 1, 2, 0, False, False),    # 1x1/s2 downsample
     (1, 7, 96, 40, 3, 1, 1, True, True),        # 7x7 map, ragged Cout
     (3, 9, 5, 70, 3, 2, 1, False, True),        # ragged everything
+    (8, 7, 512, 512, 3, 1, 1, True, True),      # stage 4, K split over 8
+    (8, 14, 256, 512, 3, 2, 1, True, False),    # stage 4's 3x3/s2, split 8
+    (8, 14, 256, 256, 3, 1, 1, True, True),     # stage 3, split over 5
+    (2, 14, 256, 40, 3, 1, 1, True, False),     # Cout 40, split K
+    (2, 15, 64, 64, 3, 1, 1, False, True),      # M = 450, no whole tile
+    (1, 56, 64, 64, 3, 1, 1, True, False),      # batch 1
+    (1, 224, 3, 64, 7, 2, 3, True, False),      # the stem at full size
+    (1, 224, 3, 64, 7, 2, 3, False, True),      # the stem with a residual
 ])
 def test_kernel_matches_plain(cuda, B, hw, cin, cout, k, s, p, relu,
                               residual):
@@ -69,6 +77,21 @@ def test_kernel_matches_plain(cuda, B, hw, cin, cout, k, s, p, relu,
     assert out.shape == ref.shape and out.is_cuda
     err = (out - ref).abs().max().item()
     assert err <= RTOL * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("B,hw,cin,cout,k,s,p", [
+    (8, 7, 512, 512, 3, 1, 1),      # split K: the cluster's sum
+    (2, 14, 64, 64, 3, 1, 1),       # one block per tile
+])
+def test_kernel_is_deterministic(cuda, B, hw, cin, cout, k, s, p):
+    """Two launches on the same inputs give the same bits: the split of K
+    is summed in a fixed order, with no atomics."""
+    x, w, scale, shift, res = _inputs(cuda, B, hw, cin, cout, k, s, p, True)
+    kw = dict(stride=s, padding=p, residual=res)
+    one = fc.fused_conv_kernel(x, w, scale, shift, **kw)
+    two = fc.fused_conv_kernel(x, w, scale, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):

@@ -106,8 +106,120 @@ def test_non_cpu_tensor_goes_to_kernel_which_raises():
         ops.fused_conv(x, w, s, s)
 
 
+# ResNet18's convs at batch 8 as implicit GEMMs: (M, Cout, K).
+RESNET18_GEMMS = [(100352, 64, 147), (25088, 64, 576), (6272, 128, 576),
+                  (6272, 128, 64), (6272, 128, 1152), (1568, 256, 1152),
+                  (1568, 256, 128), (1568, 256, 2304), (392, 512, 2304),
+                  (392, 512, 256), (392, 512, 4608)]
+
+
+@pytest.mark.parametrize("m,n,k", RESNET18_GEMMS + [(75, 70, 45),
+                                                    (1, 1, 1), (450, 40, 576)])
+def test_plan_is_one_the_kernel_takes(m, n, k):
+    bn, splits = fc.plan(m, n, k)
+    assert bn in fc.TILE_N
+    assert 1 <= splits <= min(fc.MAX_SPLITS, -(-k // fc.K_BLOCK))
+    if n <= fc.TILE_N[0]:
+        assert bn == fc.TILE_N[0]
+
+
+@pytest.mark.parametrize("m,n,k", RESNET18_GEMMS[5:])
+def test_plan_fills_the_card_at_stages_3_and_4(m, n, k):
+    """Stages 3 and 4 have 16-26 output tiles for 132 SMs; the split of K
+    brings them within one wave of a full card."""
+    bn, splits = fc.plan(m, n, k)
+    blocks = -(-m // fc.TILE_M) * -(-n // bn) * splits
+    assert splits > 1 and fc.SMS * 3 // 4 <= blocks <= fc.SMS
+
+
 @pytest.mark.parametrize("h,k,s,p,want", [(224, 7, 2, 3, 112),
                                           (56, 1, 2, 0, 28), (7, 3, 1, 1, 7),
                                           (14, 3, 2, 1, 7)])
 def test_out_hw(h, k, s, p, want):
     assert fc.out_hw(h, h, k, k, s, p) == (want, want)
+
+
+# --- the kernel's arithmetic, emulated on the CPU ---------------------------
+#
+# The CUDA kernel takes each f32 product as three bf16 products on the
+# tensor cores, a_hi·b_hi + a_hi·b_lo + a_lo·b_hi with hi = bf16(v) and
+# lo = bf16(v − hi), summed in f32.  Emulated here at ResNet18's shapes with
+# chip_smoke.py's inputs (x ~ N(0, 1), He-scaled weights), it must hold the
+# card's per-conv limit, max|out − conv| ≤ 1e-4·max|conv| against the conv
+# in f64; a single bf16 pass or a single TF32 pass must not, which is why
+# the kernel carries the split.
+
+KERNEL_RTOL = 1e-4   # chip_smoke.py's limit per conv
+
+# (name, batch, input hw, Cin, Cout, k, stride, padding)
+RESNET18_SHAPES = [
+    ("stem_7x7s2", 1, 224, 3, 64, 7, 2, 3),       # K = 147
+    ("s1_3x3", 2, 56, 64, 64, 3, 1, 1),
+    ("s4_3x3s2", 2, 14, 256, 512, 3, 2, 1),
+    ("s4_3x3", 2, 7, 512, 512, 3, 1, 1),          # K = 4608
+]
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """Rounds f32 to TF32's 10 mantissa bits (to nearest, ties away)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, s: int, p: int) -> torch.Tensor:
+    return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
+                                      w.permute(3, 2, 0, 1), stride=s,
+                                      padding=p)
+
+
+def _split_bf16x3(x, w, s, p):
+    xh, wh = _bf16(x), _bf16(w)
+    xl, wl = _bf16(x - xh), _bf16(w - wh)
+    return _conv(xh, wh, s, p) + _conv(xh, wl, s, p) + _conv(xl, wh, s, p)
+
+
+SCHEMES = {
+    "bf16x3": _split_bf16x3,
+    "bf16x1": lambda x, w, s, p: _conv(_bf16(x), _bf16(w), s, p),
+    "tf32x1": lambda x, w, s, p: _conv(_tf32(x), _tf32(w), s, p),
+}
+
+
+def _scheme_rel_err(scheme: str, shape) -> float:
+    _, b, hw, cin, cout, k, s, p = shape
+    rng = np.random.default_rng(hw * 100 + cin)
+    x = torch.from_numpy(rng.standard_normal((b, hw, hw, cin))
+                         .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, k, cin, cout))
+                          * (2.0 / (k * k * cin)) ** 0.5).astype(np.float32))
+    exact = _conv(x.double(), w.double(), s, p)
+    out = SCHEMES[scheme](x, w, s, p)
+    assert out.dtype == torch.float32
+    return ((out.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+def test_split_rounds_as_the_kernel_does():
+    """hi carries bf16's 8 bits, lo the next 8: hi + lo is within 2^-16 of
+    v, and exactly v where v needs no more than 16 bits."""
+    v = torch.tensor([1.0, 1 + 2**-7, 1 + 2**-9 + 2**-15, 3.14159265,
+                      -2.5e-3, 7e4])
+    hi = _bf16(v)
+    lo = _bf16(v - hi)
+    assert ((hi + lo - v).abs() <= v.abs() * 2.0**-16).all()
+    assert (hi + lo)[:3].tolist() == v[:3].tolist()
+    assert _tf32(torch.tensor([1 + 2**-11]))[0].item() == 1 + 2**-10
+
+
+@pytest.mark.parametrize("shape", RESNET18_SHAPES, ids=lambda s: s[0])
+def test_bf16x3_split_holds_the_kernel_limit(shape):
+    assert _scheme_rel_err("bf16x3", shape) <= KERNEL_RTOL / 10
+
+
+@pytest.mark.parametrize("scheme", ["bf16x1", "tf32x1"])
+@pytest.mark.parametrize("shape", RESNET18_SHAPES, ids=lambda s: s[0])
+def test_one_pass_misses_the_kernel_limit(scheme, shape):
+    assert _scheme_rel_err(scheme, shape) > KERNEL_RTOL
