@@ -7,8 +7,9 @@ Phases, each of which raises (exit code 1) on failure:
 2. build: compiles the hand-written kernels from ``src/repro_torch/kernels/
    csrc`` with nvcc for sm_90a (one process per source); prints the build
    time and ptxas's report, per head dim the bf16 flash kernel's registers,
-   spills and dynamic shared memory, and the same per tile width (64, 128)
-   for the fused-conv kernel, which must not spill.
+   spills and dynamic shared memory, the same per tile width (64, 128)
+   for the fused-conv kernel and per chunk (64, 128) for the SSD scan's
+   three kernels, none of which may spill.
 3. kernel check: the fused-conv kernel (the tensor-core kernel of
    ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
    split K over a cluster) against its plain PyTorch version on the card,
@@ -56,11 +57,15 @@ Phases, each of which raises (exit code 1) on failure:
    the faster of the two), and the bound; the prefill, with the flash
    kernel's share of device time and the idle share from torch.profiler;
    the decode step at batch 4, with its idle share.
-10. scan check: the SSD-scan (mamba_scan) kernel against its plain version
-    in f32 on the card at zamba2-2.7b's heads (H=80, P=64, N=64): the full
-    prefill shape 1×4096, the serving prompts 4×64, a ragged S=1000 and the
-    full-reset property (a_log = -30: y_t = (C_t·B_t)·dtx_t); every element
-    within SCAN_ATOL.
+10. scan check: the SSD-scan (mamba_scan) kernel (``csrc/
+    mamba_scan_sm90.cu``: chunk states, state passing and chunk outputs,
+    the products as three bf16 products on the tensor cores) against its
+    plain version in f32 on the card at zamba2-2.7b's heads (H=80, P=64,
+    N=64): the full prefill shape 1×4096, the same with long-memory decays
+    (the state carried across every chunk), the serving prompts 4×64, a
+    ragged S=1000 and the full-reset property (a_log = -30: y_t =
+    (C_t·B_t)·dtx_t); every element within SCAN_ATOL, and a second launch
+    gives the same bits.
 11. flash check at zamba2-2.7b's heads (D=80, 32 query and 32 KV heads, no
     softcap): S=4096 and B=4 at S=64 in bf16, a ragged S=1000 in f32, with
     the limits of phase 6; each launch moves only its dtype's route.
@@ -80,8 +85,10 @@ Phases, each of which raises (exit code 1) on failure:
     limit TWIN_ATOL held at every position.  This is the check that
     carries the hybrid's correctness; the bf16 phases show only that the
     full depth runs within bf16 noise.
-15. timings: per scan shape the kernel, its plain version and the bound (no
-    single PyTorch call computes the scan, so no library time); per D=80
+15. timings: per scan shape the kernel, its plain version and the bounds
+    (three bf16 products on the tensor cores against the bytes, and the
+    f32 work on the CUDA cores; no single PyTorch call computes the scan,
+    so no library time); per D=80
     flash shape as in phase 9; the hybrid prefill with each kernel's share
     of device time and the idle share; the decode step at batch 4.
 16. mLSTM check: the mLSTM-scan (mlstm_scan) kernel against its plain
@@ -119,6 +126,13 @@ times only the fused conv, at every conv shape of phase 3, with CUDA
 events and on the card, through whatever ``src/repro_torch`` lies beside
 this file: a copy of this file beside an older checkout times that
 checkout's kernel the same way, for a comparison in one call.
+
+    python3 chip_smoke.py --scan-times
+
+does the same for the SSD scan at every shape of phase 10, at every chunk
+the wrapper is built for: each shape first held against the plain version
+(SCAN_ATOL, two launches bit-equal), then CUDA-event and device time, the
+device time of each of the op's kernels, and the sums over one prefill.
 """
 
 from __future__ import annotations
@@ -202,21 +216,37 @@ HYBRID_PREFILL_S = 4096
 # The scan kernel vs its plain version, both f32 on the card, element by
 # element: |kernel − plain| ≤ SCAN_ATOL, the 1e-4 of tests/test_kernels.py.
 # Inputs are drawn as that file draws them (dtx·0.3, a_log = −softplus(N(0,
-# 1)), B and C ·0.3), so |y| reaches about 3 at N = 64.  The kernel sums
+# 1)), B and C ·0.3), so |y| reaches about 3.6 at N = 64.  The kernel sums
 # each chunk's products in another order than the plain step-by-step
-# recurrence, and takes e^{Σa} where the recurrence multiplies up to 64
-# factors e^{a}: a relative error of a few 1e-6 of |y|, about 1e-5 at
-# |y| ≈ 3.  The state forgets by e^{a_t} per step, about 0.5 on average, so
-# an error made at one step has shrunk below f32's resolution some 25 steps
-# later: it does not pile up along S, and the same limit holds at S = 4096
-# as at S = 64.
+# recurrence, takes e^{Σa} where the recurrence multiplies up to 128
+# factors e^{a}, and takes each product as three bf16 products (hi·hi +
+# hi·lo + lo·hi), within a few 2^-16 of the product: a CPU emulation of its
+# arithmetic puts y within 5.1e-5 of f64 at these shapes
+# (tests/test_torch_mamba_scan.py), the largest products, the diagonal
+# (C_t·B_t)·dtx_t, setting the error.  Errors do not pile up along S: the
+# state's error is a few 2^-16 of the state, and the state forgets.
 SCAN_ATOL = 1e-4
-SCAN_CHUNK = 64          # the kernel's chunk, for counting its operations
+# The long-memory shape: a_log = −Δ·A with Δ log-uniform in [1e-3, 0.1]
+# per step and head (the Mamba2 paper's range for Δ, arXiv:2405.21060) and
+# A = linspace(1, 16) over the heads (the model's init, models/ssm.py), so
+# the slow heads carry the state across every chunk (e^{A_c} ≈ 0.06 a
+# chunk of 128 at A = 1) and a state pass that drops or misroutes the
+# carried state misses the limit by orders of magnitude (0.5 in the
+# emulation).  |y| reaches about 6.5; the kernel's error is no larger than
+# at the fast draws (5.0e-5 in the emulation), since each chunk's state
+# carries only the relative error of its products, and the plain f32
+# recurrence is within 1.2e-6 of f64 there.  So the same limit holds.
+LONG_DT = (1e-3, 0.1)
+LONG_A = (1.0, 16.0)
+SCAN_CHUNK = 128         # the kernel's chunk at S > 256 (mamba_scan.chunk_for),
+                         # for counting its operations
 # (name, launches per prefill forward, batch, S, a_log: None for
-# −softplus(N(0, 1)), else that constant) at zamba2's H=80 heads of P=64,
-# N=64.  The prefill runs the first, once per Mamba2 layer.
+# −softplus(N(0, 1)), "long" for the long-memory draw, else that constant)
+# at zamba2's H=80 heads of P=64, N=64.  The prefill runs the first, once
+# per Mamba2 layer.
 SCAN_SHAPES = [
     ("b1_s4096", 45, 1, 4096, None),
+    ("b1_s4096_long_memory", 0, 1, 4096, "long"),
     ("b4_s64", 0, 4, 64, None),
     ("b1_s1000_ragged", 0, 1, 1000, None),
     ("b1_s256_reset", 0, 1, 256, -30.0),
@@ -399,7 +429,23 @@ def build() -> tuple[float, dict]:
     check(sorted(conv) == ["BN128_16B", "BN128_4B", "BN64_16B", "BN64_4B"]
           and all(row.get("spill_bytes") == 0 for row in conv.values()),
           f"fused_conv_sm90 ptxas report: {conv}")
-    return secs, {"flash_attention_sm90": sm90, "fused_conv_sm90": conv}
+    # The SSD scan's three kernels, per chunk (64, 128) where built:
+    # registers, spills (none allowed) and dynamic shared memory.
+    scan = ptxas_report(log, r"(mamba_scan_(?:chunk_state|state_pass|"
+                             r"chunk_output)_kernel)(?:ILi(\d+)E)?",
+                        lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""))
+    for key, row in sorted(scan.items()):
+        phase = 1 if "state_kernel" in key else 3 if "output" in key else 0
+        row["dynamic_smem_bytes"] = lib.mamba_scan_sm90_smem_bytes(
+            phase, int(key[key.index("<") + 1:-1])) if phase else 0
+        print(f"[build] {key}: {row.get('registers')} registers, "
+              f"{row.get('spill_bytes')} B spilled, "
+              f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
+    check(len(scan) == 5
+          and all(row.get("spill_bytes") == 0 for row in scan.values()),
+          f"mamba_scan_sm90 ptxas report: {scan}")
+    return secs, {"flash_attention_sm90": sm90, "fused_conv_sm90": conv,
+                  "mamba_scan_sm90": scan}
 
 
 def ptxas_report(log: str, instance: str, key) -> dict:
@@ -627,6 +673,12 @@ def device_ms(fn, runs: int = 10) -> float | None:
     """The device time of the kernels one ``fn()`` launches, the mean over
     ``runs`` calls, from torch.profiler's CUDA trace; None when the
     profiler recorded no device time."""
+    by_name = device_ms_by_kernel(fn, runs)
+    return None if by_name is None else sum(by_name.values())
+
+
+def device_ms_by_kernel(fn, runs: int = 10) -> dict[str, float] | None:
+    """``device_ms`` per device kernel name."""
     from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
@@ -634,11 +686,14 @@ def device_ms(fn, runs: int = 10) -> float | None:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = e.time_range
+            by_name[e.name] = by_name.get(e.name, 0.0) + (t.end - t.start)
+    if not by_name:
         return None
-    return sum(t.end - t.start for t in spans) / runs / 1e3
+    return {name: us / runs / 1e3 for name, us in by_name.items()}
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -1069,30 +1124,42 @@ def scan_inputs(i: int, shape, cfg):
     def randn(*size):
         return torch.randn(size, generator=g, device="cuda")
     dtx = randn(b, s, H, P) * 0.3
-    a = (-F.softplus(randn(b, s, H)) if a_log is None
-         else torch.full((b, s, H), a_log, device="cuda"))
+    if a_log is None:
+        a = -F.softplus(randn(b, s, H))
+    elif a_log == "long":
+        lo, hi = np.log(LONG_DT[0]), np.log(LONG_DT[1])
+        dt = torch.exp(lo + (hi - lo) * torch.rand((b, s, H), generator=g,
+                                                    device="cuda"))
+        a = -dt * torch.linspace(*LONG_A, H, device="cuda")
+    else:
+        a = torch.full((b, s, H), a_log, device="cuda")
     return dtx, a, randn(b, s, N) * 0.3, randn(b, s, N) * 0.3
 
 
 def scan_closed_form(shape, dtx, a, Bm, Cm):
     """The full reset (a_log = -30): y_t = (C_t·B_t)·dtx_t."""
-    return None if shape[4] is None else \
-        (Cm * Bm).sum(-1)[..., None, None] * dtx
+    return (Cm * Bm).sum(-1)[..., None, None] * dtx \
+        if isinstance(shape[4], float) else None
 
 
 def recurrence_check(tag: str, kernel, plain, shapes, inputs, closed_form,
-                     limit: float, closed_note: str) -> list[dict]:
+                     limit: float, closed_note: str,
+                     twice: bool = False) -> list[dict]:
     """Each shape's kernel output against its plain version, both f32 on
     the card, within ``limit`` per element; where ``closed_form`` gives one
-    for the shape, against that too."""
+    for the shape, against that too; with ``twice``, a second launch must
+    give the same bits."""
     rows = []
     print(f"[{tag}] limit, per element against the plain version in f32: "
-          f"|kernel - plain| <= {limit}; {closed_note}")
+          f"|kernel - plain| <= {limit}; {closed_note}"
+          + ("; two launches bit-equal" if twice else ""))
     for i, shape in enumerate(shapes):
         name, count, b, s = shape[:4]
         args = inputs(i, shape)
         out = kernel(*args)
+        again = kernel(*args) if twice else out
         torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{name}: two launches differ")
         ref = plain(*args)
         check(out.shape == ref.shape and out.dtype == torch.float32,
               f"{name}: {out.shape} {out.dtype} vs {ref.shape}")
@@ -1113,7 +1180,7 @@ def recurrence_check(tag: str, kernel, plain, shapes, inputs, closed_form,
                  if closed is not None else ""))
         check(err <= limit, f"{name}: kernel vs plain {err:.3e} > {limit}")
         rows.append(row)
-        del args, out, ref, closed
+        del args, out, again, ref, closed
     return rows
 
 
@@ -1123,7 +1190,10 @@ def scan_bounds(shape, cfg) -> dict:
     at the kernel's chunk, with the masked scores C·Bᵀ (upper half
     skipped) formed once per (batch, chunk) since every head shares B and
     C, and per head the decay-weighted scores times dtx, the inter term and
-    the carry; or the sequential recurrence at 5·N·P a step and head."""
+    the carry; or the sequential recurrence at 5·N·P a step and head.  The
+    bound is the kernel's: that work as three bf16 products on the tensor
+    cores, against the bytes; ``bound_f32_ms`` is the same work in f32 on
+    the CUDA cores; ``ops`` is the f32 work, for TFLOP/s."""
     from repro_torch.models.ssm import ssm_dims
     _, _, b, s, _ = shape
     _, H, P, N = ssm_dims(cfg)
@@ -1133,8 +1203,12 @@ def scan_bounds(shape, cfg) -> dict:
     recurrence = b * H * s * 5 * N * P
     form = f"chunked at {SCAN_CHUNK}" if chunked < recurrence else \
         "recurrence"
-    return roofline(min(chunked, recurrence),
-                    4 * b * s * (2 * H * P + H + 2 * N), ops_form=form)
+    ops = min(chunked, recurrence)
+    nbytes = 4 * b * s * (2 * H * P + H + 2 * N)
+    f32 = roofline(ops, nbytes)
+    return {**roofline(3 * ops, nbytes, peak=PEAK_BF16_OPS), "ops": ops,
+            "ops_form": form, "bound_f32_ms": f32["bound_ms"],
+            "bound_f32_by": f32["bound_by"]}
 
 
 def recurrence_timings(rows: list[dict], shapes, inputs, kernel, plain,
@@ -1150,11 +1224,13 @@ def recurrence_timings(rows: list[dict], shapes, inputs, kernel, plain,
                                   iters=2 if shape[3] >= 1000 else 5,
                                   warmup=1)
         row["library_ms"] = None
+        f32 = (f"; f32 CUDA cores {row['bound_f32_ms']:.4f} "
+               f"({row['bound_f32_by']})" if "bound_f32_ms" in row else "")
         print(f"[time] {row['name']:19s} x{row['per_forward']:<2d} kernel "
               f"{row['ms']:.4f} ms ({row['ops'] / row['ms'] / 1e9:.2f} "
               f"TFLOP/s)  plain {row['plain_ms']:.3f}  bound "
               f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['ops']:.4g} "
-              f"operations, {row['ops_form']})")
+              f"operations, {row['ops_form']}{f32})")
         del args
 
 
@@ -1241,6 +1317,51 @@ def conv_times() -> None:
           f"{fmt_ms(total['device'] if measured else None)}")
 
 
+def scan_times() -> None:
+    """Per scan shape, the SSD-scan kernel held against its plain version
+    (SCAN_ATOL, two launches bit-equal), then its CUDA-event and device
+    time, the device time of each of its device kernels, and the sums over
+    one prefill; at every chunk the wrapper is built for."""
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, mamba_scan
+    from repro_torch.kernels.ref import mamba_scan_ref
+    _build.library()
+    hcfg = get_config(HYBRID_CONFIG)
+
+    def inputs(i, shape):
+        return scan_inputs(i, shape, hcfg)
+    for chunk in getattr(mamba_scan, "BUILT_CHUNKS", (None,)):
+        kernel = mamba_scan.mamba_scan_kernel if chunk is None else \
+            functools.partial(mamba_scan.mamba_scan_kernel, chunk=chunk)
+        tag = "scan" if chunk is None else f"scan chunk {chunk}"
+        rows = recurrence_check(tag, kernel, mamba_scan_ref, SCAN_SHAPES,
+                                inputs, scan_closed_form, SCAN_ATOL,
+                                "the reset shape also against (C_t.B_t) "
+                                "dtx_t", twice=True)
+        total = {"events": 0.0, "device": 0.0}
+        measured = True
+        for i, (shape, row) in enumerate(zip(SCAN_SHAPES, rows)):
+            args = inputs(i, shape)
+            ms = cuda_ms(lambda: kernel(*args))
+            by_kernel = device_ms_by_kernel(lambda: kernel(*args))
+            dev = None if by_kernel is None else sum(by_kernel.values())
+            total["events"] += row["per_forward"] * ms
+            total["device"] += row["per_forward"] * (dev or 0.0)
+            measured = measured and dev is not None
+            b_ = scan_bounds(shape, hcfg)
+            print(f"[{tag}] {row['name']:20s} x{row['per_forward']:<2d} "
+                  f"events {ms:.4f} ms  on the card {fmt_ms(dev)}  bound "
+                  f"{b_['bound_ms']:.4f} ({b_['bound_by']}; bytes "
+                  f"{b_['bytes_ms']:.4f}, bf16x3 {b_['ops_ms']:.4f}, f32 "
+                  f"CUDA cores {b_['bound_f32_ms']:.4f})")
+            for name, t in sorted((by_kernel or {}).items()):
+                print(f"[{tag}]   {t:.4f} ms {name[:90]}")
+            del args
+        print(f"[{tag}] per prefill: events {total['events']:.4f} ms, on the "
+              f"card {fmt_ms(total['device'] if measured else None)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1250,6 +1371,9 @@ def main() -> int:
     smi = card()
     if "--conv-times" in sys.argv[1:]:
         conv_times()
+        return 0
+    if "--scan-times" in sys.argv[1:]:
+        scan_times()
         return 0
     build_s, ptxas = build()
     rows = kernel_check()
@@ -1282,7 +1406,7 @@ def main() -> int:
     scan_rows = recurrence_check(
         "scan", mamba_scan_kernel, mamba_scan_ref, SCAN_SHAPES, h_inputs,
         scan_closed_form, SCAN_ATOL, "the reset shape also against (C_t.B_t) "
-        "dtx_t")
+        "dtx_t", twice=True)
     h_flash_rows = flash_check(hcfg, HYBRID_FLASH_SHAPES, SEED + 300)
     hlm = prefill_path(hcfg, HYBRID_PREFILL_S, h_expect)
     h_served = serve_path(hcfg, hlm, h_expect)
@@ -1410,7 +1534,7 @@ def main() -> int:
                                  f"1x{HYBRID_PREFILL_S} prefill"},
     }, {
         "name": "mamba_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan_sm90.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:62",
         "launches": hlm["launches"]["mamba_scan"],
         "max_abs_err": max(r["max_abs_err"] for r in scan_rows),

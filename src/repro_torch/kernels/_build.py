@@ -37,8 +37,10 @@ SIGNATURES = {
                                   + [ctypes.c_float, _ptr]),
     "flash_attention_sm90_error_string": (ctypes.c_char_p, [_int]),
     "flash_attention_sm90_smem_bytes": (_int, [_int]),
-    "mamba_scan_f32": (_int, [_ptr] * 5 + [_int] * 5 + [_ptr]),
-    "mamba_scan_error_string": (ctypes.c_char_p, [_int]),
+    "mamba_scan_sm90_f32": (_int, [_ptr] * 6 + [_int] * 9 + [_ptr]),
+    "mamba_scan_sm90_error_string": (ctypes.c_char_p, [_int]),
+    "mamba_scan_sm90_resident_blocks": (_int, [_int, _int]),
+    "mamba_scan_sm90_smem_bytes": (_int, [_int, _int]),
     "mlstm_scan_f32": (_int, [_ptr] * 6 + [_int] * 4 + [_ptr]),
     "mlstm_scan_error_string": (ctypes.c_char_p, [_int]),
 }

@@ -1,33 +1,101 @@
 """Wrapper of the hand-written Hopper SSD-scan kernel
-(``csrc/mamba_scan.cu``), the port of the Pallas
-``repro.kernels.mamba_scan.mamba_scan_kernel``.
+(``csrc/mamba_scan_sm90.cu``: chunk-parallel in three launches, the
+products on the tensor cores as three bf16 products each), the port of the
+Pallas ``repro.kernels.mamba_scan.mamba_scan_kernel``.
 
 It takes CUDA tensors only and raises on anything the kernel does not take;
 ``kernels.ops.mamba_scan`` sends CPU tensors to the plain version.
-``launches`` counts the kernel's launches, so a run can show that its path
-went through the kernel.  The Pallas ``chunk`` knob has no counterpart: the
-kernel fixes its own chunk of 64 steps and masks a ragged last one, so it
-takes any S.
+``launches`` counts calls of the op (each call makes the kernel's three
+launches), so a run can show that its path went through the kernel.  The
+Pallas ``chunk`` knob has no counterpart: the kernel is built for chunks of
+64 and 128 steps, ``chunk_for`` picks one by S, and a ragged last chunk is
+masked, so it takes any S.  ``plan`` picks how many heads a block of the
+first and the last launch takes.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._operands import check_f32_operands
+from repro_torch.kernels._operands import INDEX_LIMIT, check_f32_operands
 
 launches = 0
 
 MAX_STATE = 64            # P and N the kernel holds, each at most this
+BUILT_CHUNKS = (64, 128)  # the chunks (time steps) the kernel is built for
+SHORT_S = 256             # S up to which the shorter chunk is the faster
+STATE_FLOATS = 64 * 64    # one head's state in the scratch, padded
+MAX_GROUP = 32            # heads a block of phase 1 or 3 takes
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+# A block's set-up in units of one head's work: phase 1 splits B and scans
+# the decays, phase 3 also stages C and forms C.B^T, as much as a head.
+_SETUP_COST = {1: 0.5, 3: 1.0}
+
+
+def chunk_for(S: int) -> int:
+    """The kernel's chunk for a sequence of S steps.  128 halves the state
+    traffic of 64 and is the faster at S 1000 and 4096 on an H100; up to S
+    256 the shorter chunk gives more blocks and less causal padding, and
+    is the faster (PERF.md)."""
+    return BUILT_CHUNKS[0] if S <= SHORT_S else BUILT_CHUNKS[1]
+
+
+def heads_per_block(blocks_per_head: int, H: int, resident: int,
+                    setup: float) -> int:
+    """The heads G (at most MAX_GROUP) a block takes, when each of
+    ``blocks_per_head`` (batch x chunk) cells needs ceil(H / G) blocks and
+    the card holds ``resident`` at once: the G whose waves of blocks take
+    the least modelled time, a block costing ``setup`` plus G heads; ties
+    go to the smaller G."""
+    best = None
+    for g in range(1, min(H, MAX_GROUP) + 1):
+        waves = math.ceil(blocks_per_head * math.ceil(H / g) / resident)
+        cost = waves * (setup + g)
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    return best[1]
+
+
+@functools.cache
+def plan(b: int, S: int, H: int, chunk: int,
+         resident: tuple[int, int] = (2 * SMS, SMS)) -> tuple[int, int]:
+    """The heads per block of phase 1 (chunk states) and phase 3 (chunk
+    outputs) at ``chunk``, where the card holds ``resident`` blocks of each
+    at once."""
+    cells = b * math.ceil(S / chunk)
+    return tuple(heads_per_block(cells, H, r, _SETUP_COST[phase])
+                 for r, phase in zip(resident, (1, 3)))
+
+
+@functools.cache
+def resident_blocks(device: int, chunk: int) -> tuple[int, int]:
+    """How many blocks of phase 1 and of phase 3 at ``chunk`` CUDA device
+    ``device`` holds at once."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        blocks = tuple(lib.mamba_scan_sm90_resident_blocks(phase, chunk)
+                       for phase in (1, 3))
+    if min(blocks) < 1:
+        raise RuntimeError(f"mamba_scan: the card holds no block of the "
+                           f"kernel: {blocks}")
+    return blocks
 
 
 def mamba_scan_kernel(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
-                      C: torch.Tensor) -> torch.Tensor:
+                      C: torch.Tensor, *,
+                      chunk: int | None = None) -> torch.Tensor:
     """dtx: (b, S, H, P); a_log: (b, S, H); B/C: (b, S, N); all float32,
     contiguous, on one CUDA device, with P and N at most 64.  Returns y:
-    (b, S, H, P) float32, the SSD recurrence's output."""
+    (b, S, H, P) float32, the SSD recurrence's output.  ``chunk`` (one of
+    BUILT_CHUNKS; ``chunk_for(S)`` if None) is there to time each build."""
     global launches
+    if chunk is not None and chunk not in BUILT_CHUNKS:
+        raise ValueError(f"mamba_scan: chunk {chunk} is not one of the "
+                         f"kernel's builds {BUILT_CHUNKS}")
     if dtx.dim() != 4 or a_log.dim() != 3 or B.dim() != 3 or C.dim() != 3:
         raise ValueError(f"mamba_scan: dtx must be 4-d and a_log, B, C 3-d, "
                          f"got {tuple(dtx.shape)}, {tuple(a_log.shape)}, "
@@ -40,16 +108,27 @@ def mamba_scan_kernel(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     if min(b, S, H, P, N) < 1 or P > MAX_STATE or N > MAX_STATE:
         raise ValueError(f"mamba_scan: b {b}, S {S}, H {H}, P {P}, N {N}: "
                          f"needs each >= 1 and P, N <= {MAX_STATE}")
+    if b * H * STATE_FLOATS >= INDEX_LIMIT:
+        raise ValueError(f"mamba_scan: b·H = {b * H} states of "
+                         f"{STATE_FLOATS} floats; the state pass indexes "
+                         f"them below {INDEX_LIMIT}")
+    chunk = chunk or chunk_for(S)
     y = torch.empty_like(dtx)
+    # Per (batch, chunk, head) the chunk's state, then the state entering
+    # it, and the chunk's decay e^{A_c}.
+    cells = b * math.ceil(S / chunk) * H
+    scratch = torch.empty(cells * (STATE_FLOATS + 1), dtype=torch.float32,
+                          device=dtx.device)
+    device = dtx.device.index
+    group1, group3 = plan(b, S, H, chunk, resident_blocks(device, chunk))
 
     lib = _build.library()
-    with torch.cuda.device(dtx.device):
-        err = lib.mamba_scan_f32(
-            dtx.data_ptr(), a_log.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), b, S, H, P, N,
-            torch.cuda.current_stream(dtx.device).cuda_stream)
+    err = lib.mamba_scan_sm90_f32(
+        dtx.data_ptr(), a_log.data_ptr(), B.data_ptr(), C.data_ptr(),
+        y.data_ptr(), scratch.data_ptr(), b, S, H, P, N, chunk, group1,
+        group3, device, torch.cuda.current_stream(dtx.device).cuda_stream)
     if err:
         raise RuntimeError(f"mamba_scan kernel launch failed: "
-                           f"{lib.mamba_scan_error_string(err).decode()}")
+                           f"{lib.mamba_scan_sm90_error_string(err).decode()}")
     launches += 1
     return y

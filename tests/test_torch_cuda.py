@@ -246,18 +246,29 @@ def test_forward_launches_once_per_layer_and_plain_none(cuda, name):
 
 # Per element against the plain version, both in f32 on the card: the JAX
 # test's 1e-4.  The chunked kernel sums in another order than the
-# step-by-step plain version; the state forgets at e^{a} per step, so the
-# reordering error does not grow with S.
+# step-by-step plain version and takes each product as three bf16 products,
+# within a few 2^-16 of each (5e-5 of y at zamba2's heads in the CPU
+# emulation of tests/test_torch_mamba_scan.py); the state forgets, so the
+# error does not grow with S.
 SCAN_ATOL = 1e-4
 
 
 def _scan_inputs(dev, b, S, H, P, N, a_log=None):
+    """dtx·0.3, B and C ·0.3 and a_log = −softplus(N(0, 1)); or a_log the
+    constant ``a_log``; or, for ``a_log="long"``, long-memory decays −Δ·A
+    (Δ log-uniform in [1e-3, 0.1] per step and head, A = linspace(1, 16)
+    over the heads) that carry the state across every chunk."""
     g = torch.Generator(device=dev).manual_seed(b * 1000 + S + H + P + N)
 
     def randn(*size):
         return torch.randn(size, generator=g, device=dev)
-    a = (-torch.nn.functional.softplus(randn(b, S, H)) if a_log is None
-         else torch.full((b, S, H), a_log, device=dev))
+    if a_log is None:
+        a = -torch.nn.functional.softplus(randn(b, S, H))
+    elif a_log == "long":
+        dt = 1e-3 * 100.0 ** torch.rand((b, S, H), generator=g, device=dev)
+        a = -dt * torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        a = torch.full((b, S, H), a_log, device=dev)
     return randn(b, S, H, P) * 0.3, a, randn(b, S, N) * 0.3, \
         randn(b, S, N) * 0.3
 
@@ -269,13 +280,22 @@ def _scan_inputs(dev, b, S, H, P, N, a_log=None):
     (1, 1000, 4, 64, 64),     # ragged last chunk
     (2, 37, 5, 33, 17),       # ragged everything
     (1, 1, 1, 1, 1),
+    (1, 4096, 80, 64, 64),    # zamba2's prefill
 ])
-def test_scan_kernel_matches_plain(cuda, b, S, H, P, N):
-    dtx, a_log, Bm, Cm = _scan_inputs(cuda, b, S, H, P, N)
+@pytest.mark.parametrize("decays", [None, "long"], ids=["fast", "long"])
+def test_scan_kernel_matches_plain(cuda, b, S, H, P, N, decays):
+    """At fast decays and at long-memory ones, slow enough that the state
+    crosses every chunk, so that a state pass that drops or misroutes the
+    carried state cannot pass; the shapes take both of the kernel's chunk
+    lengths (64 up to S = 256, else 128).  Two launches give the same
+    bits."""
+    dtx, a_log, Bm, Cm = _scan_inputs(cuda, b, S, H, P, N, a_log=decays)
     before = MS.launches
     out = ops.mamba_scan(dtx, a_log, Bm, Cm)
+    again = ops.mamba_scan(dtx, a_log, Bm, Cm)
     torch.cuda.synchronize()
-    assert MS.launches == before + 1
+    assert MS.launches == before + 2
+    assert torch.equal(out, again)   # no atomics: the same bits
     ref = mamba_scan_ref(dtx, a_log, Bm, Cm)
     assert out.shape == ref.shape and out.dtype == torch.float32
     torch.testing.assert_close(out, ref, atol=SCAN_ATOL, rtol=0)
@@ -305,6 +325,11 @@ def test_scan_kernel_refuses_what_it_cannot_take(cuda):
     big = _scan_inputs(cuda, 1, 4, 1, 65, 4)
     with pytest.raises(ValueError, match="P, N <= 64"):
         MS.mamba_scan_kernel(*big)
+    with pytest.raises(ValueError, match="chunk"):
+        MS.mamba_scan_kernel(dtx, a_log, Bm, Cm, chunk=96)
+    many = _scan_inputs(cuda, 1, 1, 2**19, 1, 1)   # 2**31 state floats
+    with pytest.raises(ValueError, match="state pass"):
+        MS.mamba_scan_kernel(*many)
 
 
 @pytest.mark.parametrize("name,layers", [("zamba2-2.7b-smoke", 4),
