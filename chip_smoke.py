@@ -8,8 +8,8 @@ Phases, each of which raises (exit code 1) on failure:
    csrc`` with nvcc for sm_90a (one process per source); prints the build
    time and ptxas's report, per head dim the bf16 flash kernel's registers,
    spills and dynamic shared memory, the same per tile width (64, 128)
-   for the fused-conv kernel and per chunk (64, 128) for the SSD scan's
-   three kernels, none of which may spill.
+   for the fused-conv kernel, per chunk (64, 128) for the SSD scan's
+   three kernels, and the mLSTM scan's four, none of which may spill.
 3. kernel check: the fused-conv kernel (the tensor-core kernel of
    ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
    split K over a cluster) against its plain PyTorch version on the card,
@@ -91,12 +91,18 @@ Phases, each of which raises (exit code 1) on failure:
     so no library time); per D=80
     flash shape as in phase 9; the hybrid prefill with each kernel's share
     of device time and the idle share; the decode step at batch 4.
-16. mLSTM check: the mLSTM-scan (mlstm_scan) kernel against its plain
-    version in f32 on the card at xlstm-1.3b's heads (H=4, P=512): the
-    full prefill shape 1×2048, the serving prompts 4×64, a ragged S=1000,
-    the forget-all shape (f_pre = -30: h_t = v_t (k_t·q_t) / max(|k_t·q_t|,
+16. mLSTM check: the mLSTM-scan (mlstm_scan) kernel (``csrc/
+    mlstm_scan_sm90.cu``: the m chain and f64 scores, chunk carries, state
+    passing and chunk outputs, the large products as three TF32 wgmma
+    products) against its plain version in f32 on the card at xlstm-1.3b's
+    heads (H=4, P=512): the full prefill shape 1×2048, the same with
+    long-memory forget gates (f_pre N(0, 1) + 4: the state carried across
+    every chunk), the serving prompts 4×64, a ragged S=1000, the
+    forget-all shape (f_pre = -30: h_t = v_t (k_t·q_t) / max(|k_t·q_t|,
     1), also held against that closed form) and the stabiliser shape (i_pre
-    ·10); every element within MLSTM_ATOL.
+    ·10); every element within MLSTM_ATOL, and a second launch gives the
+    same bits.  Each shape's distance of kernel and plain version from the
+    recurrence in f64 is printed, not held.
 17. xLSTM prefill: xlstm-1.3b at full width and depth (48 layers: 12 units
     of 3 mLSTM blocks and one sLSTM block, d 2048, 4 heads of 512, vocab
     50304, bf16, random weights from a seed) built through ``build_model``
@@ -111,8 +117,10 @@ Phases, each of which raises (exit code 1) on failure:
     18 for xlstm-1.3b at full width cut to one unit (4 layers: 3
     mlstm_scan launches), held to TWIN_ATOL at every position and in the
     engine.  These carry xLSTM's correctness.
-20. timings: per mLSTM shape the kernel, its plain version and the bound
-    (no single PyTorch call computes the recurrence, so no library time);
+20. timings: per mLSTM shape the kernel, its plain version and the bounds
+    (the f64 scores at 67 TFLOP/s and the rest as three TF32 products at
+    495, against the bytes; and all of it in f32 on the CUDA cores; no
+    single PyTorch call computes the recurrence, so no library time);
     the xLSTM prefill with mlstm_scan's share of device time and the idle
     share (and how long the profiler took over its ~10^6 events); the
     decode step at batch 4.
@@ -133,6 +141,10 @@ does the same for the SSD scan at every shape of phase 10, at every chunk
 the wrapper is built for: each shape first held against the plain version
 (SCAN_ATOL, two launches bit-equal), then CUDA-event and device time, the
 device time of each of the op's kernels, and the sums over one prefill.
+
+    python3 chip_smoke.py --mlstm-times
+
+does the same for the mLSTM scan at every shape of phase 16 (MLSTM_ATOL).
 """
 
 from __future__ import annotations
@@ -162,6 +174,7 @@ LOGITS_RTOL = 1e-3    # the same over 20 layers, GPU kernels vs plain on the CPU
 FUSED_RTOL = 1e-6     # forward_fused_groups runs the same launches as forward
 PEAK_F32_OPS = 67e12  # H100 SXM, f32 outside the tensor cores, per second
 PEAK_BF16_OPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+PEAK_TF32_OPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes per second
 TIMING_ITERS = 20
 PROFILE_FORWARDS = 5
@@ -281,14 +294,12 @@ XLSTM_PREFILL_S = 2048
 # element: |kernel − plain| ≤ MLSTM_ATOL, the 1e-4 of tests/test_kernels.py.
 # Inputs are drawn as that file draws them (q, k, v ·0.4, i_pre N(0, 1),
 # f_pre N(0, 1) + 2), so at P = 512 the dot products k·q reach ~15 and |h|
-# ~15 (1.8 in the JAX test at P = 16): the same limit is ~10x tighter
-# relative to the output here.  What is left is f32 sums taken in another
-# order (C·q over 512 columns as 8-column lane sums, a lane tree and a warp
-# sum, against the plain matmul's order) and one rounding more in the
-# rank-1 update: some 1e-6 of |h| per step, which the forget gate (σ(2) ≈
-# 0.88 a step) keeps from piling up along S; a CPU emulation of the
-# kernel's order gave 1.2e-5 at S = 512.  The gates are the same f32
-# operations in both, in the same order.
+# ~15-20 (1.8 in the JAX test at P = 16): the same limit is ~10x tighter
+# relative to the output here.  The kernel runs the plain version's m chain
+# in its order and takes its per-step exponents, so what is left is f32
+# sums in another order: chunk sums on the tensor cores (three TF32
+# products per f32 product) where the plain version steps, and the
+# denominator n·q, which cancels, from scores in f64.
 MLSTM_ATOL = 1e-4
 # The bf16 xLSTM prefill and serve are printed against their plain selves,
 # not held to PREFILL_ATOL.  Measured on an H100: fed the same input, a
@@ -302,12 +313,19 @@ MLSTM_ATOL = 1e-4
 # The same path in f32 at full width and depth is held to TWIN_ATOL at
 # every position instead (0.8e-3 measured), and the one-unit f32 twin also
 # holds the serving engine.
+# A CPU emulation of the kernel's arithmetic holds 1e-4 against the JAX
+# oracle on the usual, stabiliser and long-memory draws
+# (tests/test_torch_mlstm_scan.py).  The plain version is no closer to exact:
+# on some long-memory draws its own f32 sums drift from the recurrence in
+# f64 by about the limit, so each shape prints both distances from f64.
 MLSTM_CHUNKS = tuple(2**i for i in range(10))   # chunked forms counted
 # (name, launches per prefill forward, batch, S, f_pre: None for N(0, 1) +
-# 2, else that constant, i_pre scale) at xlstm-1.3b's H=4 heads of P=512.
-# The prefill runs the first, once per mLSTM layer.
+# 2, "long" for N(0, 1) + 4, else that constant, i_pre scale) at
+# xlstm-1.3b's H=4 heads of P=512.  The prefill runs the first, once per
+# mLSTM layer.
 MLSTM_SHAPES = [
     ("b1_s2048", 36, 1, 2048, None, 1.0),
+    ("b1_s2048_long_memory", 0, 1, 2048, "long", 1.0),
     ("b4_s64", 0, 4, 64, None, 1.0),
     ("b1_s1000_ragged", 0, 1, 1000, None, 1.0),
     ("b1_s256_forget_all", 0, 1, 256, -30.0, 1.0),
@@ -444,8 +462,25 @@ def build() -> tuple[float, dict]:
     check(len(scan) == 5
           and all(row.get("spill_bytes") == 0 for row in scan.values()),
           f"mamba_scan_sm90 ptxas report: {scan}")
+    # The mLSTM scan's four kernels.
+    mlstm = ptxas_report(log, r"(mlstm_(?:gates_scores|chunk_carry|"
+                              r"state_pass|chunk_output)_kernel)"
+                              r"(?:ILi(\d+)E)?",
+                         lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""))
+    phases = {"gates_scores": 1, "chunk_carry": 2, "state_pass": 3,
+              "chunk_output": 4}
+    for key, row in sorted(mlstm.items()):
+        phase = next((n for name, n in phases.items() if name in key), 0)
+        row["dynamic_smem_bytes"] = lib.mlstm_scan_sm90_smem_bytes(
+            phase, int(key[key.index("<") + 1:-1])) if phase else 0
+        print(f"[build] {key}: {row.get('registers')} registers, "
+              f"{row.get('spill_bytes')} B spilled, "
+              f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
+    check(len(mlstm) == 4
+          and all(row.get("spill_bytes") == 0 for row in mlstm.values()),
+          f"mlstm_scan_sm90 ptxas report: {mlstm}")
     return secs, {"flash_attention_sm90": sm90, "fused_conv_sm90": conv,
-                  "mamba_scan_sm90": scan}
+                  "mamba_scan_sm90": scan, "mlstm_scan_sm90": mlstm}
 
 
 def ptxas_report(log: str, instance: str, key) -> dict:
@@ -1055,6 +1090,13 @@ def flash_timings(rows: list[dict], cfg, shapes, seed: int) -> None:
         del q, k, v, q4, k4, v4, mask
 
 
+# What the names of an op's device kernels contain, where not the op's name.
+DEVICE_KERNELS = {"mlstm_scan": ("mlstm_gates_scores_kernel",
+                                 "mlstm_chunk_carry_kernel",
+                                 "mlstm_state_pass_kernel",
+                                 "mlstm_chunk_output_kernel")}
+
+
 def lm_timings(cfg, lm: dict, seq: int) -> dict:
     from torch.profiler import ProfilerActivity, record_function
     model, net, batch = lm["model"], lm["net"], lm["batch"]
@@ -1090,8 +1132,9 @@ def lm_timings(cfg, lm: dict, seq: int) -> dict:
         for name, n in lm["launches"].items():
             if not n:
                 continue
+            marks = DEVICE_KERNELS.get(name, (name,))
             us = sum(k["us"] for k in prof_["all_kernels"]
-                     if name in k["name"])
+                     if any(mark in k["name"] for mark in marks))
             prof_[f"{name}_share_of_busy"] = us / prof_["device_busy_us"]
             print(f"[profile] prefill: {name} kernel {us / 1e3:.2f} ms of "
                   f"{prof_['device_busy_us'] / 1e3:.2f} ms device busy "
@@ -1143,12 +1186,13 @@ def scan_closed_form(shape, dtx, a, Bm, Cm):
 
 
 def recurrence_check(tag: str, kernel, plain, shapes, inputs, closed_form,
-                     limit: float, closed_note: str,
-                     twice: bool = False) -> list[dict]:
+                     limit: float, closed_note: str, twice: bool = False,
+                     exact=None) -> list[dict]:
     """Each shape's kernel output against its plain version, both f32 on
     the card, within ``limit`` per element; where ``closed_form`` gives one
     for the shape, against that too; with ``twice``, a second launch must
-    give the same bits."""
+    give the same bits; with ``exact`` (the recurrence in f64), both
+    distances from it are printed and recorded, not held."""
     rows = []
     print(f"[{tag}] limit, per element against the plain version in f32: "
           f"|kernel - plain| <= {limit}; {closed_note}"
@@ -1167,6 +1211,11 @@ def recurrence_check(tag: str, kernel, plain, shapes, inputs, closed_form,
         row = {"name": name, "per_forward": count, "batch": b, "S": s,
                "max_abs_err": err, "limit_used": err / limit,
                "max_abs_out": ref.abs().max().item()}
+        if exact is not None:
+            ref64 = exact(*args)
+            row["kernel_vs_f64"] = (out.double() - ref64).abs().max().item()
+            row["plain_vs_f64"] = (ref.double() - ref64).abs().max().item()
+            del ref64
         closed = closed_form(shape, *args)
         if closed is not None:
             row["closed_form_err"] = (out - closed).abs().max().item()
@@ -1177,7 +1226,9 @@ def recurrence_check(tag: str, kernel, plain, shapes, inputs, closed_form,
               f"{err:.3e} (|out| max {row['max_abs_out']:.3f}) limit used "
               f"{row['limit_used']:.4f}"
               + (f"; vs closed form {row['closed_form_err']:.3e}"
-                 if closed is not None else ""))
+                 if closed is not None else "")
+              + (f"; vs f64: kernel {row['kernel_vs_f64']:.3e}, plain "
+                 f"{row['plain_vs_f64']:.3e}" if exact is not None else ""))
         check(err <= limit, f"{name}: kernel vs plain {err:.3e} > {limit}")
         rows.append(row)
         del args, out, again, ref, closed
@@ -1245,17 +1296,45 @@ def mlstm_inputs(i: int, shape, cfg):
         return torch.randn(size, generator=g, device="cuda")
     q, k, v = (randn(b, s, H, P) * 0.4 for _ in range(3))
     i_pre = randn(b, s, H) * i_scale
-    f = (randn(b, s, H) + 2 if f_pre is None
-         else torch.full((b, s, H), f_pre, device="cuda"))
+    if isinstance(f_pre, float):
+        f = torch.full((b, s, H), f_pre, device="cuda")
+    else:
+        f = randn(b, s, H) + (4 if f_pre == "long" else 2)
     return q, k, v, i_pre, f
+
+
+MLSTM_CLOSED_NOTE = ("the forget-all shape also against v_t (k_t.q_t) / "
+                     "max(|k_t.q_t|, 1)")
 
 
 def mlstm_closed_form(shape, q, k, v, i_pre, f_pre):
     """Forget-all (f_pre = -30): h_t = v_t (k_t·q_t) / max(|k_t·q_t|, 1)."""
-    if shape[4] is None:
+    if not isinstance(shape[4], float):
         return None
     kq = (k * q).sum(-1, keepdim=True)
     return v * kq / kq.abs().clamp_min(1.0)
+
+
+def mlstm_f64(q, k, v, i_pre, f_pre) -> torch.Tensor:
+    """The stabilised mLSTM recurrence of ``ref.mlstm_ref`` in f64."""
+    q, k, v, i_pre = (t.double() for t in (q, k, v, i_pre))
+    log_f = F.logsigmoid(f_pre.double())
+    b, s, H, P = q.shape
+    C = q.new_zeros((b, H, P, P))
+    n = q.new_zeros((b, H, P))
+    m = q.new_full((b, H), -1e30)
+    h = q.new_empty((b, s, H, P))
+    for t in range(s):
+        m_new = torch.maximum(log_f[:, t] + m, i_pre[:, t])
+        i_s = torch.exp(i_pre[:, t] - m_new)[..., None]
+        f_s = torch.exp(log_f[:, t] + m - m_new)[..., None]
+        C = f_s[..., None] * C + i_s[..., None] * (v[:, t, :, :, None]
+                                                  * k[:, t, :, None, :])
+        n = f_s * n + i_s * k[:, t]
+        den = (n * q[:, t]).sum(-1).abs().clamp_min(1.0)
+        h[:, t] = (C @ q[:, t, :, :, None])[..., 0] / den[..., None]
+        m = m_new
+    return h
 
 
 def mlstm_ops(b: int, s: int, H: int, P: int) -> tuple[int, str]:
@@ -1276,11 +1355,45 @@ def mlstm_ops(b: int, s: int, H: int, P: int) -> tuple[int, str]:
     return best, form
 
 
+def mlstm_kernel_ms(b: int, s: int, H: int, P: int) -> tuple[float, int]:
+    """The least time the kernel's arithmetic could take, and the chunk at
+    which: per chunk of L steps and head the causal scores (L(L+1)·P) in
+    f64 on the FP64 tensor cores, at the f32 CUDA cores' 67 TFLOP/s; the
+    carry, the inter-chunk product and the weighted scores times V (4·L·P²
+    + L(L+1)·P) as three TF32 products at 495 TFLOP/s; the rest of
+    ``mlstm_ops``'s chunked form at 67 TFLOP/s."""
+    best = None
+    for Q in MLSTM_CHUNKS:
+        scores = tc = rest = 0
+        for t0 in range(0, s, Q):
+            L = min(Q, s - t0)
+            scores += L * (L + 1) * P
+            tc += 4 * L * P * P + L * (L + 1) * P
+            rest += 3 * L * (L + 1) // 2 + P * P + 7 * L * P + P
+        ms = b * H * ((scores + rest) / PEAK_F32_OPS
+                      + 3 * tc / PEAK_TF32_OPS) * 1e3
+        if best is None or ms < best[0]:
+            best = (ms, Q)
+    return best
+
+
 def mlstm_bounds(shape, cfg) -> dict:
+    """Each input read and h written once; the kernel's bound (its
+    arithmetic as ``mlstm_kernel_ms`` counts it, against the bytes) and, as
+    ``bound_f32_ms``, the f32 work of ``mlstm_ops`` on the CUDA cores;
+    ``ops`` is the f32 work, for TFLOP/s."""
     _, _, b, s, _, _ = shape
     H, P = cfg.num_heads, cfg.d_model // cfg.num_heads
     ops_, form = mlstm_ops(b, s, H, P)
-    return roofline(ops_, 4 * b * s * H * (4 * P + 2), ops_form=form)
+    nbytes = 4 * b * s * H * (4 * P + 2)
+    f32 = roofline(ops_, nbytes)
+    ops_ms, chunk = mlstm_kernel_ms(b, s, H, P)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"ops": ops_, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_chunk": chunk, "ops_form": form,
+            "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"]}
 
 
 def lm_record(*parts: dict) -> dict:
@@ -1317,49 +1430,73 @@ def conv_times() -> None:
           f"{fmt_ms(total['device'] if measured else None)}")
 
 
-def scan_times() -> None:
-    """Per scan shape, the SSD-scan kernel held against its plain version
-    (SCAN_ATOL, two launches bit-equal), then its CUDA-event and device
-    time, the device time of each of its device kernels, and the sums over
-    one prefill; at every chunk the wrapper is built for."""
+def recurrence_times(tag: str, module, kernel, plain, shapes, inputs,
+                     closed_form, limit: float, note: str, bounds,
+                     ops_label: str, exact=None) -> None:
+    """Per shape, the kernel held against its plain version (``limit``,
+    two launches bit-equal), then its CUDA-event and device time, the
+    device time of each of its device kernels, and the sums over one
+    prefill; at every chunk the wrapper ``module`` is built for (one pass
+    for a wrapper without chunks)."""
     import functools
+    for chunk in getattr(module, "BUILT_CHUNKS", (None,)):
+        fn = kernel if chunk is None else functools.partial(kernel,
+                                                            chunk=chunk)
+        label = tag if chunk is None else f"{tag} chunk {chunk}"
+        rows = recurrence_check(label, fn, plain, shapes, inputs, closed_form,
+                                limit, note, twice=True, exact=exact)
+        total = {"events": 0.0, "device": 0.0}
+        measured = True
+        for i, (shape, row) in enumerate(zip(shapes, rows)):
+            args = inputs(i, shape)
+            ms = cuda_ms(lambda: fn(*args))
+            by_kernel = device_ms_by_kernel(lambda: fn(*args))
+            dev = None if by_kernel is None else sum(by_kernel.values())
+            total["events"] += row["per_forward"] * ms
+            total["device"] += row["per_forward"] * (dev or 0.0)
+            measured = measured and dev is not None
+            b_ = bounds(shape)
+            print(f"[{label}] {row['name']:20s} x{row['per_forward']:<2d} "
+                  f"events {ms:.4f} ms  on the card {fmt_ms(dev)}  bound "
+                  f"{b_['bound_ms']:.4f} ({b_['bound_by']}; bytes "
+                  f"{b_['bytes_ms']:.4f}, {ops_label} {b_['ops_ms']:.4f}, "
+                  f"f32 CUDA cores {b_['bound_f32_ms']:.4f})")
+            for name, t in sorted((by_kernel or {}).items()):
+                print(f"[{label}]   {t:.4f} ms {name[:90]}")
+            del args
+        print(f"[{label}] per prefill: events {total['events']:.4f} ms, on "
+              f"the card {fmt_ms(total['device'] if measured else None)}")
+
+
+def scan_times() -> None:
+    """``recurrence_times`` for the SSD scan at every shape of phase 10."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, mamba_scan
     from repro_torch.kernels.ref import mamba_scan_ref
     _build.library()
     hcfg = get_config(HYBRID_CONFIG)
+    recurrence_times("scan", mamba_scan, mamba_scan.mamba_scan_kernel,
+                     mamba_scan_ref, SCAN_SHAPES,
+                     lambda i, shape: scan_inputs(i, shape, hcfg),
+                     scan_closed_form, SCAN_ATOL, "the reset shape also "
+                     "against (C_t.B_t) dtx_t",
+                     lambda shape: scan_bounds(shape, hcfg), "bf16x3")
 
-    def inputs(i, shape):
-        return scan_inputs(i, shape, hcfg)
-    for chunk in getattr(mamba_scan, "BUILT_CHUNKS", (None,)):
-        kernel = mamba_scan.mamba_scan_kernel if chunk is None else \
-            functools.partial(mamba_scan.mamba_scan_kernel, chunk=chunk)
-        tag = "scan" if chunk is None else f"scan chunk {chunk}"
-        rows = recurrence_check(tag, kernel, mamba_scan_ref, SCAN_SHAPES,
-                                inputs, scan_closed_form, SCAN_ATOL,
-                                "the reset shape also against (C_t.B_t) "
-                                "dtx_t", twice=True)
-        total = {"events": 0.0, "device": 0.0}
-        measured = True
-        for i, (shape, row) in enumerate(zip(SCAN_SHAPES, rows)):
-            args = inputs(i, shape)
-            ms = cuda_ms(lambda: kernel(*args))
-            by_kernel = device_ms_by_kernel(lambda: kernel(*args))
-            dev = None if by_kernel is None else sum(by_kernel.values())
-            total["events"] += row["per_forward"] * ms
-            total["device"] += row["per_forward"] * (dev or 0.0)
-            measured = measured and dev is not None
-            b_ = scan_bounds(shape, hcfg)
-            print(f"[{tag}] {row['name']:20s} x{row['per_forward']:<2d} "
-                  f"events {ms:.4f} ms  on the card {fmt_ms(dev)}  bound "
-                  f"{b_['bound_ms']:.4f} ({b_['bound_by']}; bytes "
-                  f"{b_['bytes_ms']:.4f}, bf16x3 {b_['ops_ms']:.4f}, f32 "
-                  f"CUDA cores {b_['bound_f32_ms']:.4f})")
-            for name, t in sorted((by_kernel or {}).items()):
-                print(f"[{tag}]   {t:.4f} ms {name[:90]}")
-            del args
-        print(f"[{tag}] per prefill: events {total['events']:.4f} ms, on the "
-              f"card {fmt_ms(total['device'] if measured else None)}")
+
+def mlstm_times() -> None:
+    """``recurrence_times`` for the mLSTM scan at every shape of phase 16,
+    each also against the recurrence in f64."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, mlstm_scan
+    from repro_torch.kernels.ref import mlstm_ref
+    _build.library()
+    xcfg = get_config(XLSTM_CONFIG)
+    recurrence_times("mlstm", mlstm_scan, mlstm_scan.mlstm_scan_kernel,
+                     mlstm_ref, MLSTM_SHAPES,
+                     lambda i, shape: mlstm_inputs(i, shape, xcfg),
+                     mlstm_closed_form, MLSTM_ATOL, MLSTM_CLOSED_NOTE,
+                     lambda shape: mlstm_bounds(shape, xcfg),
+                     "kernel arithmetic", exact=mlstm_f64)
 
 
 def main() -> int:
@@ -1374,6 +1511,9 @@ def main() -> int:
         return 0
     if "--scan-times" in sys.argv[1:]:
         scan_times()
+        return 0
+    if "--mlstm-times" in sys.argv[1:]:
+        mlstm_times()
         return 0
     build_s, ptxas = build()
     rows = kernel_check()
@@ -1441,8 +1581,8 @@ def main() -> int:
         return mlstm_inputs(i, shape, xcfg)
     mlstm_rows = recurrence_check(
         "mlstm", mlstm_scan_kernel, mlstm_ref, MLSTM_SHAPES, x_inputs,
-        mlstm_closed_form, MLSTM_ATOL, "the forget-all shape also against "
-        "v_t (k_t.q_t) / max(|k_t.q_t|, 1)")
+        mlstm_closed_form, MLSTM_ATOL, MLSTM_CLOSED_NOTE, twice=True,
+        exact=mlstm_f64)
     xlm = prefill_path(xcfg, XLSTM_PREFILL_S, x_expect, limit=None)
     x_served = serve_path(xcfg, xlm, x_expect, limit=None)
     # The same prefill in f32 at full depth, held at every position.
@@ -1545,11 +1685,14 @@ def main() -> int:
                      f"in chip_smoke.json",
     }, {
         "name": "mlstm_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        "source": "src/repro_torch/kernels/csrc/mlstm_scan_sm90.cu",
         "replaces": "src/repro/kernels/mlstm_scan.py:62",
         "launches": xlm["launches"]["mlstm_scan"],
         "max_abs_err": max(r["max_abs_err"] for r in mlstm_rows),
         **totals(mlstm_rows),
+        "bound_is": "f64 scores at 67 TFLOP/s, the rest as three TF32 "
+                    "products at 495 TFLOP/s",
+        "bound_f32_ms": per_forward(mlstm_rows, "bound_f32_ms"),
         "library": "none: no single PyTorch call computes the mLSTM "
                    "recurrence",
         "times_are": f"sums over the {x_units * x_per_unit} launches of one "

@@ -41,8 +41,10 @@ SIGNATURES = {
     "mamba_scan_sm90_error_string": (ctypes.c_char_p, [_int]),
     "mamba_scan_sm90_resident_blocks": (_int, [_int, _int]),
     "mamba_scan_sm90_smem_bytes": (_int, [_int, _int]),
-    "mlstm_scan_f32": (_int, [_ptr] * 6 + [_int] * 4 + [_ptr]),
-    "mlstm_scan_error_string": (ctypes.c_char_p, [_int]),
+    "mlstm_scan_sm90_f32": (_int, [_ptr] * 7 + [_int] * 5 + [_ptr]),
+    "mlstm_scan_sm90_error_string": (ctypes.c_char_p, [_int]),
+    "mlstm_scan_sm90_scratch_bytes": (ctypes.c_longlong, [_int] * 5),
+    "mlstm_scan_sm90_smem_bytes": (_int, [_int, _int]),
 }
 
 

@@ -371,15 +371,19 @@ MLSTM_ATOL = 1e-4   # as tests/test_kernels.py holds the Pallas mLSTM scan
 
 def _mlstm_inputs(dev, b, S, H, P, f_pre=None, i_scale=1.0):
     """Drawn as tests/test_kernels.py draws them: q, k, v ·0.4, i_pre
-    N(0, 1) (times ``i_scale``), f_pre N(0, 1) + 2 unless given."""
+    N(0, 1) (times ``i_scale``), f_pre N(0, 1) + 2 unless given: a
+    constant, or "long" for N(0, 1) + 4 (forget gates near 0.98, so the
+    state crosses every chunk)."""
     g = torch.Generator(device=dev).manual_seed(b * 1000 + S + H + P)
 
     def randn(*size):
         return torch.randn(size, generator=g, device=dev)
     q, k, v = (randn(b, S, H, P) * 0.4 for _ in range(3))
     i_pre = randn(b, S, H) * i_scale
-    f = (randn(b, S, H) + 2 if f_pre is None
-         else torch.full((b, S, H), f_pre, device=dev))
+    if f_pre is None or f_pre == "long":
+        f = randn(b, S, H) + (4 if f_pre else 2)
+    else:
+        f = torch.full((b, S, H), f_pre, device=dev)
     return q, k, v, i_pre, f
 
 
@@ -387,16 +391,24 @@ def _mlstm_inputs(dev, b, S, H, P, f_pre=None, i_scale=1.0):
     (2, 32, 2, 16),           # the grid of tests/test_kernels.py
     (1, 32, 1, 8),            # its chunk-invariance case
     (4, 64, 4, 512),          # xlstm-1.3b's heads at the serving prompt
-    (1, 300, 4, 512),         # ragged last run
+    (1, 300, 4, 512),         # ragged last chunk
     (2, 37, 3, 33),           # ragged everything (4-byte copies)
     (1, 1, 1, 1),
+    (1, 2048, 4, 512),        # xlstm-1.3b's prefill
 ])
-def test_mlstm_kernel_matches_plain(cuda, b, S, H, P):
-    args = _mlstm_inputs(cuda, b, S, H, P)
+@pytest.mark.parametrize("gates", [None, "long"], ids=["usual", "long"])
+def test_mlstm_kernel_matches_plain(cuda, b, S, H, P, gates):
+    """At the usual forget gates and at long-memory ones, slow enough that
+    the state crosses every chunk, so that a state pass that drops or
+    misroutes the carried state cannot pass.  Two launches give the same
+    bits."""
+    args = _mlstm_inputs(cuda, b, S, H, P, f_pre=gates)
     before = ML.launches
     out = ops.mlstm_scan(*args)
+    again = ops.mlstm_scan(*args)
     torch.cuda.synchronize()
-    assert ML.launches == before + 1
+    assert ML.launches == before + 2
+    assert torch.equal(out, again)   # no atomics: the same bits
     ref = mlstm_ref(*args)
     assert out.shape == ref.shape and out.dtype == torch.float32
     torch.testing.assert_close(out, ref, atol=MLSTM_ATOL, rtol=0)
@@ -434,6 +446,9 @@ def test_mlstm_kernel_refuses_what_it_cannot_take(cuda):
     big = _mlstm_inputs(cuda, 1, 4, 1, 513)
     with pytest.raises(ValueError, match="P <= 512"):
         ML.mlstm_scan_kernel(*big)
+    many = _mlstm_inputs(cuda, 1, 1, 2**13, 512)   # 2**31 state floats
+    with pytest.raises(ValueError, match="state pass"):
+        ML.mlstm_scan_kernel(*many)
 
 
 @pytest.mark.parametrize("name,layers", [("xlstm-1.3b-smoke", 4),
