@@ -29,7 +29,27 @@ Phases, each of which raises (exit code 1) on failure:
    kernel's and the library conv's device time from torch.profiler (the
    events time of a short call is its caller's host time); the forward;
    then device time by kernel and the idle share, from torch.profiler.
-6. flash check: the flash-attention kernels against their plain version on
+6. halo: the paper's fused-layer dataflow on row shards (``repro_torch.
+   core.halo``, one process, the shards in turn on the card), with the
+   requests' parameters: ResNet18's three fused groups (stem + stage 1 in
+   4 shards, stage 2 in 4, stage 3 in 2) each run with one halo exchange
+   (the halo from ``group_halo_rows``, rounded up to the group's stride),
+   batch 8 at 224², exactly 20, 20 and 10 fused_conv launches, every row
+   within HALO_RTOL·max|plain| of the same sharded call under
+   ``ops.plain()``; against the same group run whole: with more than two
+   shards, rows outside the first and last shard within
+   HALO_RTOL·max|whole| and deviating rows only in those two shards
+   (their zero halo rows pass through BN's shift), printed for all;
+   ``run_fused_group_exact`` on stage 1's four 3x3 convs as layers (4
+   shards, halo 4), 16 launches, every row within the same limits of its
+   plain sharded call and of the chain run whole;
+   ``windowed_attention_halo`` at gemma2-2b's local layer (1x8192, 8 and
+   4 heads of 256, window 4096, softcap 50, f32, 8 shards) against
+   ``attention_scores`` over the whole sequence within FLASH_ATOL per
+   element, no kernel launched, with the K/V bytes a gather and the halo
+   move; CUDA-event times of each, sharded and whole, beside the card's
+   name and power limit (none held).
+7. flash check: the flash-attention kernels against their plain version on
    the card at gemma2-2b's head shapes (D=256, 8 query and 4 KV heads per
    batch row, softcap 50): S=8192 global and with the 4096 window, a ragged
    S=1000, B=4 at S=64 and a non-causal S=512, in bf16 (the tensor-core
@@ -37,7 +57,7 @@ Phases, each of which raises (exit code 1) on failure:
    then small bf16 shapes at the other head dims (16, 32, 64, 128); every
    element within FLASH_RTOL·|plain| + FLASH_ATOL of the plain version
    computed in f32.
-7. prefill: gemma2-2b at full width (26 layers, d 2304, vocab 256000,
+8. prefill: gemma2-2b at full width (26 layers, d 2304, vocab 256000,
    bf16, random weights from a seed) built through ``build_model`` runs
    ``forward`` at 1×8192; the logits are finite and of the right shape, the
    forward made exactly 26 flash launches, all on the tensor-core route
@@ -46,10 +66,10 @@ Phases, each of which raises (exit code 1) on failure:
    forward under ``ops.plain()`` (no launches) on the card: last-position
    logits within PREFILL_ATOL, top-1 equal wherever the plain top-2 margin
    exceeds it; the error at any position is printed too.
-8. serve: ``ServeEngine.run_lockstep`` decodes 32 tokens for 4 prompts of
+9. serve: ``ServeEngine.run_lockstep`` decodes 32 tokens for 4 prompts of
    64; each first token is the kernel-path forward's argmax (same margin
    rule).
-9. timings: per flash shape the kernel, its plain version, the library's
+10. timings: per flash shape the kernel, its plain version, the library's
    ``scaled_dot_product_attention`` (yardsticks the port never calls,
    without a softcap, so at softcap 50 they compute another function) with
    the boolean mask and, on the causal shapes without a window, with
@@ -57,7 +77,7 @@ Phases, each of which raises (exit code 1) on failure:
    the faster of the two), and the bound; the prefill, with the flash
    kernel's share of device time and the idle share from torch.profiler;
    the decode step at batch 4, with its idle share.
-10. scan check: the SSD-scan (mamba_scan) kernel (``csrc/
+11. scan check: the SSD-scan (mamba_scan) kernel (``csrc/
     mamba_scan_sm90.cu``: chunk states, state passing and chunk outputs,
     the products as three bf16 products on the tensor cores) against its
     plain version in f32 on the card at zamba2-2.7b's heads (H=80, P=64,
@@ -66,32 +86,32 @@ Phases, each of which raises (exit code 1) on failure:
     ragged S=1000 and the full-reset property (a_log = -30: y_t =
     (C_t·B_t)·dtx_t); every element within SCAN_ATOL, and a second launch
     gives the same bits.
-11. flash check at zamba2-2.7b's heads (D=80, 32 query and 32 KV heads, no
+12. flash check at zamba2-2.7b's heads (D=80, 32 query and 32 KV heads, no
     softcap): S=4096 and B=4 at S=64 in bf16, a ragged S=1000 in f32, with
-    the limits of phase 6; each launch moves only its dtype's route.
-12. hybrid prefill: zamba2-2.7b at full width and depth (54 layers: 9 units
+    the limits of phase 7; each launch moves only its dtype's route.
+13. hybrid prefill: zamba2-2.7b at full width and depth (54 layers: 9 units
     of 5 Mamba2 blocks and one attention block, d 2560, vocab 32000, bf16,
     random weights from a seed) built through ``build_model`` runs
     ``forward`` at 1×4096; the logits are finite and of the right shape,
     the forward made exactly 45 mamba_scan and 9 flash launches (bf16, on
     the tensor-core route), and it
     agrees with the same forward under ``ops.plain()`` (no launches) by
-    the rule of phase 7.
-13. hybrid serve: ``run_lockstep`` decodes 32 tokens for 4 prompts of 64;
+    the rule of phase 8.
+14. hybrid serve: ``run_lockstep`` decodes 32 tokens for 4 prompts of 64;
     each first token is the kernel-path forward's argmax (same rule).
-14. f32 twin: phases 12 and 13 again for zamba2-2.7b at full width cut to
+15. f32 twin: phases 13 and 14 again for zamba2-2.7b at full width cut to
     one unit (6 layers: 5 mamba_scan and 1 flash launch, on the CUDA-core
     route), in f32, with the
     limit TWIN_ATOL held at every position.  This is the check that
     carries the hybrid's correctness; the bf16 phases show only that the
     full depth runs within bf16 noise.
-15. timings: per scan shape the kernel, its plain version and the bounds
+16. timings: per scan shape the kernel, its plain version and the bounds
     (three bf16 products on the tensor cores against the bytes, and the
     f32 work on the CUDA cores; no single PyTorch call computes the scan,
     so no library time); per D=80
-    flash shape as in phase 9; the hybrid prefill with each kernel's share
+    flash shape as in phase 10; the hybrid prefill with each kernel's share
     of device time and the idle share; the decode step at batch 4.
-16. mLSTM check: the mLSTM-scan (mlstm_scan) kernel (``csrc/
+17. mLSTM check: the mLSTM-scan (mlstm_scan) kernel (``csrc/
     mlstm_scan_sm90.cu``: the m chain and f64 scores, chunk carries, state
     passing and chunk outputs, the large products as three TF32 wgmma
     products) against its plain version in f32 on the card at xlstm-1.3b's
@@ -103,28 +123,28 @@ Phases, each of which raises (exit code 1) on failure:
     ·10); every element within MLSTM_ATOL, and a second launch gives the
     same bits.  Each shape's distance of kernel and plain version from the
     recurrence in f64 is printed, not held.
-17. xLSTM prefill: xlstm-1.3b at full width and depth (48 layers: 12 units
+18. xLSTM prefill: xlstm-1.3b at full width and depth (48 layers: 12 units
     of 3 mLSTM blocks and one sLSTM block, d 2048, 4 heads of 512, vocab
     50304, bf16, random weights from a seed) built through ``build_model``
     runs ``forward`` at 1×2048; the logits are finite and of the right
     shape, and the forward made exactly 36 mlstm_scan launches and none of
     the other kernels.  Its distance from the same forward under
     ``ops.plain()`` is printed, not held (see the note under MLSTM_ATOL).
-18. xLSTM serve: ``run_lockstep`` decodes 32 tokens for 4 prompts of 64;
+19. xLSTM serve: ``run_lockstep`` decodes 32 tokens for 4 prompts of 64;
     the first tokens against the forward's argmax are printed.
-19. f32: the prefill of phase 17 again in f32 at full width and depth,
-    held to TWIN_ATOL at every position; then the f32 twin: phases 17 and
-    18 for xlstm-1.3b at full width cut to one unit (4 layers: 3
+20. f32: the prefill of phase 18 again in f32 at full width and depth,
+    held to TWIN_ATOL at every position; then the f32 twin: phases 18 and
+    19 for xlstm-1.3b at full width cut to one unit (4 layers: 3
     mlstm_scan launches), held to TWIN_ATOL at every position and in the
     engine.  These carry xLSTM's correctness.
-20. timings: per mLSTM shape the kernel, its plain version and the bounds
+21. timings: per mLSTM shape the kernel, its plain version and the bounds
     (the f64 scores at 67 TFLOP/s and the rest as three TF32 products at
     495, against the bytes; and all of it in f32 on the CUDA cores; no
     single PyTorch call computes the recurrence, so no library time);
     the xLSTM prefill with mlstm_scan's share of device time and the idle
     share (and how long the profiler took over its ~10^6 events); the
     decode step at batch 4.
-21. prints the ``kernels`` JSON line (all four kernels), 22. the final
+22. prints the ``kernels`` JSON line (all four kernels), 23. the final
 ``{"ok": true, ...}`` line.  The full record goes to
 ``build/chip_smoke.json``.
 
@@ -137,20 +157,21 @@ checkout's kernel the same way, for a comparison in one call.
 
     python3 chip_smoke.py --scan-times
 
-does the same for the SSD scan at every shape of phase 10, at every chunk
+does the same for the SSD scan at every shape of phase 11, at every chunk
 the wrapper is built for: each shape first held against the plain version
 (SCAN_ATOL, two launches bit-equal), then CUDA-event and device time, the
 device time of each of the op's kernels, and the sums over one prefill.
 
     python3 chip_smoke.py --mlstm-times
 
-does the same for the mLSTM scan at every shape of phase 16 (MLSTM_ATOL).
+does the same for the mLSTM scan at every shape of phase 17 (MLSTM_ATOL).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -178,6 +199,28 @@ PEAK_TF32_OPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes per second
 TIMING_ITERS = 20
 PROFILE_FORWARDS = 5
+
+# The halo dataflow (``repro_torch.core.halo``), on the requests' params and
+# first batch.  Per fused group of ResNet18 (plan_fused(graph, 2, 2)): the
+# shards, and the fused-conv launches that many shards make (5 convs each).
+# Each halo is group_halo_rows at those tiles rounded up to a multiple of
+# the group's stride (the crop is aligned only then), shrink = halo/stride.
+# The sharded group is held at every row against the same sharded call under
+# ops.plain() within HALO_RTOL·max|plain| (the conv check's limit: each
+# shard's M gets its own tile and split), and, with more than two shards,
+# against the group run whole: rows outside the first and last shard within
+# HALO_RTOL·max|whole|, deviating rows only in those two shards (zero halo
+# rows through BN's shift).
+HALO_SHARDS = (4, 4, 2)
+HALO_LAUNCHES = (20, 20, 10)
+HALO_RTOL = KERNEL_RTOL
+# run_fused_group_exact on stage 1's four 3x3 convs as separate layers
+# (conv + folded BN + ReLU, no residual), held at every row.
+EXACT_SHARDS, EXACT_HALO, EXACT_LAUNCHES = 4, 4, 16
+# windowed_attention_halo at gemma2-2b's local layer, f32, against
+# attention_scores over the whole sequence, per element within FLASH_ATOL.
+SEQ_HALO_S, SEQ_HALO_SHARDS = 8192, 8
+HALO_ITERS = 10
 
 # gemma2-2b serving.  Flash kernel vs plain, on N(0, 1) inputs, element by
 # element: |kernel − plain| ≤ FLASH_RTOL·|plain| + FLASH_ATOL, with the
@@ -788,6 +831,162 @@ def profile(model: dict) -> dict:
     else:
         del result["all_kernels"]
     return {"profile": result}
+
+
+def halo_path(model: dict, smi: str) -> dict:
+    """The paper's halo dataflow on the card: ResNet18's fused groups row-
+    sharded with one halo exchange each, the exact per-layer form, and the
+    windowed K/V halo of gemma2-2b's local attention.  Each sharded conv
+    path is held at every row against the same sharded call under
+    ``ops.plain()`` and, where the halo pattern allows, against its
+    unsharded self; the attention against its unsharded self.  Then
+    CUDA-event times of both."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import halo as H
+    from repro_torch.kernels import ops
+    from repro_torch.core.seq_halo import (halo_vs_gather_bytes,
+                                           windowed_attention_halo)
+    from repro_torch.core.tiling import resnet18_fused_groups
+    from repro_torch.models import layers as L
+    from repro_torch.models import resnet as R
+    p = model["net"].folded
+    fns, _ = R.fused_group_fns(p)
+    x = model["x"]
+    rows = []
+    for gi, (fn, group, n, launches) in enumerate(zip(
+            fns, resnet18_fused_groups(IMAGE_HW), HALO_SHARDS,
+            HALO_LAUNCHES)):
+        stride = group[0].iy // group[-1].oy
+        halo = stride * math.ceil(H.group_halo_rows(group, n) / stride)
+        shrink = halo // stride
+        whole = fn(x)
+        zero_launches()
+        out = H.run_fused_group(fn, x, n, halo=halo, shrink=shrink)
+        torch.cuda.synchronize()
+        check_launches({"fused_conv": launches}, f"halo group {gi}")
+        check(out.shape == whole.shape, f"halo group {gi}: {out.shape}")
+        before = launch_counts()
+        with ops.plain():
+            ref = H.run_fused_group(fn, x, n, halo=halo, shrink=shrink)
+        torch.cuda.synchronize()
+        check(launch_counts() == before, "ops.plain() launched a kernel")
+        err, rel = rel_err(out, ref)
+        limit = HALO_RTOL * whole.abs().max().item()
+        dev = (out - whole).abs().amax(dim=(0, 2, 3))
+        per = whole.shape[1] // n
+        bad = [r for r in range(whole.shape[1]) if dev[r].item() > limit]
+        # two shards have no interior one: then the rows are only printed
+        interior = dev[per:-per].max().item() if n > 2 else None
+        print(f"[halo] group {gi} ({group[0].name}..{group[-1].name}) "
+              f"{tuple(x.shape)} -> {tuple(out.shape)}: {n} shards, halo "
+              f"{halo}, shrink {shrink}, {launches} fused_conv launches; "
+              f"vs plain sharded max err {err:.3e} at any row (rel "
+              f"{rel:.3e}, limit {HALO_RTOL}); vs whole: interior shards "
+              + (f"max err {interior:.3e} (limit {limit:.3e})"
+                 if interior is not None else "none")
+              + f", {len(bad)} of {whole.shape[1]} rows deviate (rows {bad}), "
+              f"up to {dev.max().item():.3e}")
+        check(rel <= HALO_RTOL, f"halo group {gi}: kernel vs plain sharded "
+              f"rel err {rel:.3e} > {HALO_RTOL}")
+        if interior is not None:
+            check(interior <= limit, f"halo group {gi}: interior rows err "
+                  f"{interior:.3e} > {limit:.3e}")
+            check(all(r < per or r >= whole.shape[1] - per for r in bad),
+                  f"halo group {gi}: rows {bad} deviate outside the boundary "
+                  f"shards")
+        del ref
+        rows.append({"group": gi, "shards": n, "halo": halo,
+                     "shrink": shrink, "launches": launches,
+                     "max_abs_err": err, "rel_err": rel,
+                     "interior_max_abs_err": interior, "limit": limit,
+                     "rows_deviating": bad,
+                     "max_deviation": dev.max().item(),
+                     "ms": cuda_ms(lambda: H.run_fused_group(
+                         fn, x, n, halo=halo, shrink=shrink), HALO_ITERS),
+                     "whole_ms": cuda_ms(lambda: fn(x), HALO_ITERS)})
+        x = whole                     # the next group's input
+
+    x = R.stem(p, model["x"])
+    layers = [(lambda w, bn: (lambda t: R.conv_bn(w, bn, t, 1, 1, True)))(
+        p[blk][f"conv{c}"], p[blk][f"bn{c}"])
+        for blk in ("s1b1", "s1b2") for c in (1, 2)]
+
+    def chain(t):
+        for fn in layers:
+            t = fn(t)
+        return t
+    whole = chain(x)
+    zero_launches()
+    out = H.run_fused_group_exact(layers, x, EXACT_SHARDS, halo=EXACT_HALO)
+    torch.cuda.synchronize()
+    check_launches({"fused_conv": EXACT_LAUNCHES}, "halo exact chain")
+    before = launch_counts()
+    with ops.plain():
+        ref = H.run_fused_group_exact(layers, x, EXACT_SHARDS,
+                                      halo=EXACT_HALO)
+    torch.cuda.synchronize()
+    check(launch_counts() == before, "ops.plain() launched a kernel")
+    plain_err, plain_rel = rel_err(out, ref)
+    del ref
+    limit = HALO_RTOL * whole.abs().max().item()
+    err = (out - whole).abs().max().item()
+    print(f"[halo] exact chain (stage 1's four 3x3 convs) {tuple(x.shape)}: "
+          f"{EXACT_SHARDS} shards, halo {EXACT_HALO}, {EXACT_LAUNCHES} "
+          f"fused_conv launches; at any row: vs plain sharded max err "
+          f"{plain_err:.3e} (rel {plain_rel:.3e}, limit {HALO_RTOL}), vs "
+          f"whole max err {err:.3e} (limit {limit:.3e})")
+    check(plain_rel <= HALO_RTOL, f"halo exact chain: kernel vs plain "
+          f"sharded rel err {plain_rel:.3e} > {HALO_RTOL}")
+    check(err <= limit, f"halo exact chain err {err:.3e} > {limit:.3e}")
+    exact = {"shards": EXACT_SHARDS, "halo": EXACT_HALO,
+             "launches": EXACT_LAUNCHES, "plain_max_abs_err": plain_err,
+             "plain_rel_err": plain_rel, "max_abs_err": err, "limit": limit,
+             "ms": cuda_ms(lambda: H.run_fused_group_exact(
+                 layers, x, EXACT_SHARDS, halo=EXACT_HALO), HALO_ITERS),
+             "whole_ms": cuda_ms(lambda: chain(x), HALO_ITERS)}
+
+    cfg = get_config(LM_CONFIG)
+    window, softcap = cfg.sliding_window, cfg.attn_softcap
+    g = torch.Generator(device="cuda").manual_seed(SEED + 400)
+    q, k, v = (torch.randn(1, SEQ_HALO_S, h, cfg.resolved_head_dim,
+                           generator=g, device="cuda")
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    mask = L.causal_mask(SEQ_HALO_S, SEQ_HALO_S, window=window).cuda()
+    whole = L.attention_scores(q, k, v, mask, softcap)
+    zero_launches()
+    out = windowed_attention_halo(q, k, v, window=window,
+                                  n_shards=SEQ_HALO_SHARDS, softcap=softcap)
+    torch.cuda.synchronize()
+    check_launches({}, "windowed halo attention")
+    err = (out - whole).abs().max().item()
+    moved = halo_vs_gather_bytes(SEQ_HALO_S, cfg.num_kv_heads,
+                                 cfg.resolved_head_dim, window=window,
+                                 n_shards=SEQ_HALO_SHARDS, dtype_bytes=4)
+    print(f"[halo] windowed attention {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} f32, window {window}, softcap {softcap}, "
+          f"{SEQ_HALO_SHARDS} shards: max err {err:.3e} (limit {FLASH_ATOL})"
+          f"; K/V bytes per shard: gather {moved['all_gather']:,.0f}, halo "
+          f"{moved['halo']:,.0f} ({moved['ratio']:.2f}x less)")
+    check(err <= FLASH_ATOL, f"windowed halo attention err {err:.3e} > "
+          f"{FLASH_ATOL}")
+    attn = {"shape": list(q.shape), "window": window, "softcap": softcap,
+            "shards": SEQ_HALO_SHARDS, "max_abs_err": err,
+            "bytes": moved,
+            "ms": cuda_ms(lambda: windowed_attention_halo(
+                q, k, v, window=window, n_shards=SEQ_HALO_SHARDS,
+                softcap=softcap), HALO_ITERS, warmup=1),
+            "whole_ms": cuda_ms(lambda: L.attention_scores(
+                q, k, v, mask, softcap), HALO_ITERS, warmup=1)}
+    del q, k, v, mask, whole, out
+    torch.cuda.empty_cache()
+    print(f"[time] halo, CUDA events, mean of {HALO_ITERS} after warm-up, "
+          f"{smi}: " + "; ".join(
+              f"group {r['group']} sharded {r['ms']:.3f} ms, whole "
+              f"{r['whole_ms']:.3f}" for r in rows)
+          + f"; exact chain sharded {exact['ms']:.3f}, whole "
+          f"{exact['whole_ms']:.3f}; windowed attention sharded "
+          f"{attn['ms']:.3f}, whole {attn['whole_ms']:.3f}")
+    return {"groups": rows, "exact_chain": exact, "windowed_attention": attn}
 
 
 # --- gemma2-2b serving: the flash-attention kernel and the LM path ---------------
@@ -1469,7 +1668,7 @@ def recurrence_times(tag: str, module, kernel, plain, shapes, inputs,
 
 
 def scan_times() -> None:
-    """``recurrence_times`` for the SSD scan at every shape of phase 10."""
+    """``recurrence_times`` for the SSD scan at every shape of phase 11."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, mamba_scan
     from repro_torch.kernels.ref import mamba_scan_ref
@@ -1484,7 +1683,7 @@ def scan_times() -> None:
 
 
 def mlstm_times() -> None:
-    """``recurrence_times`` for the mLSTM scan at every shape of phase 16,
+    """``recurrence_times`` for the mLSTM scan at every shape of phase 17,
     each also against the recurrence in f64."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, mlstm_scan
@@ -1520,6 +1719,7 @@ def main() -> int:
     model = model_path()
     fwd = timings(rows, model)
     fwd.update(profile(model))
+    halo = halo_path(model, smi)
     del model["net"], model["x"]
 
     from repro_torch.configs import get_config
@@ -1702,7 +1902,7 @@ def main() -> int:
 
     record = {"card": smi, "torch": torch.__version__,
               "build_s": build_s, "ptxas": ptxas,
-              "shapes": rows, **fwd, **model,
+              "shapes": rows, **fwd, **model, "halo": halo,
               "flash_shapes": flash_rows, "flash_head_dim_shapes": dim_rows,
               cfg.name: lm_record(lm, served, lm_times),
               "scan_shapes": scan_rows, "hybrid_flash_shapes": h_flash_rows,

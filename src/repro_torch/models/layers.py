@@ -78,6 +78,22 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def init_layernorm(dim: int, dtype: torch.dtype = torch.float32,
+                   device=None) -> Params:
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalises over the last axis in f32 (the biased variance) and casts
+    back to ``x.dtype`` before the scale and bias, as the JAX version does."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"] \
+        + p["bias"]
+
+
 # --- rotary position embeddings ----------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float,

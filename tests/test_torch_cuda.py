@@ -480,3 +480,56 @@ def test_xlstm_forward_launches_per_mlstm_layer_and_plain_none(cuda, name,
     assert ML.launches == before
     atol = 1e-4 if cfg.dtype == "float32" else 0.25
     assert (logits - plain).abs().max().item() <= atol
+
+
+# --- the halo dataflow (core/halo.py, core/seq_halo.py) on the card ---------
+
+def test_halo_group_through_kernel_matches_whole(cuda):
+    """ResNet18's stage-2 group in 4 row shards, one halo exchange, every
+    conv through the kernel, 5 launches per shard: every row within RTOL
+    of the same sharded call under ``ops.plain()``, and rows outside the
+    first and last shard within RTOL of the group run whole."""
+    from repro_torch.core import halo as H
+    from repro_torch.models import layers as L
+    from repro_torch.models import resnet as R
+    g = torch.Generator().manual_seed(0)
+    params = R.init_resnet18(g, 10)
+    for blk in ("s2b1", "s2b2"):
+        for name, bn in params[blk].items():
+            if "bn" in name:
+                bn["mean"].normal_(0, 0.1, generator=g)
+                bn["bias"].normal_(0, 0.1, generator=g)
+    fn = R.fused_group_fns(R.fold_bn(L.tree_to(params, cuda)))[0][1]
+    x = torch.randn(2, 56, 56, 64, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    whole = fn(x)
+    before = fc.launches
+    out = H.run_fused_group(fn, x, 4, halo=14, shrink=7)
+    torch.cuda.synchronize()
+    assert fc.launches - before == 20
+    with ops.plain():
+        ref = H.run_fused_group(fn, x, 4, halo=14, shrink=7)
+    assert fc.launches - before == 20
+    assert (out - ref).abs().max().item() <= RTOL * ref.abs().max().item()
+    dev = (out - whole).abs().amax(dim=(0, 2, 3))
+    assert dev[7:-7].max().item() <= RTOL * whole.abs().max().item()
+    assert dev[:7].max().item() > 0.1 and dev[-7:].max().item() > 0.1
+
+
+def test_windowed_halo_matches_whole_attention(cuda):
+    """Eight sequence shards with a three-step K/V ring, f32, against
+    attention over the whole sequence with the same causal window mask,
+    per element within 2e-5; no kernel launches."""
+    from repro_torch.core.seq_halo import windowed_attention_halo
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 512, h, 64, generator=g, device=cuda)
+               for h in (8, 4, 4))
+    before = FA.launches
+    out = windowed_attention_halo(q, k, v, window=150, n_shards=8,
+                                  softcap=50.0)
+    ref = L.attention_scores(q, k, v, L.causal_mask(512, 512, window=150)
+                             .to(cuda), 50.0)
+    torch.cuda.synchronize()
+    assert FA.launches == before
+    assert (out - ref).abs().max().item() <= 2e-5

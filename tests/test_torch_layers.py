@@ -104,3 +104,43 @@ def test_init_shape_dtype_scale(init, shape, std):
     assert abs(w.mean().item()) < 0.1 * std
     torch.testing.assert_close(init(torch.Generator().manual_seed(0)), w,
                                atol=0, rtol=0)
+
+
+# --- layernorm ---------------------------------------------------------------
+
+def test_layernorm_zero_mean_unit_var():
+    """As tests/test_layers.py::test_layernorm_zero_mean_unit_var."""
+    p = L.init_layernorm(32)
+    y = L.layernorm(p, torch.from_numpy(_np((4, 32)) * 3 + 2)).numpy()
+    np.testing.assert_allclose(y.mean(-1), 0.0, atol=1e-4)
+    np.testing.assert_allclose(y.std(-1), 1.0, atol=1e-2)
+
+
+def test_init_layernorm_matches_jax():
+    ref = JL.init_layernorm(24, jnp.bfloat16)
+    out = L.init_layernorm(24, torch.bfloat16)
+    assert out.keys() == ref.keys()
+    for k in ref:
+        assert out[k].dtype == torch.bfloat16
+        np.testing.assert_array_equal(out[k].float().numpy(),
+                                      np.asarray(ref[k], np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_matches_jax(dtype):
+    """Normalised in f32 and cast back before scale and bias on both
+    sides; bf16 within one bf16 ulp of the output (2^-7 relative)."""
+    x = _np((3, 5, 48), 2.0) + 1.5
+    p = {"scale": 1 + _np((48,), 0.2), "bias": _np((48,), 0.2)}
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = JL.layernorm({k: jnp.asarray(v, jdt) for k, v in p.items()},
+                       jnp.asarray(x, jdt))
+    out = L.layernorm({k: torch.from_numpy(v).to(tdt) for k, v in p.items()},
+                      torch.from_numpy(x).to(tdt))
+    assert out.dtype == tdt
+    ref = np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(out.float().numpy(), ref, rtol=2**-7,
+                                   atol=2**-7)

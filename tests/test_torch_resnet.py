@@ -4,6 +4,7 @@ points and import boundary."""
 
 import ast
 import functools
+import importlib.util
 import os
 import subprocess
 import sys
@@ -247,11 +248,38 @@ def test_other_families_not_ported():
         get_config("qwen3-32b")
 
 
+# --- examples/resnet_pim_torch.py -----------------------------------------
+
+def _example():
+    spec = importlib.util.spec_from_file_location(
+        "resnet_pim_torch", ROOT / "examples" / "resnet_pim_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_example_runs_the_plain_path_on_cpu(capsys):
+    """The numerics half of examples/resnet_pim_ppa.py, at its 2x96x96."""
+    _example().main(["--cpu"])
+    out = capsys.readouterr().out
+    assert "fused-group execution == monolithic ✓ (logits (2, 1000), on cpu)" \
+        in out
+    assert "(the plain path) == plain PyTorch reference ✓" in out
+    assert "examples/resnet_pim_ppa.py" in out
+
+
+def test_example_needs_a_card_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _example().main([])
+
+
 # --- import boundary ---------------------------------------------------------
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "xlstm_drift.py"]
+        ROOT / "chip_smoke.py", ROOT / "xlstm_drift.py",
+        ROOT / "examples" / "resnet_pim_torch.py"]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -274,7 +302,9 @@ def test_port_imports_no_jax_or_repro(path):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.models, repro_torch.weights, "
-            "repro_torch.kernels.ops, repro_torch.kernels._build; "
+            "repro_torch.kernels.ops, repro_torch.kernels._build, "
+            "repro_torch.core.halo, repro_torch.core.seq_halo, "
+            "repro_torch.core.tiling; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
