@@ -144,7 +144,48 @@ Phases, each of which raises (exit code 1) on failure:
     the xLSTM prefill with mlstm_scan's share of device time and the idle
     share (and how long the profiler took over its ~10^6 events); the
     decode step at batch 4.
-22. prints the ``kernels`` JSON line (all four kernels), 23. the final
+22. flash check at the other decoder-only LMs' heads, with the limits of
+    phase 7, each launch moving only its dtype's route: D=128 at
+    deepseek-moe-16b's 16/16 heads (1×4096 and B=4 at S=64, bf16); D=96
+    at phi3-mini-3.8b's 32/32 (1×4096 and B=4 at S=64 in bf16, a ragged
+    S=1000 in bf16 and in f32); D=128 with GQA 64/8 at qwen3-32b's
+    heads (S=512, bf16).  The build (phase 2) also holds both flash
+    kernels' ptxas reports at D=96: no spills.
+23. MoE prefill: deepseek-moe-16b at full width and depth (28 layers: a
+    dense first layer and 27 MoE layers of 64 routed experts, top 6, and
+    2 shared experts; d 2048, vocab 102400, bf16 with the f32 router,
+    random weights from a seed) built through ``build_model`` runs
+    ``forward`` at 1×4096 (DeepSeekMoE's 4K training context); the
+    logits are finite and of the right shape, and the forward made
+    exactly 28 flash launches, all on the tensor-core route, and none of
+    the other kernels.  Its distance from the same forward under
+    ``ops.plain()`` is printed, not held (see MOE_TWIN_LAYERS), with the
+    top-k selections that differ between the two runs and the dropped
+    assignments, layer by layer.
+24. MoE serve: ``run_lockstep`` decodes 32 tokens for 4 prompts of 64;
+    each first token is held against the argmax of the kernel-path
+    forward with ``moe_capacity_factor = E/K``, where the capacity is
+    every token and nothing drops, by the rule of phase 8; the same
+    against the forward at the config's 1.25 is printed, with its drops.
+25. MoE f32 twin: deepseek-moe-16b at full width cut to the dense layer
+    and 2 MoE layers, in f32, at 1×1024: 3 flash launches on the
+    CUDA-core route, held to TWIN_ATOL at every position, and its engine
+    against the no-drop forward at TWIN_ATOL.  This carries the MoE
+    path's correctness; the smallest gap between the K-th and (K+1)-th
+    router probability over all tokens and layers is printed.
+26. configs: phi3-mini-3.8b, qwen3-32b, minicpm-2b and
+    granite-moe-1b-a400m at full width cut to 2 layers, bf16, 1×4096,
+    and paligemma-3b cut to 2 layers with 256 random prefix embeddings
+    before 512 tokens: finite logits of the right shape, 2 flash
+    launches each on the tensor-core route, and the dense ones held
+    against ``ops.plain()`` by the rule of phase 8; granite's distance,
+    flips and drops printed.
+27. timings: per flash shape of phase 22 as in phase 10; the deepseek
+    prefill with its device time split into flash, the routed experts'
+    GEMMs, the other GEMMs, the MoE's routing, dispatch and combine, and
+    the rest, and the idle share; the decode step at batch 4 with its
+    idle share; each beside the card's name and power limit.
+28. prints the ``kernels`` JSON line (all four kernels), 29. the final
 ``{"ok": true, ...}`` line.  The full record goes to
 ``build/chip_smoke.json``.
 
@@ -169,6 +210,7 @@ does the same for the mLSTM scan at every shape of phase 17 (MLSTM_ATOL).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -375,6 +417,52 @@ MLSTM_SHAPES = [
     ("b1_s512_stabiliser", 0, 1, 512, None, 10.0),
 ]
 
+# deepseek-moe-16b serving: the MoE FFN (plain PyTorch, as JAX leaves it to
+# XLA), flash at D=128, and the other decoder-only LMs with flash at D=96.
+MOE_CONFIG = "deepseek-moe-16b"
+# DeepSeekMoE's 4K training context (arXiv:2401.06066).
+MOE_PREFILL_S = 4096
+# The bf16 MoE prefill against its plain self is printed, not held: a
+# one-ulp bf16 difference of the residual stream moves the router
+# logits by about 1e-3, some of the 4096 tokens' top-k gaps in 27 layers
+# are smaller, and a token routed to another expert moves its row and,
+# through the later attention layers, the rows after it; the JAX semantics
+# do the same.  An f32 twin at full width, cut to the dense layer and two
+# MoE layers, is held to TWIN_ATOL at every position instead: its
+# perturbation is about 1e-6, below nearly every gap (the smallest gap is
+# printed, so that a miss can be told from a fault).  Its engine is held
+# against the forward at ``moe_capacity_factor = E/K``: at the config's
+# 1.25 a 4×64 forward drops assignments (C = 30 against a mean load of
+# 24) where a batch-4 decode step never does (C = 6), so forward and
+# decode differ by the JAX semantics (tests/test_arch_smoke.py leaves MoE
+# configs out of its forward-vs-decode test).
+MOE_TWIN_LAYERS = 3
+MOE_TWIN_S = 1024
+# (name, launches per prefill forward, batch, S, causal, window, dtype) at
+# deepseek-moe-16b's heads: 16 query and 16 KV heads of 128, no softcap.
+# The prefill runs the first, once per layer.
+MOE_FLASH_SHAPES = [
+    ("s4096_d128_bf16", 28, 1, 4096, True, 0, torch.bfloat16),
+    ("b4_s64_d128_bf16", 0, 4, 64, True, 0, torch.bfloat16),
+]
+# At phi3-mini-3.8b's heads: 32 and 32 of 96.  Its 2-layer prefill in
+# phase 26 runs the first twice.
+PHI3_FLASH_SHAPES = [
+    ("s4096_d96_bf16", 2, 1, 4096, True, 0, torch.bfloat16),
+    ("b4_s64_d96_bf16", 0, 4, 64, True, 0, torch.bfloat16),
+    ("s1000_ragged_d96_bf16", 0, 1, 1000, True, 0, torch.bfloat16),
+    ("s1000_ragged_d96_f32", 0, 1, 1000, True, 0, torch.float32),
+]
+# At qwen3-32b's heads: 64 query heads over 8 KV heads of 128.
+QWEN3_FLASH_SHAPES = [
+    ("s512_d128_gqa8_bf16", 0, 1, 512, True, 0, torch.bfloat16),
+]
+# (config, S, prefix embeddings), each at full width cut to CONFIG_LAYERS.
+CONFIG_LAYERS = 2
+CONFIG_RUNS = [("phi3-mini-3.8b", 4096, 0), ("qwen3-32b", 4096, 0),
+               ("minicpm-2b", 4096, 0), ("granite-moe-1b-a400m", 4096, 0),
+               ("paligemma-3b", 512, 256)]
+
 # Distinct convs of ResNet18 at 224²: (name, launches per forward, input hw,
 # Cin, Cout, k, stride, padding, relu, residual).  Stage n's first block has
 # conv1 at stride 2, the downsample, and conv2 with the ADD_RELU epilogue;
@@ -474,8 +562,20 @@ def build() -> tuple[float, dict]:
         print(f"[build] flash_attention_sm90 D={d}: {row.get('registers')} "
               f"registers at launch, {row.get('spill_bytes')} B spilled, "
               f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
-    check(sorted(sm90) == [16, 32, 64, 80, 128, 256],
+    check(sorted(sm90) == [16, 32, 64, 80, 96, 128, 256],
           f"flash_attention_sm90 ptxas report: {sm90}")
+    # The f32 CUDA-core flash kernel per head dim; neither route may spill
+    # at phi3's D = 96, the build this slice added.
+    f32 = ptxas_report(log, r"flash_attention_fwd_kernelILi(\d+)E",
+                       lambda m: int(m[1]))
+    for d, row in sorted(f32.items()):
+        print(f"[build] flash_attention (f32) D={d}: {row.get('registers')} "
+              f"registers, {row.get('spill_bytes')} B spilled")
+    check(sorted(f32) == sorted(sm90)
+          and sm90[96].get("spill_bytes") == 0
+          and f32[96].get("spill_bytes") == 0,
+          f"flash at D=96 spills or is missing: bf16 {sm90.get(96)}, f32 "
+          f"{f32.get(96)}")
     # The fused-conv kernel per tile width and patch copy (16 bytes along
     # Cin, or 4 for the stem): registers, spills (none allowed) and dynamic
     # shared memory.
@@ -522,7 +622,8 @@ def build() -> tuple[float, dict]:
     check(len(mlstm) == 4
           and all(row.get("spill_bytes") == 0 for row in mlstm.values()),
           f"mlstm_scan_sm90 ptxas report: {mlstm}")
-    return secs, {"flash_attention_sm90": sm90, "fused_conv_sm90": conv,
+    return secs, {"flash_attention_sm90": sm90, "flash_attention_f32": f32,
+                  "fused_conv_sm90": conv,
                   "mamba_scan_sm90": scan, "mlstm_scan_sm90": mlstm}
 
 
@@ -785,9 +886,10 @@ def device_breakdown(events, window_name: str, runs: int) -> dict | None:
     window = next(e for e in events if e.name == window_name).time_range
     spans = sorted((max(e.time_range.start, window.start),
                     min(e.time_range.end, window.end), e.name)
-                   for e in events   # the annotation also shows on the device
+                   for e in events   # annotations also show on the device
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name != window_name)
+                   and e.name != window_name
+                   and e.name not in MOE_RANGES.values())
     if not spans:
         return None
     busy, reach, by_name = 0.0, window.start, {}
@@ -1096,15 +1198,69 @@ def check_launches(expect: dict[str, int], what: str,
     return got
 
 
+@contextlib.contextmanager
+def recording_routes():
+    """Records, per MoE layer of the forwards run inside, the top-k choices,
+    the dropped assignments and the smallest gap between the K-th and
+    (K+1)-th router probability, from each ``moe.route`` result (the
+    function is wrapped; what it returns is unchanged)."""
+    from repro_torch.models import moe
+    log, route = [], moe.route
+
+    def recorded(p, xt, cfg):
+        r = route(p, xt, cfg)
+        top = r.probs.topk(cfg.moe_top_k + 1, dim=-1).values
+        log.append({"sel": r.sel, "C": r.C,
+                    "dropped": int((~r.keep).sum().item()),
+                    "min_gap": (top[:, -2] - top[:, -1]).min().item()})
+        return r
+    moe.route = recorded
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def routing_report(cfg, run: list[dict], other: list[dict],
+                   what: str) -> dict:
+    """Per MoE layer: the top-k selections of ``run`` that ``other`` (the
+    same forward on another path) did not make, each run's dropped
+    assignments, and the smallest top-k gap; printed and returned."""
+    E = cfg.moe_num_experts
+
+    def chosen(sel):
+        return F.one_hot(sel, E).sum(dim=1)
+    flips = [int((chosen(a["sel"]) != chosen(b["sel"])).sum().item()) // 2
+             for a, b in zip(run, other)]
+    out = {"capacity": run[0]["C"] if run else None,
+           "flips_per_layer": flips,
+           "dropped_per_layer": [r["dropped"] for r in run],
+           f"dropped_per_layer_{what}": [r["dropped"] for r in other],
+           "min_gap_per_layer": [r["min_gap"] for r in run],
+           "min_gap": min((r["min_gap"] for r in run), default=None)}
+    T = run[0]["sel"].shape[0] if run else 0
+    print(f"[moe] {cfg.name}: {len(run)} MoE layers, {T} tokens, top "
+          f"{cfg.moe_top_k} of {E}, capacity {out['capacity']}; top-k "
+          f"selections that differ from the {what} run per layer {flips} "
+          f"(sum {sum(flips)} of {T * cfg.moe_top_k * len(run)}); dropped "
+          f"assignments per layer {out['dropped_per_layer']} ({what} run "
+          f"{out[f'dropped_per_layer_{what}']}); smallest gap between the "
+          f"K-th and (K+1)-th router probability {out['min_gap']:.3e} (per "
+          f"layer {[float(f'{g:.2e}') for g in out['min_gap_per_layer']]})")
+    return out
+
+
 def prefill_path(cfg, seq: int, expect: dict[str, int],
                  limit: float | None = PREFILL_ATOL,
-                 every_position: bool = False) -> dict:
+                 every_position: bool = False, prefix: int = 0) -> dict:
     """``cfg`` at full width, random weights from SEED, one 1×``seq``
-    forward that launches exactly ``expect`` of each kernel, held against
-    the same forward under ``ops.plain()``: the logits within ``limit`` at
-    the last position, or at ``every_position``, and top-1 equal wherever
-    the plain margin exceeds ``limit``.  With ``limit`` None the comparison
-    is printed (margins counted at PREFILL_ATOL) and not held."""
+    forward (after ``prefix`` random prefix embeddings) that launches
+    exactly ``expect`` of each kernel, held against the same forward under
+    ``ops.plain()``: the logits within ``limit`` at the last position, or
+    at ``every_position``, and top-1 equal wherever the plain margin
+    exceeds ``limit``.  With ``limit`` None the comparison is printed
+    (margins counted at PREFILL_ATOL) and not held.  For a config with
+    experts, the routing of both forwards is compared layer by layer."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.models.api import param_count
@@ -1124,11 +1280,16 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq),
                                      generator=g, device="cuda")}
+    if prefix:
+        batch["prefix_embed"] = torch.randn(
+            1, prefix, cfg.d_model, generator=g, device="cuda").to(
+                getattr(torch, cfg.dtype))
     want = (1, seq, cfg.vocab_size)
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    logits, _ = model.forward(net, batch)
+    with recording_routes() as routes:
+        logits, _ = model.forward(net, batch)
     torch.cuda.synchronize()
     launches = check_launches(expect, f"{cfg.name} prefill forward",
                               flash_route(cfg))
@@ -1139,7 +1300,7 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
 
     before = launch_counts()
     t0 = time.perf_counter()
-    with ops.plain():
+    with ops.plain(), recording_routes() as plain_routes:
         plain, _ = model.forward(net, batch)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
@@ -1155,7 +1316,9 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     held = limit is not None
     margin = limit if held else PREFILL_ATOL
     agree, n_sure = margin_agree(top, ref_top, ref_margin, margin)
-    print(f"[prefill] {cfg.name} 1x{seq}: launches {launches}, flash on "
+    print(f"[prefill] {cfg.name} "
+          + (f"{prefix} prefix embeddings + " if prefix else "")
+          + f"1x{seq}: launches {launches}, flash on "
           f"{flash_route(cfg)}; peak "
           f"{peak_gb:.1f} GB; logits vs plain forward on the card "
           f"({plain_s:.1f} s): max_abs_err {err_last:.3e} at the last "
@@ -1165,6 +1328,9 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
           f"), |logit| max {big:.3f}; top-1 equal at {n_sure}/{seq} positions "
           f"with plain margin > {margin}: {agree}; top-1 equal at all "
           f"positions: {int((top == ref_top).sum())}/{seq}")
+    routing = (routing_report(cfg, routes, plain_routes, "plain")
+               if routes else None)
+    del routes, plain_routes
     if held:
         check(err <= limit, f"prefill logits vs plain {err:.3e} > {limit}")
         check(agree, "prefill top-1 differs from plain where the margin is "
@@ -1173,16 +1339,27 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
             "init_s": init_s, "params": n_params, "peak_gb": peak_gb,
             "plain_forward_s": plain_s, "logits_max_abs_err": err,
             "last_position_err": err_last, "any_position_err": err_all,
-            "limit": limit, "positions_checked": n_sure}
+            "limit": limit, "positions_checked": n_sure, "prefix": prefix,
+            "routing": routing}
 
 
 def serve_path(cfg, lm: dict, expect: dict[str, int],
                limit: float | None = PREFILL_ATOL) -> dict:
     """``run_lockstep`` on SERVE_BATCH prompts; each first token equal to
     the forward's argmax wherever its margin exceeds ``limit`` (printed at
-    PREFILL_ATOL and not held when ``limit`` is None)."""
+    PREFILL_ATOL and not held when ``limit`` is None).  For a config with
+    experts that forward runs at ``moe_capacity_factor = E/K``, where
+    nothing drops (as in the decode steps), on the same parameters; the
+    comparison with the forward at the config's own factor is printed,
+    with its drops."""
+    from repro_torch.models.api import DecoderLM
     from repro_torch.serve import ServeEngine
     model, net = lm["model"], lm["net"]
+    ref_net = net
+    if cfg.moe_num_experts:
+        ref_net = DecoderLM(dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k),
+            params=net.params, device=model.device)
     g = torch.Generator().manual_seed(SEED + 4)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN),
                             generator=g)
@@ -1198,28 +1375,50 @@ def serve_path(cfg, lm: dict, expect: dict[str, int],
         for o in outs), "engine output shape or token range")
 
     zero_launches()
-    logits, _ = model.forward(net, {"tokens": prompts.to("cuda")})
+    with recording_routes() as routes:
+        logits, _ = model.forward(ref_net, {"tokens": prompts.to("cuda")})
     torch.cuda.synchronize()
     launches = check_launches(expect, f"{cfg.name} cross-check forward",
                               flash_route(cfg))
+    check(all(r["dropped"] == 0 for r in routes),
+          "the no-drop cross-check forward dropped assignments")
     ref_top, ref_margin = top2(logits[:, -1])
     del logits
     first = torch.tensor([o[0] for o in outs], device="cuda")
-    agree, n_sure = margin_agree(first, ref_top, ref_margin,
-                                 PREFILL_ATOL if limit is None else limit)
+    margin = PREFILL_ATOL if limit is None else limit
+    agree, n_sure = margin_agree(first, ref_top, ref_margin, margin)
     print(f"[serve] {cfg.name}: {SERVE_BATCH} prompts of {PROMPT_LEN} + "
           f"{NEW_TOKENS} new tokens through run_lockstep in {wall_s:.2f} s "
           f"({PROMPT_LEN + NEW_TOKENS} decode steps); first tokens "
-          f"{first.tolist()} vs forward argmax {ref_top.tolist()} (margins "
-          f"{[round(m, 3) for m in ref_margin.tolist()]}): equal at "
-          f"{n_sure}/{SERVE_BATCH} clear positions: {agree}"
+          f"{first.tolist()} vs forward argmax {ref_top.tolist()} "
+          + ("(at moe_capacity_factor = E/K, no drops) "
+             if ref_net is not net else "")
+          + f"(margins {[round(m, 3) for m in ref_margin.tolist()]}): equal "
+          f"at {n_sure}/{SERVE_BATCH} clear positions: {agree}"
           + (" (printed, not held)" if limit is None else ""))
+    out = {"serve_wall_s": wall_s, "serve_launches": launches,
+           "first_tokens": first.tolist(), "serve_positions_checked": n_sure,
+           "outputs": outs}
+    if ref_net is not net:
+        with recording_routes() as routes:
+            logits, _ = model.forward(net, {"tokens": prompts.to("cuda")})
+        own_top, own_margin = top2(logits[:, -1])
+        del logits
+        own_agree, own_sure = margin_agree(first, own_top, own_margin,
+                                           margin)
+        drops = [r["dropped"] for r in routes]
+        print(f"[serve] {cfg.name}: the same against the forward at the "
+              f"config's moe_capacity_factor {cfg.moe_capacity_factor} "
+              f"(printed, not held): argmax {own_top.tolist()}, equal at "
+              f"{own_sure}/{SERVE_BATCH} clear positions: {own_agree}; "
+              f"dropped assignments per layer {drops} (capacity "
+              f"{routes[0]['C']} for {SERVE_BATCH}x{PROMPT_LEN} tokens)")
+        out.update(own_factor_argmax=own_top.tolist(),
+                   own_factor_agree=own_agree, own_factor_drops=drops)
     if limit is not None:
         check(agree, "engine's first token differs from the forward's "
               "argmax")
-    return {"serve_wall_s": wall_s, "serve_launches": launches,
-            "first_tokens": first.tolist(), "serve_positions_checked": n_sure,
-            "outputs": outs}
+    return out
 
 
 def flash_pairs(s: int, t: int, causal: bool, window: int) -> int:
@@ -1314,7 +1513,7 @@ def lm_timings(cfg, lm: dict, seq: int) -> dict:
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
-        with record_function("prefill"):
+        with record_function("prefill"), annotated_moe():
             model.forward(net, batch)
             torch.cuda.synchronize()
     events = prof.events()
@@ -1325,8 +1524,10 @@ def lm_timings(cfg, lm: dict, seq: int) -> dict:
            "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
            "profile_events": len(events), "profile_s": profile_s,
            "prefill_profile": device_breakdown(events, "prefill", 1)}
-    del events
     prof_ = out["prefill_profile"]
+    if prof_ is not None and cfg.moe_num_experts:
+        prof_["split_us"] = moe_split(events, prof_)
+    del events
     if prof_ is not None:
         for name, n in lm["launches"].items():
             if not n:
@@ -1353,6 +1554,81 @@ def lm_timings(cfg, lm: dict, seq: int) -> dict:
         print(f"[profile] decode step: {out['decode_profile']['launches']} "
               f"device kernels")
     return out
+
+
+# The profiler ranges annotated_moe puts around the MoE's four steps.
+MOE_RANGES = {"route": "moe_route", "dispatch": "moe_dispatch",
+              "experts": "moe_experts", "combine": "moe_combine"}
+
+
+@contextlib.contextmanager
+def annotated_moe():
+    """Wraps each call of the MoE's four steps (``repro_torch.models.moe``'s
+    route, dispatch, experts and combine) in a profiler range, so that
+    ``moe_split`` can tell their kernels apart."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+    steps = {name: getattr(moe, name) for name in MOE_RANGES}
+
+    def annotated(name):
+        def step(*args):
+            with record_function(MOE_RANGES[name]):
+                return steps[name](*args)
+        return step
+    for name in steps:
+        setattr(moe, name, annotated(name))
+    try:
+        yield
+    finally:
+        for name, fn in steps.items():
+            setattr(moe, name, fn)
+
+
+MOE_SPLIT = ("flash", "expert_gemms", "other_gemms", "moe_dispatch_combine",
+             "expert_activations", "rest")
+
+
+def moe_split(events, prof_: dict) -> dict[str, float]:
+    """Device time (us) of one prefill's kernels by what launched them:
+    flash, by kernel name (its ctypes launch is linked to no host op); the
+    rest by the host op the profiler links each kernel to and the MoE step
+    around it: the routed experts' GEMMs (``aten::bmm`` in ``experts``),
+    the other GEMMs (``aten::mm``, ``aten::addmm``: projections, router,
+    shared experts, head), the MoE's routing, dispatch and combine (every
+    other kernel in ``route``, ``dispatch`` and ``combine``: softmax,
+    top-k, one-hot, cumsum, scatter, gather, gate products), the experts'
+    activations, and the rest.  What neither accounts for is
+    ``unlinked``."""
+    split = dict.fromkeys(MOE_SPLIT, 0.0)
+    split["flash"] = sum(k["us"] for k in prof_["all_kernels"]
+                         if "flash_attention" in k["name"])
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        step, q = None, e
+        while q is not None and step is None:
+            step = q.name if q.name in MOE_RANGES.values() else None
+            q = q.cpu_parent
+        for k in e.kernels:
+            if "flash_attention" in k.name:
+                continue
+            if e.name == "aten::bmm":
+                what = "expert_gemms"
+            elif e.name in ("aten::mm", "aten::addmm"):
+                what = "other_gemms"
+            elif step == "moe_experts":
+                what = "expert_activations"
+            else:
+                what = "rest" if step is None else "moe_dispatch_combine"
+            split[what] += k.duration
+    kernels_us = sum(k["us"] for k in prof_["all_kernels"])
+    split["unlinked"] = kernels_us - sum(split.values())
+    busy = prof_["device_busy_us"]
+    print("[profile] prefill device time by what launched it: " + ", ".join(
+        f"{k} {v / 1e3:.2f} ms ({v / busy:.3f} of busy)"
+        for k, v in split.items()))
+    return split
 
 
 # --- zamba2-2.7b: the SSD-scan kernel -------------------------------------------
@@ -1698,6 +1974,56 @@ def mlstm_times() -> None:
                      "kernel arithmetic", exact=mlstm_f64)
 
 
+def decoder_lm_paths(smi: str) -> dict:
+    """Phases 22-27: flash at the decoder-only LMs' heads, deepseek-moe-16b's
+    prefill, serve and timings, its f32 twin, and the other configs."""
+    from repro_torch.configs import get_config
+    mcfg = get_config(MOE_CONFIG)
+    pcfg, qcfg = get_config("phi3-mini-3.8b"), get_config("qwen3-32b")
+    m_expect = {"flash_attention": mcfg.num_layers}
+    m_flash_rows = flash_check(mcfg, MOE_FLASH_SHAPES, SEED + 600)
+    p_flash_rows = flash_check(pcfg, PHI3_FLASH_SHAPES, SEED + 650)
+    q_flash_rows = flash_check(qcfg, QWEN3_FLASH_SHAPES, SEED + 700)
+    mlm = prefill_path(mcfg, MOE_PREFILL_S, m_expect, limit=None)
+    m_served = serve_path(mcfg, mlm, m_expect)
+    print(f"[time] {mcfg.name}, {smi}:")
+    m_times = lm_timings(mcfg, mlm, MOE_PREFILL_S)
+    del mlm["model"], mlm["net"], mlm["batch"]
+    torch.cuda.empty_cache()
+    # The f32 twin: full width, the dense layer and two MoE layers, held at
+    # every position and in the engine.
+    mtcfg = dataclasses.replace(mcfg, name=f"{mcfg.name}-f32-twin",
+                                num_layers=MOE_TWIN_LAYERS, dtype="float32",
+                                param_dtype="float32")
+    mt_expect = {"flash_attention": MOE_TWIN_LAYERS}
+    mtlm = prefill_path(mtcfg, MOE_TWIN_S, mt_expect, limit=TWIN_ATOL,
+                        every_position=True)
+    m_twin = lm_record(mtlm, serve_path(mtcfg, mtlm, mt_expect,
+                                        limit=TWIN_ATOL))
+    del mtlm
+    torch.cuda.empty_cache()
+    config_runs = {}
+    for name, seq, prefix in CONFIG_RUNS:
+        ccfg = dataclasses.replace(get_config(name), num_layers=CONFIG_LAYERS)
+        clm = prefill_path(ccfg, seq, {"flash_attention": CONFIG_LAYERS},
+                           limit=None if ccfg.moe_num_experts
+                           else PREFILL_ATOL, prefix=prefix)
+        config_runs[name] = lm_record(clm)
+        del clm
+        torch.cuda.empty_cache()
+    print(f"[time] flash at the decoder-only LMs' heads, {smi}:")
+    flash_timings(m_flash_rows, mcfg, MOE_FLASH_SHAPES, SEED + 600)
+    flash_timings(p_flash_rows, pcfg, PHI3_FLASH_SHAPES, SEED + 650)
+    flash_timings(q_flash_rows, qcfg, QWEN3_FLASH_SHAPES, SEED + 700)
+    return {"mcfg": mcfg, "pcfg": pcfg, "mlm": mlm, "m_served": m_served,
+            "m_times": m_times, "m_twin": m_twin, "m_flash_rows": m_flash_rows,
+            "p_flash_rows": p_flash_rows, "q_flash_rows": q_flash_rows,
+            "config_runs": config_runs}
+
+
+T0 = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1807,6 +2133,13 @@ def main() -> int:
                        mlstm_ref, lambda sh: mlstm_bounds(sh, xcfg),
                        "the mLSTM recurrence")
     x_times = lm_timings(xcfg, xlm, XLSTM_PREFILL_S)
+    del xlm["model"], xlm["net"], xlm["batch"]
+    torch.cuda.empty_cache()
+
+    d = decoder_lm_paths(smi)
+    mcfg, pcfg, mlm, m_times = d["mcfg"], d["pcfg"], d["mlm"], d["m_times"]
+    m_flash_rows, p_flash_rows = d["m_flash_rows"], d["p_flash_rows"]
+    q_flash_rows, config_runs = d["q_flash_rows"], d["config_runs"]
 
     check(sum(r["per_forward"] for r in rows) == CONVS_PER_FORWARD,
           "CONV_SHAPES do not add up to one forward")
@@ -1818,6 +2151,10 @@ def main() -> int:
           "SCAN_SHAPES do not add up to one prefill forward")
     check(sum(r["per_forward"] for r in mlstm_rows) == x_units * x_per_unit,
           "MLSTM_SHAPES do not add up to one prefill forward")
+    check(sum(r["per_forward"] for r in m_flash_rows) == mcfg.num_layers,
+          "MOE_FLASH_SHAPES do not add up to one prefill forward")
+    check(sum(r["per_forward"] for r in p_flash_rows) == CONFIG_LAYERS,
+          "PHI3_FLASH_SHAPES do not add up to one prefill forward")
 
     def totals(rs: list[dict]) -> dict:
         """A kernel's numbers summed over the launches of one forward; no
@@ -1833,6 +2170,7 @@ def main() -> int:
                                else per_forward(rs, "library_ms"))}
 
     h_flash = totals(h_flash_rows)
+    m_flash, p_flash = totals(m_flash_rows), totals(p_flash_rows)
     kernels = {"kernels": [{
         "name": "fused_conv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_conv_sm90.cu",
@@ -1861,8 +2199,9 @@ def main() -> int:
                       "launches": twin["launches"]["flash_attention"],
                       "in": f"the {tcfg.name} prefill"},
         "library_mask_ms": per_forward(flash_rows, "library_mask_ms"),
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in flash_rows + dim_rows + h_flash_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            flash_rows + dim_rows + h_flash_rows + m_flash_rows
+            + p_flash_rows + q_flash_rows)),
         **totals(flash_rows),
         "times_are": f"sums over the {cfg.num_layers} launches of one "
                      f"1x{PREFILL_S} {cfg.name} prefill; per shape in "
@@ -1872,6 +2211,18 @@ def main() -> int:
                         h_flash_rows, "library_mask_ms"),
                     "times_are": f"sums over the {units} launches of one "
                                  f"1x{HYBRID_PREFILL_S} prefill"},
+        mcfg.name: {"launches": mlm["launches"]["flash_attention"],
+                    **m_flash, "library_mask_ms": per_forward(
+                        m_flash_rows, "library_mask_ms"),
+                    "times_are": f"sums over the {mcfg.num_layers} launches "
+                                 f"of one 1x{MOE_PREFILL_S} prefill"},
+        pcfg.name: {"launches": config_runs[pcfg.name]["launches"][
+                        "flash_attention"],
+                    **p_flash, "library_mask_ms": per_forward(
+                        p_flash_rows, "library_mask_ms"),
+                    "times_are": f"sums over the {CONFIG_LAYERS} launches "
+                                 f"of one 1x4096 prefill cut to "
+                                 f"{CONFIG_LAYERS} layers (D=96)"},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan_sm90.cu",
@@ -1909,7 +2260,13 @@ def main() -> int:
               hcfg.name: lm_record(hlm, h_served, h_times),
               f"{hcfg.name}_f32_twin": twin, "mlstm_shapes": mlstm_rows,
               xcfg.name: lm_record(xlm, x_served, x_times),
-              x32cfg.name: x32, f"{xcfg.name}_f32_twin": x_twin, **kernels}
+              x32cfg.name: x32, f"{xcfg.name}_f32_twin": x_twin,
+              "moe_flash_shapes": m_flash_rows,
+              "phi3_flash_shapes": p_flash_rows,
+              "qwen3_flash_shapes": q_flash_rows,
+              mcfg.name: lm_record(mlm, d["m_served"], m_times),
+              f"{mcfg.name}_f32_twin": d["m_twin"], "configs": config_runs,
+              **kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -1927,7 +2284,12 @@ def main() -> int:
           f"{xcfg.name} prefill 1x{XLSTM_PREFILL_S} "
           f"{x_times['prefill_ms']:.2f} ms with mlstm_scan "
           f"{kernels['kernels'][3]['ms']:.2f} ms; decode step "
-          f"{x_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}")
+          f"{x_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
+          f"{mcfg.name} prefill 1x{MOE_PREFILL_S} "
+          f"{m_times['prefill_ms']:.2f} ms with flash_attention "
+          f"{m_flash['ms']:.2f} ms; decode step "
+          f"{m_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
+          f"script {time.perf_counter() - T0:.0f} s")
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

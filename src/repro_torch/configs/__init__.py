@@ -1,7 +1,7 @@
 """Model configurations of the port: its own copy of the ``ModelConfig``
 fields the ported paths read, and ``get_config`` for the configs it serves
-(``resnet18``, ``gemma2-2b``, ``zamba2-2.7b``, ``xlstm-1.3b`` and their
-``-smoke`` reductions)."""
+(``resnet18`` and every LM of the JAX registry but ``whisper-large-v3``,
+with their ``-smoke`` reductions)."""
 
 from repro_torch.configs.base import ModelConfig, get_config
 

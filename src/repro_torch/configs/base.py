@@ -1,7 +1,8 @@
 """The fields of ``ModelConfig`` that the ported paths read (the ResNet18
-CNN, the decoder-only LM, the Mamba2 hybrid and xLSTM), under the same names and
-with the same defaults as in the JAX package's config, plus
-``get_config``."""
+CNN, the decoder-only LM with its dense, MoE and VLM-prefix forms, the
+Mamba2 hybrid and xLSTM), under the same names and with the same defaults
+as in the JAX package's config, plus ``get_config``.  The encoder-decoder
+fields and ``lr_schedule`` come with the code that reads them."""
 
 from __future__ import annotations
 
@@ -39,12 +40,19 @@ class ModelConfig:
     # --- embedding/head ---
     tie_embeddings: bool = True
     scale_embed_by_sqrt_dim: bool = False  # gemma family
+    num_prefix_tokens: int = 0        # vlm stub frontend tokens
 
     # --- MLP ---
     mlp_activation: str = "silu"      # silu (SwiGLU) | gelu (GeGLU)
 
-    # --- MoE (read only to refuse it: not ported) ---
+    # --- MoE ---
     moe_num_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0                 # per-expert hidden (fine-grained MoE)
+    moe_num_shared_experts: int = 0   # deepseek shared experts
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_coef: float = 0.01
+    first_dense_layers: int = 0       # deepseek: layer 0 is dense FFN
 
     # --- SSM / hybrid (zamba2: mamba2 + shared attention) ---
     ssm_state_dim: int = 0
@@ -90,6 +98,10 @@ class ModelConfig:
             dtype="float32",
             param_dtype="float32",
         )
+        if self.moe_num_experts:
+            small.update(moe_num_experts=4, moe_top_k=2, moe_d_ff=32,
+                         moe_num_shared_experts=min(
+                             self.moe_num_shared_experts, 1))
         if self.ssm_state_dim:
             small.update(ssm_state_dim=16, ssm_head_dim=16, ssm_chunk=16)
         if self.hybrid_attn_every:
@@ -98,13 +110,17 @@ class ModelConfig:
             small.update(xlstm_slstm_every=2)
         if self.sliding_window:
             small.update(sliding_window=8)
+        if self.num_prefix_tokens:
+            small.update(num_prefix_tokens=4)
         return dataclasses.replace(self, **small)
 
 
-_MODULE_FOR = {"resnet18": "repro_torch.configs.resnet18",
-               "gemma2-2b": "repro_torch.configs.gemma2_2b",
-               "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
-               "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b"}
+_MODULE_FOR = {name: "repro_torch.configs." + name.replace("-", "_")
+               .replace(".", "_")
+               for name in ("resnet18", "gemma2-2b", "zamba2-2.7b",
+                            "xlstm-1.3b", "deepseek-moe-16b",
+                            "granite-moe-1b-a400m", "phi3-mini-3.8b",
+                            "qwen3-32b", "minicpm-2b", "paligemma-3b")}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -113,6 +129,7 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULE_FOR:
         raise KeyError(
             f"no port of config {name!r}; the port serves {sorted(_MODULE_FOR)}"
-            " (the other LM configs arrive with ROADMAP queue 1, item 9)")
+            " (whisper-large-v3 arrives with the encoder-decoder half of "
+            "ROADMAP queue 1, item 9)")
     cfg: ModelConfig = importlib.import_module(_MODULE_FOR[name]).CONFIG
     return cfg.smoke() if smoke else cfg

@@ -37,7 +37,8 @@
 //     alpha = exp(-1e30 - m) = 0 wipes; keys past T (the ragged edge) are
 //     -inf and add nothing at all.  The final divide is by max(l, 1e-30).
 // Shared memory is 4 * (2*68*D + 64*D + 64*68) bytes: 222,208 at D = 256,
-// so one block per SM; 81,408 at zamba2's D = 80, two.  What it leaves on
+// so one block per SM; 81,408 at zamba2's D = 80 and 94,208 at phi3's
+// D = 96, two.  What it leaves on
 // the table: loads that overlap the previous tile's math, and more than one
 // block per SM at D = 256.
 
@@ -76,7 +77,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_fwd_kernel(const FlashArgs a) {
   // Each thread owns output columns c(m, e) = m*16*VEC + tx*VEC + e: VEC
-  // is the widest of 4, 2 and 1 that divides D / 16 (1 at D = 80).
+  // is the widest of 4, 2 and 1 that divides D / 16 (1 at D = 80, 2 at
+  // D = 96).
   constexpr int VEC = (D / 16) % 4 == 0 ? 4 : (D / 16) % 2 == 0 ? 2 : 1;
   constexpr int NCH = D / (16 * VEC);
   constexpr int DC = NCH * VEC;             // = D / 16
@@ -258,7 +260,7 @@ int launch(const FlashArgs& a, int BH, cudaStream_t stream) {
 
 // Launches on `stream` and returns the CUDA error (0 on success).  q, k, v
 // and o are contiguous float32; the caller checks shapes, BH % BKV == 0, D
-// in {16, 32, 64, 80, 128, 256}, BH <= 65535 and every index below 2**31.
+// in {16, 32, 64, 80, 96, 128, 256}, BH <= 65535 and every index below 2**31.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int BH, int BKV,
                                    int S, int T, int D, int causal,
@@ -281,6 +283,7 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
     case 32: return launch<32>(a, BH, s);
     case 64: return launch<64>(a, BH, s);
     case 80: return launch<80>(a, BH, s);
+    case 96: return launch<96>(a, BH, s);
     case 128: return launch<128>(a, BH, s);
     case 256: return launch<256>(a, BH, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -45,9 +45,10 @@
 //     under its own P.V and the other's products.  O is rescaled only when
 //     some row's max moved;
 //   * D is cut into 64-wide column chunks, 128-byte swizzled, and one
-//     16- or 32-wide tail chunk, 32- or 64-byte swizzled (D = 80 = 64 + 16:
-//     a 160-byte row does not fit one 128-byte swizzle atom); every wgmma
-//     descriptor names the swizzle of its chunk's tensor map;
+//     16- or 32-wide tail chunk, 32- or 64-byte swizzled (D = 80 = 64 + 16
+//     and D = 96 = 64 + 32: a 160- or 192-byte row does not fit one
+//     128-byte swizzle atom); every wgmma descriptor names the swizzle of
+//     its chunk's tensor map;
 //   * masking runs only on tiles that cross the diagonal, a window's left
 //     edge or T; tiles that no row of the CTA can see are skipped.  Both
 //     consumers walk the same tiles, so that their turns pair up; a tile
@@ -69,7 +70,8 @@
 // JAX gives the mean of v, so the wrapper refuses such windows.
 //
 // Shared memory: Q 128*D*2 bytes, STAGES * 2 * BK*D*2 of K and V: 192 KB
-// at D = 256 (BK = 64, 2 stages), 140 KB at D = 80 (BK = 128, 3 stages).
+// at D = 256 (BK = 64, 2 stages), 141 KB at D = 80 and 169 KB at D = 96
+// (BK = 128, 3 stages).
 // Registers: consumers 240 (O is 128 of them at D = 256, S 32, P 32),
 // the producer 24.  What it leaves on the table: P's split costs 1.5x the
 // tensor-core work of one bf16 P; at D = 256 the registers allow only
@@ -744,6 +746,7 @@ extern "C" int flash_attention_sm90_bf16(const void* q, const void* k,
     case 32: return launch<32>(c);
     case 64: return launch<64>(c);
     case 80: return launch<80>(c);
+    case 96: return launch<96>(c);
     case 128: return launch<128>(c);
     case 256: return launch<256>(c);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -757,6 +760,7 @@ extern "C" int flash_attention_sm90_smem_bytes(int D) {
     case 32: return Tiles<32>::SMEM;
     case 64: return Tiles<64>::SMEM;
     case 80: return Tiles<80>::SMEM;
+    case 96: return Tiles<96>::SMEM;
     case 128: return Tiles<128>::SMEM;
     case 256: return Tiles<256>::SMEM;
     default: return 0;

@@ -32,7 +32,7 @@ launches = 0
 launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0}
 
 # the head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _INDEX_LIMIT = 2**31                 # the kernel indexes with 32-bit ints
 _GRID_Y_LIMIT = 65535                # grid rows: f32 one per query head,
 _BF16_Q_TILE = 128                   # bf16 one per 128-query tile

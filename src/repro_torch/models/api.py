@@ -1,12 +1,15 @@
 """Model assembly: config → (init, forward, init_cache, decode_step), as in
 the JAX package.  The port serves the CNN family (``models/resnet.py``),
-the decoder-only transformer (dense, and vlm without prefix tokens), e.g.
-gemma2-2b, the Mamba2 hybrid, zamba2, and xLSTM (the ``ssm`` family with
-sLSTM blocks), xlstm-1.3b; the other families come with later slices of
-the port.
+the decoder-only transformer (dense, MoE with an optional dense first
+layer, and vlm with its stub prefix embeddings: gemma2-2b, phi3-mini-3.8b,
+qwen3-32b, minicpm-2b, granite-moe-1b-a400m, deepseek-moe-16b,
+paligemma-3b), the Mamba2 hybrid, zamba2, and xLSTM (the ``ssm`` family
+with sLSTM blocks), xlstm-1.3b; the encoder-decoder (whisper) comes with a
+later slice of the port.
 
 Layer stacks are STACKED as in JAX: every leaf of the decoder's
-``params["layers"]`` has a leading ``num_layers`` axis; the hybrid's
+``params["layers"]`` has a leading axis of ``num_layers`` less the dense
+first layers (``params["dense0"]``, unstacked); the hybrid's
 ``params["mamba"]`` and xLSTM's ``params["mlstm"]`` leaves a leading
 ``(units, blocks per unit)`` pair of axes, and the hybrid's
 ``params["attn"]`` and xLSTM's ``params["slstm"]`` a leading ``units``
@@ -53,14 +56,31 @@ def _dt(cfg: ModelConfig) -> tuple[torch.dtype, torch.dtype]:
 
 
 def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
-    """``n`` trees from ``init_fn``, stacked leaf by leaf on a new axis 0."""
-    layers = [init_fn() for _ in range(n)]
+    """``n`` trees from ``init_fn``, stacked leaf by leaf on a new axis 0.
 
-    def stack(trees: list[Params]) -> Params:
-        return {k: stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees])
-                for k, v in trees[0].items()}
-    return stack(layers)
+    Each stacked leaf is allocated once, from the first tree's leaf, and
+    every tree is copied into its slice as soon as it is drawn, so that at
+    most one tree lives beside the stack (stacking a list of trees would
+    hold all of them and the stack together)."""
+    first = init_fn()
+
+    def alloc(tree: Params) -> Params:
+        return {k: alloc(v) if isinstance(v, dict)
+                else v.new_empty((n, *v.shape)) for k, v in tree.items()}
+
+    def put(stack: Params, tree: Params, i: int) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                put(stack[k], v, i)
+            else:
+                stack[k][i].copy_(v)
+
+    stack = alloc(first)
+    put(stack, first, 0)
+    del first
+    for i in range(1, n):
+        put(stack, init_fn(), i)
+    return stack
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -113,19 +133,34 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# decoder-only transformer family (dense / vlm)
+# decoder-only transformer family (dense / moe / vlm)
 # ---------------------------------------------------------------------------
+
+def dense_layers(cfg: ModelConfig) -> int:
+    """How many first layers are dense (``params["dense0"]``): JAX reads
+    ``first_dense_layers`` only in a config with experts, and draws one
+    ``dense0`` block for any nonzero count."""
+    return cfg.first_dense_layers if cfg.moe_num_experts else 0
+
 
 def init_decoder_params(gen: torch.Generator, cfg: ModelConfig,
                         device=None) -> Params:
-    """The JAX package's decoder-only tree: ``embed``, ``final_norm`` and
-    the stacked ``layers``.  Each tensor is drawn on the CPU and moved to
-    ``device`` before the next is drawn; ``device="meta"`` draws nothing."""
+    """The JAX package's decoder-only tree: ``embed``, ``final_norm``, the
+    separate ``lm_head`` when untied, ``dense0`` (a gated-MLP block) when
+    the config has dense first layers, and the stacked ``layers`` (MoE
+    blocks when the config has experts).  Each tensor is drawn on the CPU
+    and moved to ``device`` before the next is drawn; ``device="meta"``
+    draws nothing."""
     _, pdt = _dt(cfg)
+    n_dense = dense_layers(cfg)
     p = _init_embed(gen, cfg, pdt, device)
+    if n_dense:
+        p["dense0"] = B.init_attn_block(gen, cfg, pdt, device=device)
     p["layers"] = _stack_init(
-        lambda: B.init_attn_block(gen, cfg, pdt, device=device),
-        cfg.num_layers)
+        lambda: B.init_attn_block(gen, cfg, pdt,
+                                  use_moe=cfg.moe_num_experts > 0,
+                                  device=device),
+        cfg.num_layers - n_dense)
     return p
 
 
@@ -160,29 +195,57 @@ class DecoderLM(nn.Module):
 def decoder_forward(model: DecoderLM, batch: dict[str, torch.Tensor]
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence forward (prefill): ``batch["tokens"]`` (B, S) →
-    (f32 logits (B, S, vocab), aux)."""
+    (f32 logits (B, S, vocab), aux: the sum of the MoE layers' load-balance
+    losses, 0 without experts).
+
+    With ``cfg.num_prefix_tokens`` and ``batch["prefix_embed"]`` (B, P, d),
+    the prefix goes in front of the token embeddings, positions run over
+    all P + S, the causal mask lets the tokens see it, and its P rows are
+    cut from the output.  ``dense0`` runs first, with no window; the
+    stacked layers take the windows of layers ``n_dense`` on."""
     cfg, params = model.cfg, model.params
     dt, _ = _dt(cfg)
+    n_dense = dense_layers(cfg)
     tokens = batch["tokens"].to(params["embed"].device)
     x = _embed(params, cfg, tokens).to(dt)
-    Btch, S = tokens.shape
+    n_prefix = 0
+    if cfg.num_prefix_tokens and "prefix_embed" in batch:
+        pfx = batch["prefix_embed"].to(device=x.device, dtype=dt)
+        n_prefix = pfx.shape[1]
+        x = torch.cat([pfx, x], dim=1)
+    Btch, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(Btch, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
+    if n_dense:
+        x, a = B.attn_block(params["dense0"], x, cfg, positions=positions,
+                            window=0)
+        aux = aux + a
+    for i in range(cfg.num_layers - n_dense):
         x, a = B.attn_block(_layer(params["layers"], i), x, cfg,
                             positions=positions,
-                            window=cfg.window_for_layer(i))
+                            window=cfg.window_for_layer(n_dense + i))
         aux = aux + a
+    if n_prefix:
+        x = x[:, n_prefix:]
     return _head(params, cfg, x), aux
 
 
 def decoder_init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                        device) -> Params:
+    """``layers``: the KV cache stacked over the stacked layers, and
+    ``dense0``'s own; ``max_len + num_prefix_tokens`` rows each, as in
+    JAX."""
     dt, _ = _dt(cfg)
-    c = B.init_attn_cache(cfg, batch_size, max_len, dt, device)
-    n = cfg.num_layers
-    return {"layers": {k: v[None].repeat(n, *[1] * v.dim())
-                       for k, v in c.items()}}
+    n_dense = dense_layers(cfg)
+    total = max_len + cfg.num_prefix_tokens
+    c = B.init_attn_cache(cfg, batch_size, total, dt, device)
+    n = cfg.num_layers - n_dense
+    cache = {"layers": {k: v[None].repeat(n, *[1] * v.dim())
+                        for k, v in c.items()}}
+    if n_dense:
+        cache["dense0"] = B.init_attn_cache(cfg, batch_size, total, dt,
+                                            device)
+    return cache
 
 
 def decoder_decode_step(model: DecoderLM, cache: Params,
@@ -192,13 +255,17 @@ def decoder_decode_step(model: DecoderLM, cache: Params,
     cache).  The cache is updated in place and returned."""
     cfg, params = model.cfg, model.params
     dt, _ = _dt(cfg)
+    n_dense = dense_layers(cfg)
     index = int(index)
     x = _embed(params, cfg, tokens.to(params["embed"].device)).to(dt)
+    if n_dense:
+        x, _, _ = B.attn_block_decode(params["dense0"], cache["dense0"], x,
+                                      cfg, index=index)
     ks, vs = cache["layers"]["k"], cache["layers"]["v"]
-    for i in range(cfg.num_layers):
+    for i in range(cfg.num_layers - n_dense):
         x, _, _ = B.attn_block_decode(
             _layer(params["layers"], i), {"k": ks[i], "v": vs[i]}, x, cfg,
-            index=index, window=cfg.window_for_layer(i))
+            index=index, window=cfg.window_for_layer(n_dense + i))
     return _head(params, cfg, x), cache
 
 
@@ -436,7 +503,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     if cfg.family == "cnn":
         from repro_torch.models.resnet import build_resnet_model
         return build_resnet_model(cfg, device)
-    if cfg.family in ("dense", "vlm") and not cfg.moe_num_experts:
+    if cfg.family in ("dense", "moe", "vlm"):
         return _build_lm(cfg, device, DecoderLM, decoder_forward,
                          decoder_init_cache, decoder_decode_step)
     if cfg.family == "hybrid":
@@ -453,9 +520,6 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             "builds the ssm family as xLSTM only (ROADMAP queue 1 item 11), "
             "which needs xlstm_slstm_every > 0 (an sLSTM block every that "
             "many layers)")
-    item = {"moe": "item 9 (models/moe.py)",
-            "dense": "item 9 (models/moe.py)",
-            "audio": "item 9 (_build_encdec)"}
     raise NotImplementedError(
-        f"family {cfg.family!r} with {cfg.moe_num_experts} experts is not "
-        f"ported yet: ROADMAP queue 1 {item.get(cfg.family, 'item 9')}")
+        f"family {cfg.family!r} is not ported yet: whisper's encoder-decoder "
+        f"comes with the next slice, ROADMAP queue 1 item 9 (_build_encdec)")

@@ -1,13 +1,14 @@
 """The residual blocks of the LMs, as in the JAX package's
-``repro.models.blocks``: the attention (+ gated MLP) block of the
+``repro.models.blocks``: the attention (+ gated MLP or MoE) block of the
 decoder-only LM and of the hybrid, with per-layer init, full-sequence
 forward and one-token decode against a KV cache (pre-norm residual, with
 gemma2's post-norms ``ln1_post``, ``ln2_post`` when the config asks), and
 the pre-norm residuals around the hybrid's Mamba2 cell and xLSTM's mLSTM
 and sLSTM cells.
 
-The MoE FFN and cross-attention of the other block kinds are not ported
-(ROADMAP queue 1 item 9); asking for them raises ``NotImplementedError``.
+Cross-attention (the decoder block of the encoder-decoder) is not ported:
+it comes with whisper's slice, ROADMAP queue 1 item 9 (_build_encdec);
+asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,27 +18,30 @@ from typing import Any
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 
 Params = dict[str, Any]
 
-_NOT_PORTED = ("is not ported yet: ROADMAP queue 1 item 9 (models/moe.py "
-               "and _build_encdec)")
-
 
 def init_attn_block(gen: torch.Generator, cfg, dtype: torch.dtype, *,
                     use_moe: bool = False, cross: bool = False,
                     device=None) -> Params:
-    if use_moe or cross:
+    """The FFN is the MoE with ``use_moe``, else a gated MLP."""
+    if cross:
         raise NotImplementedError(
-            f"{'the MoE FFN' if use_moe else 'cross-attention'} {_NOT_PORTED}")
+            "cross-attention is not ported yet: it comes with whisper's "
+            "encoder-decoder, ROADMAP queue 1 item 9 (_build_encdec)")
     p: Params = {
         "ln1": L.init_rmsnorm(cfg.d_model, dtype, device),
         "attn": L.init_attention(gen, cfg, dtype, device),
         "ln2": L.init_rmsnorm(cfg.d_model, dtype, device),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if use_moe:
+        p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
     if cfg.post_attn_norm:
         p["ln1_post"] = L.init_rmsnorm(cfg.d_model, dtype, device)
     if cfg.post_mlp_norm:
@@ -48,7 +52,7 @@ def init_attn_block(gen: torch.Generator, cfg, dtype: torch.dtype, *,
 def _ffn(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
     if "moe" in p:
-        raise NotImplementedError(f"the MoE FFN {_NOT_PORTED}")
+        return MOE.moe_ffn(p["moe"], x, cfg)
     return L.mlp(p["mlp"], x, cfg.mlp_activation), \
         torch.zeros((), dtype=torch.float32, device=x.device)
 

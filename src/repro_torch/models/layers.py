@@ -187,8 +187,9 @@ def attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     and ``causal=True`` instead of a mask."""
     if kv_override is not None:
         raise NotImplementedError(
-            "cross-attention (kv_override) is not ported yet: ROADMAP "
-            "queue 1 item 9 (_build_encdec)")
+            "cross-attention (kv_override) is not ported yet: it comes with "
+            "whisper's encoder-decoder, ROADMAP queue 1 item 9 "
+            "(_build_encdec)")
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(B, S, h, hd)
@@ -215,12 +216,16 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def activate(g: torch.Tensor, activation: str) -> torch.Tensor:
+    """The gate's activation: SiLU, or GELU.  ``jax.nn.gelu`` is the tanh
+    approximation by default, so GeGLU here is ``F.gelu(approximate=
+    "tanh")``, not torch's exact-erf default."""
+    return F.silu(g) if activation == "silu" else F.gelu(g, approximate="tanh")
+
+
 def mlp(p: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
-    """``jax.nn.gelu`` is the tanh approximation by default, so GeGLU here
-    is ``F.gelu(approximate="tanh")``, not torch's exact-erf default."""
-    g = x @ p["w_gate"]
-    g = F.silu(g) if activation == "silu" else F.gelu(g, approximate="tanh")
-    return (g * (x @ p["w_up"])) @ p["w_down"]
+    return (activate(x @ p["w_gate"], activation) * (x @ p["w_up"])) \
+        @ p["w_down"]
 
 
 # --- conv/bn/pool for ResNet -------------------------------------------------

@@ -1,7 +1,8 @@
 """Carries parameters made by the JAX package into the port.
 
 The layouts are the same on both sides (HWIO conv weights, ``(d_in,
-d_out)`` dense weights, stacked decoder layers, hybrid and xLSTM units,
+d_out)`` dense weights, stacked decoder layers beside an unstacked
+``dense0``, ``(E, d_in, d_out)`` expert weights, hybrid and xLSTM units,
 nested dicts with the same keys), so this is a structured copy, checked key
 by key and shape by shape against the tree the port's own ``init`` makes on
 the ``meta`` device.
@@ -62,10 +63,11 @@ def params_from_jax(tree: dict[str, Any], device=None,
     """``tree``: the nested dict of arrays from the JAX package (numpy or
     anything ``np.asarray`` takes): ``repro.models.resnet.init_resnet18``'s
     when ``cfg`` is None or a CNN config, else the ``init`` of
-    ``repro.models.build_model(cfg)`` for the decoder-only, hybrid or
-    xLSTM ``cfg``.  Returns the same tree as tensors on ``device`` (default
-    ``cuda``) in the arrays' own dtypes; raises on a missing or extra key
-    or a wrong shape."""
+    ``repro.models.build_model(cfg)`` for the decoder-only (dense, MoE,
+    vlm), hybrid or xLSTM ``cfg``.  Returns the same tree as tensors on
+    ``device`` (default ``cuda``) in the arrays' own dtypes, so an MoE
+    tree's f32 ``router`` stays f32 beside bf16 experts; raises on a
+    missing or extra key or a wrong shape."""
     device = resolve_device(device)
     if cfg is None or cfg.family == "cnn":
         if not isinstance(tree, dict) or "fc_b" not in tree:

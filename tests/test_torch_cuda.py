@@ -153,6 +153,9 @@ def _held_against_plain(q, k, v, **kw):
     (4, 2, 52, 37, 16, False, 16, 0.0),       # the same, non-causal
     (8, 8, 200, 200, 80, True, 0, 0.0),       # zamba2 heads, ragged S
     (6, 3, 100, 77, 80, False, 0, 30.0),      # D = 80, GQA, ragged T
+    (8, 8, 200, 200, 96, True, 0, 0.0),       # phi3 heads, ragged S
+    (6, 3, 100, 77, 96, False, 0, 30.0),      # D = 96, GQA, ragged T
+    (8, 1, 130, 130, 128, True, 0, 0.0),      # qwen3's GQA 8:1 at D = 128
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, BH, BKV, S, T, D, causal,
                                     window, softcap):
@@ -167,6 +170,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, BH, BKV, S, T, D, causal,
     (4, 2, 129, 191, 32, False, 0, 0.0),
     (4, 2, 191, 129, 64, True, 0, 30.0),
     (4, 2, 129, 191, 80, True, 0, 0.0),
+    (4, 2, 191, 129, 96, True, 0, 0.0),
+    (4, 2, 129, 191, 96, False, 0, 50.0),
     (4, 2, 191, 129, 128, False, 0, 50.0),
     (4, 2, 129, 191, 256, True, 0, 50.0),
     (8, 8, 1, 1, 80, True, 0, 0.0),           # S = T = 1
@@ -175,6 +180,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, BH, BKV, S, T, D, causal,
     (16, 2, 300, 300, 256, True, 0, 50.0),    # group 8 at gemma2's D
     (8, 4, 512, 512, 256, True, 128, 50.0),   # window ends on a key tile
     (8, 4, 512, 512, 80, True, 256, 0.0),     # the same at 128-key tiles
+    (8, 4, 512, 512, 96, True, 256, 0.0),     # and at D = 96's
     (8, 4, 640, 640, 128, True, 192, 0.0),    # and on a query tile
     (4, 4, 300, 300, 80, True, 400, 0.0),     # window >= T
     (4, 2, 300, 300, 256, False, 512, 50.0),  # window >= T, non-causal
@@ -214,12 +220,14 @@ def test_flash_bf16_refuses_a_base_tma_cannot_take(cuda):
         FA.flash_attention_kernel(shifted, k, v)
 
 
-@pytest.mark.parametrize("name", ["gemma2-2b-smoke", "gemma2-2b"])
+@pytest.mark.parametrize("name", ["gemma2-2b-smoke", "gemma2-2b",
+                                  "deepseek-moe-16b-smoke", "phi3-mini-3.8b"])
 def test_forward_launches_once_per_layer_and_plain_none(cuda, name):
-    """One flash launch per layer in each forward; none under
-    ``ops.plain()``, whose logits agree with the kernel path's."""
+    """One flash launch per layer (deepseek's dense first layer included)
+    in each forward; none under ``ops.plain()``, whose logits agree with
+    the kernel path's."""
     cfg = get_config(name)
-    if name == "gemma2-2b":   # full width, cut to 2 layers to save time
+    if not name.endswith("-smoke"):   # full width, cut to 2 layers
         cfg = dataclasses.replace(cfg, num_layers=2)
     model = build_model(cfg)
     net = model.init(seed=0)

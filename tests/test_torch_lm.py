@@ -251,14 +251,35 @@ def test_lm_entry_points_need_a_card_unless_cpu(monkeypatch, entry):
     entry("cpu")
 
 
-@pytest.mark.parametrize("family,experts,item", [
-    ("moe", 4, "item 9"), ("dense", 4, "item 9"), ("audio", 0, "item 9"),
-    ("moe", 0, "item 9"),
-    ("ssm", 0, r"item 11\), which needs xlstm_slstm_every")])
-def test_unported_families_raise(family, experts, item):
-    cfg = ModelConfig(name="x", family=family, moe_num_experts=experts)
+@pytest.mark.parametrize("family,item", [
+    ("audio", r"item 9 \(_build_encdec\)"),
+    ("ssm", r"item 11\), which needs xlstm_slstm_every")])
+def test_unported_families_raise(family, item):
+    cfg = ModelConfig(name="x", family=family)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("family,experts", [("moe", 4), ("dense", 4),
+                                            ("moe", 0)])
+def test_decoder_families_build_and_run(family, experts):
+    """The decoder-only builder takes dense, moe and vlm with or without
+    experts, as JAX's ``build_model`` does: with experts every layer's FFN
+    is the MoE, without them a gated MLP."""
+    cfg = dataclasses.replace(get_config(ARCH), family=family,
+                              moe_num_experts=experts, moe_top_k=2,
+                              moe_d_ff=32)
+    model = build_model(cfg, device="cpu")
+    net = model.init(seed=0)
+    assert ("moe" in net.params["layers"]) == bool(experts)
+    toks = torch.randint(0, cfg.vocab_size, (2, 10),
+                         generator=torch.Generator().manual_seed(0))
+    logits, aux = model.forward(net, {"tokens": toks})
+    assert logits.shape == (2, 10, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and (aux.item() > 0) == bool(experts)
+    step, _ = model.decode_step(net, model.init_cache(2, 10), toks[:, :1], 0)
+    torch.testing.assert_close(step[:, 0], logits[:, 0], atol=2e-3,
+                               rtol=1e-3)
 
 
 def test_model_init_draws_from_seed():

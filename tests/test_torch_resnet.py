@@ -245,7 +245,7 @@ def test_other_families_not_ported():
                        match="ROADMAP.*needs xlstm_slstm_every"):
         build_model(ModelConfig(name="x", family="ssm"), device="cpu")
     with pytest.raises(KeyError):
-        get_config("qwen3-32b")
+        get_config("whisper-large-v3")
 
 
 # --- examples/resnet_pim_torch.py -----------------------------------------
