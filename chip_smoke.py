@@ -73,8 +73,9 @@ Phases, each of which raises (exit code 1) on failure:
    ``scaled_dot_product_attention`` (yardsticks the port never calls,
    without a softcap, so at softcap 50 they compute another function) with
    the boolean mask and, on the causal shapes without a window, with
-   ``is_causal=True``, which can reach a faster backend (``library_ms`` is
-   the faster of the two), and the bound; the prefill, with the flash
+   no mask and ``is_causal`` as the shape's (without a window), which can
+   reach a faster backend (``library_ms`` is the faster of the two), and
+   the bound; the prefill, with the flash
    kernel's share of device time and the idle share from torch.profiler;
    the decode step at batch 4, with its idle share.
 11. scan check: the SSD-scan (mamba_scan) kernel (``csrc/
@@ -185,7 +186,37 @@ Phases, each of which raises (exit code 1) on failure:
     GEMMs, the other GEMMs, the MoE's routing, dispatch and combine, and
     the rest, and the idle share; the decode step at batch 4 with its
     idle share; each beside the card's name and power limit.
-28. prints the ``kernels`` JSON line (all four kernels), 29. the final
+28. flash check at whisper-large-v3's heads (D=64, 20 query and 20 KV
+    heads, no softcap), with the limits of phase 7, each launch moving only
+    its dtype's route: bf16 at 4 clips, the encoder's bidirectional
+    S=T=1500 (a ragged key tile of 92), the cross-attention's S=448 against
+    T=1500 and the causal S=T=448; f32 at 1 clip, the first two.
+29. encoder-decoder forward: whisper-large-v3 at full width and depth (32
+    encoder and 32 decoder layers, d 1280, vocab 51866, bf16, random
+    weights from a seed) built through ``build_model`` runs ``forward`` on
+    4 clips of 1500 random frame embeddings (the conv frontend is a stub,
+    as in JAX) and 448 tokens; the logits are finite and of the right
+    shape, the forward made exactly 96 flash launches (32 encoder, 32
+    self, 32 cross), all on the tensor-core route, and it agrees with the
+    same forward under ``ops.plain()`` by the rule of phase 8 (every clip's
+    last position).
+30. encoder-decoder serve: 4 random clips through ``fill_cross_cache``
+    (exactly 32 flash launches), then 64 prompt and 32 greedy tokens
+    through ``decode_step`` (no launches); each first token is the argmax
+    of the forward on the same prompts and clips (same rule).
+31. timings: the forward with flash's share of device time and the idle
+    share, the decode step at batch 4.
+32. f32: the forward of phase 29 in f32 at full width and depth on one
+    clip, 96 launches on the CUDA-core route, held to TWIN_ATOL at every
+    position, and phase 30 in f32, its first tokens held wherever the
+    margin exceeds TWIN_ATOL (in bf16 the random logits' margins rarely
+    exceed 0.25); these carry the encoder-decoder's correctness.  Then
+    ``examples/serve_lm_torch.py`` on the card (gemma2-2b-smoke through
+    ``run_lockstep``, its first tokens equal to the forward's argmax).
+33. timings: per flash shape of phase 28 as in phase 10, the library call
+    being ``scaled_dot_product_attention`` with no mask and ``is_causal``
+    as the shape's, which computes the same function (no softcap).
+34. prints the ``kernels`` JSON line (all four kernels), 35. the final
 ``{"ok": true, ...}`` line.  The full record goes to
 ``build/chip_smoke.json``.
 
@@ -462,6 +493,29 @@ CONFIG_LAYERS = 2
 CONFIG_RUNS = [("phi3-mini-3.8b", 4096, 0), ("qwen3-32b", 4096, 0),
                ("minicpm-2b", 4096, 0), ("granite-moe-1b-a400m", 4096, 0),
                ("paligemma-3b", 512, 256)]
+
+# whisper-large-v3 serving: the encoder-decoder, and flash at D=64 in the
+# two regimes that no other path runs: bidirectional over 1500 frames, and
+# cross-attention with S != T.
+WHISPER_CONFIG = "whisper-large-v3"
+WHISPER_ROWS = 4          # clips (30 s of audio each) per bf16 forward
+WHISPER_TOKENS = 448      # whisper's decoder context (n_text_ctx)
+# (name, launches per bf16 forward, batch, S, causal, window, dtype, T) at
+# whisper's 20 query and 20 KV heads of 64, no softcap.  The bf16 forward
+# at 4 clips runs each of the first three once per layer: the encoder's
+# bidirectional attention over 1500 frames (11 key tiles of 128 and a
+# ragged 92), the decoder's cross-attention of 448 tokens to them (every
+# query tile walks all 12 key tiles) and its causal self-attention.  The
+# f32 forward at 1 clip runs the last two shapes once per layer each.
+WHISPER_FLASH_SHAPES = [
+    ("b4_s1500_enc_d64_bf16", 32, 4, 1500, False, 0, torch.bfloat16, 1500),
+    ("b4_s448_t1500_cross_d64_bf16", 32, 4, 448, False, 0, torch.bfloat16,
+     1500),
+    ("b4_s448_causal_d64_bf16", 32, 4, 448, True, 0, torch.bfloat16, 448),
+    ("b1_s1500_enc_d64_f32", 0, 1, 1500, False, 0, torch.float32, 1500),
+    ("b1_s448_t1500_cross_d64_f32", 0, 1, 448, False, 0, torch.float32,
+     1500),
+]
 
 # Distinct convs of ResNet18 at 224²: (name, launches per forward, input hw,
 # Cin, Cout, k, stride, padding, relu, residual).  Stage n's first block has
@@ -1093,20 +1147,26 @@ def halo_path(model: dict, smi: str) -> dict:
 
 # --- gemma2-2b serving: the flash-attention kernel and the LM path ---------------
 
+def key_len(shape) -> int:
+    """T of a flash shape: its optional eighth entry, else S."""
+    return shape[7] if len(shape) > 7 else shape[3]
+
+
 def flash_inputs(seed: int, shape, cfg):
-    _, _, b, s, _, _, dtype = shape
+    _, _, b, s, _, _, dtype = shape[:7]
     g = torch.Generator(device="cuda").manual_seed(seed)
     hd = cfg.resolved_head_dim
 
-    def randn(heads):
-        return torch.randn(b * heads, s, hd, generator=g,
+    def randn(heads, length):
+        return torch.randn(b * heads, length, hd, generator=g,
                            device="cuda").to(dtype)
-    return randn(cfg.num_heads), randn(cfg.num_kv_heads), \
-        randn(cfg.num_kv_heads)
+    t = key_len(shape)
+    return randn(cfg.num_heads, s), randn(cfg.num_kv_heads, t), \
+        randn(cfg.num_kv_heads, t)
 
 
 def flash_kw(shape, cfg) -> dict:
-    _, _, _, _, causal, window, _ = shape
+    _, _, _, _, causal, window, _ = shape[:7]
     return dict(causal=causal, window=window, softcap=cfg.attn_softcap)
 
 
@@ -1145,11 +1205,12 @@ def flash_check(cfg, shapes, seed: int) -> list[dict]:
           f"{FLASH_RTOL[torch.float32]} (f32), {FLASH_RTOL[torch.bfloat16]} "
           f"(bf16, half an ulp), inputs N(0, 1)")
     for i, shape in enumerate(shapes):
-        name, count, b, s, causal, window, _ = shape
+        name, count, b, s, causal, window, _ = shape[:7]
         q, k, v = flash_inputs(seed + i, shape, cfg)
         rows.append({**flash_held(name, q, k, v, flash_kw(shape, cfg)),
                      "per_forward": count, "batch": b, "S": s,
-                     "causal": causal, "window": window})
+                     "T": key_len(shape), "causal": causal,
+                     "window": window})
         del q, k, v
     return rows
 
@@ -1252,9 +1313,11 @@ def routing_report(cfg, run: list[dict], other: list[dict],
 
 def prefill_path(cfg, seq: int, expect: dict[str, int],
                  limit: float | None = PREFILL_ATOL,
-                 every_position: bool = False, prefix: int = 0) -> dict:
-    """``cfg`` at full width, random weights from SEED, one 1×``seq``
-    forward (after ``prefix`` random prefix embeddings) that launches
+                 every_position: bool = False, prefix: int = 0,
+                 rows: int = 1) -> dict:
+    """``cfg`` at full width, random weights from SEED, one ``rows``×``seq``
+    forward (after ``prefix`` random prefix embeddings; an encoder-decoder
+    also encodes ``encoder_seq_len`` random frames per row) that launches
     exactly ``expect`` of each kernel, held against the same forward under
     ``ops.plain()``: the logits within ``limit`` at the last position, or
     at ``every_position``, and top-1 equal wherever the plain margin
@@ -1271,20 +1334,29 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count(net.params)
-    print(f"[prefill] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+    n_bytes = sum(t.nbytes for t in net.buffers())
+    enc = (f"{cfg.encoder_layers} encoder layers over "
+           f"{cfg.encoder_seq_len} frames + " if cfg.is_encoder_decoder
+           else "")
+    print(f"[prefill] {cfg.name}: {enc}{cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {cfg.param_dtype}: {n_params / 1e9:.3f} B "
-          f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
-          f"card; init from seed {SEED} in {init_s:.1f} s")
+          f"parameters ({n_params}), {n_bytes / 1e9:.3f} GB of weights, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; init "
+          f"from seed {SEED} in {init_s:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq),
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, seq),
                                      generator=g, device="cuda")}
     if prefix:
         batch["prefix_embed"] = torch.randn(
-            1, prefix, cfg.d_model, generator=g, device="cuda").to(
+            rows, prefix, cfg.d_model, generator=g, device="cuda").to(
                 getattr(torch, cfg.dtype))
-    want = (1, seq, cfg.vocab_size)
+    if cfg.is_encoder_decoder:
+        batch["enc_frames"] = torch.randn(
+            rows, cfg.encoder_seq_len, cfg.d_model, generator=g,
+            device="cuda").to(getattr(torch, cfg.dtype))
+    want = (rows, seq, cfg.vocab_size)
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -1296,7 +1368,7 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     check(tuple(logits.shape) == want, f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    top, _ = top2(logits[0])
+    top, _ = top2(logits)
 
     before = launch_counts()
     t0 = time.perf_counter()
@@ -1306,9 +1378,9 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     plain_s = time.perf_counter() - t0
     check(launch_counts() == before, "ops.plain() launched a kernel")
     check(tuple(plain.shape) == want, f"plain logits {tuple(plain.shape)}")
-    ref_top, ref_margin = top2(plain[0])
-    err_last = (logits[0, -1] - plain[0, -1]).abs().max().item()
-    err_all = max((logits[0, i:i + 512] - plain[0, i:i + 512]).abs().max()
+    ref_top, ref_margin = top2(plain)
+    err_last = (logits[:, -1] - plain[:, -1]).abs().max().item()
+    err_all = max((logits[:, i:i + 512] - plain[:, i:i + 512]).abs().max()
                   .item() for i in range(0, seq, 512))
     big = plain.abs().max().item()
     del logits, plain
@@ -1318,16 +1390,16 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     agree, n_sure = margin_agree(top, ref_top, ref_margin, margin)
     print(f"[prefill] {cfg.name} "
           + (f"{prefix} prefix embeddings + " if prefix else "")
-          + f"1x{seq}: launches {launches}, flash on "
+          + f"{rows}x{seq}: launches {launches}, flash on "
           f"{flash_route(cfg)}; peak "
           f"{peak_gb:.1f} GB; logits vs plain forward on the card "
           f"({plain_s:.1f} s): max_abs_err {err_last:.3e} at the last "
           f"position, {err_all:.3e} at any position ("
           + (f"limit {limit} {'at any' if every_position else 'at the last'}"
              f" position" if held else "printed, not held") +
-          f"), |logit| max {big:.3f}; top-1 equal at {n_sure}/{seq} positions "
-          f"with plain margin > {margin}: {agree}; top-1 equal at all "
-          f"positions: {int((top == ref_top).sum())}/{seq}")
+          f"), |logit| max {big:.3f}; top-1 equal at {n_sure}/{rows * seq} "
+          f"positions with plain margin > {margin}: {agree}; top-1 equal at "
+          f"all positions: {int((top == ref_top).sum())}/{rows * seq}")
     routing = (routing_report(cfg, routes, plain_routes, "plain")
                if routes else None)
     del routes, plain_routes
@@ -1336,11 +1408,12 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
         check(agree, "prefill top-1 differs from plain where the margin is "
               "clear")
     return {"model": model, "net": net, "batch": batch, "launches": launches,
-            "init_s": init_s, "params": n_params, "peak_gb": peak_gb,
+            "init_s": init_s, "params": n_params, "weight_bytes": n_bytes,
+            "peak_gb": peak_gb,
             "plain_forward_s": plain_s, "logits_max_abs_err": err,
             "last_position_err": err_last, "any_position_err": err_all,
             "limit": limit, "positions_checked": n_sure, "prefix": prefix,
-            "routing": routing}
+            "rows": rows, "routing": routing}
 
 
 def serve_path(cfg, lm: dict, expect: dict[str, int],
@@ -1431,12 +1504,13 @@ def flash_pairs(s: int, t: int, causal: bool, window: int) -> int:
 
 
 def flash_bounds(shape, cfg) -> dict:
-    _, _, b, s, causal, window, dtype = shape
+    _, _, b, s, causal, window, dtype = shape[:7]
+    t = key_len(shape)
     hd, bh, bkv = cfg.resolved_head_dim, b * cfg.num_heads, \
         b * cfg.num_kv_heads
     bf16 = dtype == torch.bfloat16
-    return roofline(4 * hd * bh * flash_pairs(s, s, causal, window),
-                    (2 if bf16 else 4) * hd * s * (2 * bh + 2 * bkv),
+    return roofline(4 * hd * bh * flash_pairs(s, t, causal, window),
+                    (2 if bf16 else 4) * hd * (2 * bh * s + 2 * bkv * t),
                     PEAK_BF16_OPS if bf16 else PEAK_F32_OPS)
 
 
@@ -1447,21 +1521,24 @@ def flash_timings(rows: list[dict], cfg, shapes, seed: int) -> None:
             f"computes another function" if cfg.attn_softcap else
             "the same function (no softcap)")
     print(f"[time] library = F.scaled_dot_product_attention with enable_gqa,"
-          f" timed with the same boolean mask and, on the causal shapes "
-          f"without a window, with is_causal=True (which can reach a faster "
-          f"backend); library_ms is the faster: {what}; a yardstick only, "
-          f"the port never calls it")
+          f" timed with the same boolean mask and, on the shapes without a "
+          f"window, with no mask and is_causal set as the shape's (which "
+          f"can reach a faster backend); library_ms is the faster: {what}; "
+          f"a yardstick only, the port never calls it")
     for i, (shape, row) in enumerate(zip(shapes, rows)):
-        _, _, b, s, causal, window, _ = shape
+        _, _, b, s, causal, window, _ = shape[:7]
+        t = key_len(shape)
         q, k, v = flash_inputs(seed + i, shape, cfg)
         kw = flash_kw(shape, cfg)
-        pos = torch.arange(s, device="cuda")
-        mask = torch.ones(s, s, dtype=torch.bool, device="cuda")
+        qpos = torch.arange(s, device="cuda")[:, None]
+        kpos = torch.arange(t, device="cuda")[None, :]
+        mask = torch.ones(s, t, dtype=torch.bool, device="cuda")
         if causal:
-            mask &= pos[None, :] <= pos[:, None]
+            mask &= kpos <= qpos
         if window:
-            mask &= pos[None, :] > pos[:, None] - window
-        q4, k4, v4 = (t.view(b, -1, s, t.shape[-1]) for t in (q, k, v))
+            mask &= kpos > qpos - window
+        q4 = q.view(b, -1, s, q.shape[-1])
+        k4, v4 = (x.view(b, -1, t, x.shape[-1]) for x in (k, v))
         iters = FLASH_BIG_ITERS if s >= 4096 else TIMING_ITERS
         row.update(flash_bounds(shape, cfg))
         row["ms"] = cuda_ms(lambda: flash_attention_kernel(q, k, v, **kw),
@@ -1471,20 +1548,21 @@ def flash_timings(rows: list[dict], cfg, shapes, seed: int) -> None:
         row["library_mask_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask, enable_gqa=True), iters=iters)
-        row["library_causal_ms"] = cuda_ms(
+        row["library_nomask_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, enable_gqa=True),
-            iters=iters) if causal and not window else None
-        row["library_ms"] = min(t for t in (row["library_mask_ms"],
-                                            row["library_causal_ms"])
-                                if t is not None)
-        causal_ms = (f"{row['library_causal_ms']:.4f}"
-                     if row["library_causal_ms"] is not None else "-")
+                q4, k4, v4, is_causal=causal, enable_gqa=True),
+            iters=iters) if not window else None
+        row["library_ms"] = min(x for x in (row["library_mask_ms"],
+                                            row["library_nomask_ms"])
+                                if x is not None)
+        nomask_ms = (f"{row['library_nomask_ms']:.4f}"
+                     if row["library_nomask_ms"] is not None else "-")
         print(f"[time] {row['name']:27s} x{row['per_forward']:<2d} kernel "
               f"{row['ms']:.4f} ms ({row['ops'] / row['ms'] / 1e9:.1f} "
               f"TFLOP/s)  plain {row['plain_ms']:.4f}  library mask "
-              f"{row['library_mask_ms']:.4f} is_causal {causal_ms}  bound "
-              f"{row['bound_ms']:.4f} ({row['bound_by']})")
+              f"{row['library_mask_ms']:.4f} is_causal={causal} "
+              f"{nomask_ms}  bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']})")
         del q, k, v, q4, k4, v4, mask
 
 
@@ -1500,12 +1578,13 @@ def lm_timings(cfg, lm: dict, seq: int) -> dict:
     model, net, batch = lm["model"], lm["net"], lm["batch"]
     prefill_ms = cuda_ms(lambda: model.forward(net, batch), iters=3,
                          warmup=1)
+    rows = batch["tokens"].shape[0]
     cache = model.init_cache(SERVE_BATCH, PROMPT_LEN + NEW_TOKENS)
     tok = torch.zeros(SERVE_BATCH, 1, dtype=torch.long, device="cuda")
     decode_ms = cuda_ms(lambda: model.decode_step(net, cache, tok,
                                                   PROMPT_LEN), iters=10)
-    print(f"[time] {cfg.name} prefill 1x{seq}: {prefill_ms:.2f} ms "
-          f"({seq / prefill_ms * 1e3:.0f} tokens/s; CUDA events, mean "
+    print(f"[time] {cfg.name} prefill {rows}x{seq}: {prefill_ms:.2f} ms "
+          f"({rows * seq / prefill_ms * 1e3:.0f} tokens/s; CUDA events, mean "
           f"of 3); decode step at batch {SERVE_BATCH}: {decode_ms:.3f} ms "
           f"({SERVE_BATCH / decode_ms * 1e3:.1f} tokens/s; mean of 10)")
 
@@ -2021,6 +2100,137 @@ def decoder_lm_paths(smi: str) -> dict:
             "config_runs": config_runs}
 
 
+def encdec_serve_path(cfg, lm: dict, limit: float = PREFILL_ATOL) -> dict:
+    """The encoder-decoder's serving path, which ``run_lockstep`` does not
+    take (it never fills the cross cache, in JAX as in the port):
+    SERVE_BATCH random clips through ``encode`` and ``fill_cross_cache``
+    (one flash launch per encoder layer), then PROMPT_LEN prompt tokens and
+    NEW_TOKENS greedy ones through ``decode_step`` (no launches), as
+    tests/test_arch_smoke.py drives them; each first token equal to the
+    argmax of the forward on the same prompts and clips wherever its
+    margin exceeds ``limit``."""
+    model, net = lm["model"], lm["net"]
+    route = flash_route(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    frames = torch.randn(SERVE_BATCH, cfg.encoder_seq_len, cfg.d_model,
+                         generator=g, device="cuda").to(
+                             getattr(torch, cfg.dtype))
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN),
+                            generator=g, device="cuda")
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    cache = model.fill_cross_cache(
+        net, model.init_cache(SERVE_BATCH, PROMPT_LEN + NEW_TOKENS), frames)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fill_launches = check_launches({"flash_attention": cfg.encoder_layers},
+                                   f"{cfg.name} fill_cross_cache", route)
+    zero_launches()
+    t0 = time.perf_counter()
+    for t in range(PROMPT_LEN):
+        logits, cache = model.decode_step(net, cache, prompts[:, t:t + 1], t)
+    nxt, outs = logits[:, -1].argmax(dim=-1), []
+    for s_ in range(NEW_TOKENS):
+        outs.append(nxt)
+        logits, cache = model.decode_step(net, cache, nxt[:, None],
+                                          PROMPT_LEN + s_)
+        nxt = logits[:, -1].argmax(dim=-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check_launches({}, f"{cfg.name} decode steps")
+    tokens = torch.stack(outs, dim=1)
+    check(tokens.shape == (SERVE_BATCH, NEW_TOKENS) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+        "decoded token shape or range")
+    expect = {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers}
+    zero_launches()
+    logits, _ = model.forward(net, {"tokens": prompts, "enc_frames": frames})
+    torch.cuda.synchronize()
+    launches = check_launches(expect, f"{cfg.name} cross-check forward",
+                              route)
+    ref_top, ref_margin = top2(logits[:, -1])
+    del logits, cache
+    first = tokens[:, 0]
+    agree, n_sure = margin_agree(first, ref_top, ref_margin, limit)
+    print(f"[serve] {cfg.name}: {SERVE_BATCH} clips of "
+          f"{cfg.encoder_seq_len} frames through fill_cross_cache in "
+          f"{fill_s:.2f} s (launches {fill_launches}), then {PROMPT_LEN} "
+          f"prompt + {NEW_TOKENS} new tokens through decode_step in "
+          f"{decode_s:.2f} s (no launches); first tokens {first.tolist()} vs "
+          f"forward argmax {ref_top.tolist()} (margins "
+          f"{[round(m, 3) for m in ref_margin.tolist()]}): equal at "
+          f"{n_sure}/{SERVE_BATCH} clear positions: {agree}")
+    check(agree, "decode's first token differs from the forward's argmax")
+    return {"fill_cross_cache_s": fill_s, "fill_launches": fill_launches,
+            "serve_wall_s": decode_s, "serve_launches": launches,
+            "first_tokens": first.tolist(), "serve_positions_checked": n_sure,
+            "outputs": tokens.tolist()}
+
+
+def serve_example_path() -> dict:
+    """``examples/serve_lm_torch.py`` on the card: gemma2-2b-smoke through
+    ``run_lockstep``, its first tokens against the forward's argmax (the
+    script raises on a difference), its forward's flash launches on the
+    CUDA-core route (the smoke config is f32)."""
+    import importlib.util
+
+    from repro_torch.configs import get_config
+    path = ROOT / "examples" / "serve_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    layers = get_config("gemma2-2b-smoke").num_layers
+    zero_launches()
+    t0 = time.perf_counter()
+    mod.main([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = check_launches({"flash_attention": layers},
+                              "examples/serve_lm_torch.py", "simt_f32")
+    print(f"[example] examples/serve_lm_torch.py on the card in {secs:.1f} s"
+          f": launches {launches}")
+    return {"example_s": secs, "launches": launches}
+
+
+def whisper_paths(smi: str) -> dict:
+    """Phases 28-33: flash at whisper-large-v3's heads, its bf16 forward at
+    full width and depth on 4 clips, its serving, timings, the f32 forward
+    at full depth, and ``examples/serve_lm_torch.py``."""
+    from repro_torch.configs import get_config
+    wcfg = get_config(WHISPER_CONFIG)
+    w_expect = {"flash_attention": wcfg.encoder_layers + 2 * wcfg.num_layers}
+    w_flash_rows = flash_check(wcfg, WHISPER_FLASH_SHAPES, SEED + 800)
+    wlm = prefill_path(wcfg, WHISPER_TOKENS, w_expect, rows=WHISPER_ROWS)
+    w_served = encdec_serve_path(wcfg, wlm)
+    print(f"[time] {wcfg.name}, {smi}:")
+    w_times = lm_timings(wcfg, wlm, WHISPER_TOKENS)
+    del wlm["model"], wlm["net"], wlm["batch"]
+    torch.cuda.empty_cache()
+    # The same forward in f32 at full depth on one clip, held at every
+    # position, and its serving, held where the margin exceeds TWIN_ATOL
+    # (in bf16 the random logits' top-2 margins rarely exceed 0.25, so the
+    # bf16 serve check may hold no position): these carry the path's
+    # correctness.
+    w32cfg = dataclasses.replace(wcfg, name=f"{wcfg.name}-f32",
+                                 dtype="float32", param_dtype="float32")
+    w32lm = prefill_path(w32cfg, WHISPER_TOKENS, w_expect, limit=TWIN_ATOL,
+                         every_position=True)
+    w32 = lm_record(w32lm, encdec_serve_path(w32cfg, w32lm,
+                                             limit=TWIN_ATOL))
+    del w32lm
+    torch.cuda.empty_cache()
+    example = serve_example_path()
+    print(f"[time] flash at {wcfg.name}'s heads, {smi}:")
+    flash_timings(w_flash_rows, wcfg, WHISPER_FLASH_SHAPES, SEED + 800)
+    check(sum(r["per_forward"] for r in w_flash_rows)
+          == w_expect["flash_attention"],
+          "WHISPER_FLASH_SHAPES do not add up to one forward")
+    return {"wcfg": wcfg, "w32cfg": w32cfg, "wlm": wlm, "w_served": w_served,
+            "w_times": w_times, "w32": w32, "w_flash_rows": w_flash_rows,
+            "example": example}
+
+
 T0 = time.perf_counter()
 
 
@@ -2140,6 +2350,9 @@ def main() -> int:
     mcfg, pcfg, mlm, m_times = d["mcfg"], d["pcfg"], d["mlm"], d["m_times"]
     m_flash_rows, p_flash_rows = d["m_flash_rows"], d["p_flash_rows"]
     q_flash_rows, config_runs = d["q_flash_rows"], d["config_runs"]
+    w = whisper_paths(smi)
+    wcfg, wlm, w_times = w["wcfg"], w["wlm"], w["w_times"]
+    w_flash_rows = w["w_flash_rows"]
 
     check(sum(r["per_forward"] for r in rows) == CONVS_PER_FORWARD,
           "CONV_SHAPES do not add up to one forward")
@@ -2171,6 +2384,7 @@ def main() -> int:
 
     h_flash = totals(h_flash_rows)
     m_flash, p_flash = totals(m_flash_rows), totals(p_flash_rows)
+    w_flash = totals(w_flash_rows)
     kernels = {"kernels": [{
         "name": "fused_conv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_conv_sm90.cu",
@@ -2201,7 +2415,7 @@ def main() -> int:
         "library_mask_ms": per_forward(flash_rows, "library_mask_ms"),
         "max_abs_err": max(r["max_abs_err"] for r in (
             flash_rows + dim_rows + h_flash_rows + m_flash_rows
-            + p_flash_rows + q_flash_rows)),
+            + p_flash_rows + q_flash_rows + w_flash_rows)),
         **totals(flash_rows),
         "times_are": f"sums over the {cfg.num_layers} launches of one "
                      f"1x{PREFILL_S} {cfg.name} prefill; per shape in "
@@ -2223,6 +2437,16 @@ def main() -> int:
                     "times_are": f"sums over the {CONFIG_LAYERS} launches "
                                  f"of one 1x4096 prefill cut to "
                                  f"{CONFIG_LAYERS} layers (D=96)"},
+        wcfg.name: {"launches": wlm["launches"]["flash_attention"],
+                    "f32_launches": w["w32"]["launches"]["flash_attention"],
+                    **w_flash, "library_mask_ms": per_forward(
+                        w_flash_rows, "library_mask_ms"),
+                    "times_are": f"sums over the "
+                                 f"{wlm['launches']['flash_attention']} "
+                                 f"launches of one {WHISPER_ROWS}x"
+                                 f"({wcfg.encoder_seq_len} frames + "
+                                 f"{WHISPER_TOKENS} tokens) bf16 forward "
+                                 f"(D=64)"},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan_sm90.cu",
@@ -2266,6 +2490,9 @@ def main() -> int:
               "qwen3_flash_shapes": q_flash_rows,
               mcfg.name: lm_record(mlm, d["m_served"], m_times),
               f"{mcfg.name}_f32_twin": d["m_twin"], "configs": config_runs,
+              "whisper_flash_shapes": w_flash_rows,
+              wcfg.name: lm_record(wlm, w["w_served"], w_times),
+              w["w32cfg"].name: w["w32"], "serve_lm_torch": w["example"],
               **kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -2289,6 +2516,10 @@ def main() -> int:
           f"{m_times['prefill_ms']:.2f} ms with flash_attention "
           f"{m_flash['ms']:.2f} ms; decode step "
           f"{m_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
+          f"{wcfg.name} forward {WHISPER_ROWS}x({wcfg.encoder_seq_len} "
+          f"frames + {WHISPER_TOKENS} tokens) {w_times['prefill_ms']:.2f} ms "
+          f"with flash_attention {w_flash['ms']:.2f} ms; decode step "
+          f"{w_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
           f"script {time.perf_counter() - T0:.0f} s")
     print(smi)
     print(json.dumps(kernels))

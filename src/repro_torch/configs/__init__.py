@@ -1,7 +1,7 @@
 """Model configurations of the port: its own copy of the ``ModelConfig``
 fields the ported paths read, and ``get_config`` for the configs it serves
-(``resnet18`` and every LM of the JAX registry but ``whisper-large-v3``,
-with their ``-smoke`` reductions)."""
+(``resnet18`` and every model of the JAX registry, whisper-large-v3's
+encoder-decoder included, with their ``-smoke`` reductions)."""
 
 from repro_torch.configs.base import ModelConfig, get_config
 

@@ -1,8 +1,9 @@
 """The fields of ``ModelConfig`` that the ported paths read (the ResNet18
 CNN, the decoder-only LM with its dense, MoE and VLM-prefix forms, the
-Mamba2 hybrid and xLSTM), under the same names and with the same defaults
-as in the JAX package's config, plus ``get_config``.  The encoder-decoder
-fields and ``lr_schedule`` come with the code that reads them."""
+Mamba2 hybrid, xLSTM and the encoder-decoder), under the same names and
+with the same defaults as in the JAX package's config, plus
+``get_config``.  ``lr_schedule`` comes with the training code that reads
+it."""
 
 from __future__ import annotations
 
@@ -65,6 +66,11 @@ class ModelConfig:
     # --- xLSTM ---
     xlstm_slstm_every: int = 0        # an sLSTM block every N layers (else mLSTM)
 
+    # --- encoder-decoder (whisper) ---
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq_len: int = 0          # precomputed frame embeddings (stub)
+
     # --- norm/numerics ---
     norm_eps: float = 1e-6
     dtype: str = "float32"            # activation/computation dtype
@@ -108,6 +114,8 @@ class ModelConfig:
             small.update(hybrid_attn_every=2)
         if self.xlstm_slstm_every:
             small.update(xlstm_slstm_every=2)
+        if self.is_encoder_decoder:
+            small.update(encoder_layers=2, encoder_seq_len=16)
         if self.sliding_window:
             small.update(sliding_window=8)
         if self.num_prefix_tokens:
@@ -120,7 +128,8 @@ _MODULE_FOR = {name: "repro_torch.configs." + name.replace("-", "_")
                for name in ("resnet18", "gemma2-2b", "zamba2-2.7b",
                             "xlstm-1.3b", "deepseek-moe-16b",
                             "granite-moe-1b-a400m", "phi3-mini-3.8b",
-                            "qwen3-32b", "minicpm-2b", "paligemma-3b")}
+                            "qwen3-32b", "minicpm-2b", "paligemma-3b",
+                            "whisper-large-v3")}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -128,8 +137,6 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
         name, smoke = name[: -len("-smoke")], True
     if name not in _MODULE_FOR:
         raise KeyError(
-            f"no port of config {name!r}; the port serves {sorted(_MODULE_FOR)}"
-            " (whisper-large-v3 arrives with the encoder-decoder half of "
-            "ROADMAP queue 1, item 9)")
+            f"no port of config {name!r}; the port serves {sorted(_MODULE_FOR)}")
     cfg: ModelConfig = importlib.import_module(_MODULE_FOR[name]).CONFIG
     return cfg.smoke() if smoke else cfg

@@ -1,11 +1,13 @@
 """Model assembly: config → (init, forward, init_cache, decode_step), as in
-the JAX package.  The port serves the CNN family (``models/resnet.py``),
-the decoder-only transformer (dense, MoE with an optional dense first
-layer, and vlm with its stub prefix embeddings: gemma2-2b, phi3-mini-3.8b,
-qwen3-32b, minicpm-2b, granite-moe-1b-a400m, deepseek-moe-16b,
-paligemma-3b), the Mamba2 hybrid, zamba2, and xLSTM (the ``ssm`` family
-with sLSTM blocks), xlstm-1.3b; the encoder-decoder (whisper) comes with a
-later slice of the port.
+the JAX package.  The port serves every family of the JAX registry: the CNN
+(``models/resnet.py``), the decoder-only transformer (dense, MoE with an
+optional dense first layer, and vlm with its stub prefix embeddings:
+gemma2-2b, phi3-mini-3.8b, qwen3-32b, minicpm-2b, granite-moe-1b-a400m,
+deepseek-moe-16b, paligemma-3b), the Mamba2 hybrid, zamba2, xLSTM (the
+``ssm`` family with sLSTM blocks), xlstm-1.3b, and the encoder-decoder,
+whisper-large-v3, whose ``Model`` also carries ``encode`` and
+``fill_cross_cache``.  ``build_model`` dispatches as JAX's does: any
+family that no earlier branch takes is built as a decoder-only LM.
 
 Layer stacks are STACKED as in JAX: every leaf of the decoder's
 ``params["layers"]`` has a leading axis of ``num_layers`` less the dense
@@ -18,8 +20,11 @@ handing each decoder layer its own sliding window
 (``cfg.window_for_layer``).  ``forward`` is the prefill, whose every
 self-attention runs through ``ops.flash_attention``, every Mamba2 scan
 through ``ops.mamba_scan`` and every mLSTM recurrence through
-``ops.mlstm_scan``; ``decode_step`` is the one-token serving path against
-a pre-allocated KV/state cache, which it updates in place.
+``ops.mlstm_scan``, and the encoder-decoder's stacks (``params["enc"]``,
+``params["dec"]``) run the encoder's and the cross-attention's
+bidirectional attention through ``ops.flash_attention`` too;
+``decode_step`` is the one-token serving path against a pre-allocated
+KV/state cache, which it updates in place.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ class Model:
     forward: Callable[..., tuple[torch.Tensor, torch.Tensor]]
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Any]
+    # the encoder-decoder's two extra entry points (None for other families)
+    encode: Callable[..., torch.Tensor] | None = None
+    fill_cross_cache: Callable[..., Any] | None = None
 
 
 def _dt(cfg: ModelConfig) -> tuple[torch.dtype, torch.dtype]:
@@ -87,6 +95,22 @@ def _layer(tree: Params, i: int) -> Params:
     """Layer ``i`` of a stacked tree, as views."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _sinusoid(seq: int, dim: int, dtype: torch.dtype,
+              device=None) -> torch.Tensor:
+    """(seq, dim) sinusoidal positions, sin in the even columns and cos in
+    the odd ones, computed in f32 as JAX computes them (``div`` as
+    ``exp(arange(0, dim, 2) * (-log(10000) / dim))``) and cast to
+    ``dtype``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
 
 
 def param_count(params: Params) -> int:
@@ -478,14 +502,149 @@ def xlstm_decode_step(model: XLSTMLM, cache: Params, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# encoder-decoder (whisper backbone; conv frontend stubbed)
+# ---------------------------------------------------------------------------
+
+def init_encdec_params(gen: torch.Generator, cfg: ModelConfig,
+                       device=None) -> Params:
+    """The JAX package's encoder-decoder tree: ``embed``, ``final_norm``,
+    ``enc`` (attention blocks stacked over ``encoder_layers``),
+    ``enc_norm`` and ``dec`` (blocks with cross-attention, stacked over
+    ``num_layers``).  Each tensor is drawn on the CPU and moved to
+    ``device`` before the next is drawn; ``device="meta"`` draws
+    nothing."""
+    _, pdt = _dt(cfg)
+    p = _init_embed(gen, cfg, pdt, device)
+    p["enc"] = _stack_init(
+        lambda: B.init_attn_block(gen, cfg, pdt, device=device),
+        cfg.encoder_layers)
+    p["enc_norm"] = L.init_rmsnorm(cfg.d_model, pdt, device)
+    p["dec"] = _stack_init(
+        lambda: B.init_attn_block(gen, cfg, pdt, cross=True, device=device),
+        cfg.num_layers)
+    return p
+
+
+class EncDecLM(DecoderLM):
+    """Holds an encoder-decoder's parameter tree (whisper-large-v3), as
+    ``DecoderLM`` holds a decoder's: buffers with the JAX package's keys
+    and stacked layout, drawn from ``seed`` unless ``params`` is given."""
+
+    init_params = staticmethod(init_encdec_params)
+
+    def forward(self, tokens: torch.Tensor,
+                frames: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S), frames: (B, F, d) → f32 logits (B, S, vocab)."""
+        return encdec_forward(self, {"tokens": tokens,
+                                     "enc_frames": frames})[0]
+
+
+def encdec_encode(model: EncDecLM, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, F, d) precomputed frame embeddings (the conv frontend
+    is a stub, as in JAX) → the encoder's output (B, F, d).  The frames are
+    cast to the activation dtype and then added to the sinusoid in that
+    dtype, in JAX's order; every encoder layer attends bidirectionally
+    (one non-causal ``ops.flash_attention`` each), then ``enc_norm``."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    dev = params["embed"].device
+    x = frames.to(device=dev, dtype=dt)
+    Btch, F, _ = x.shape
+    x = x + _sinusoid(F, cfg.d_model, dt, dev)[None]
+    positions = torch.arange(F, device=dev).expand(Btch, F)
+    for i in range(cfg.encoder_layers):
+        x, _ = B.attn_block(_layer(params["enc"], i), x, cfg,
+                            positions=positions, window=0, causal=False)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def encdec_forward(model: EncDecLM, batch: dict[str, torch.Tensor]
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence forward: ``batch["enc_frames"]`` (B, F, d) through
+    the encoder, then ``batch["tokens"]`` (B, S) with sinusoidal positions
+    through the decoder, each layer's causal self-attention and its
+    cross-attention to all F encoder rows one flash launch each →
+    (f32 logits (B, S, vocab), aux = 0)."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    enc_out = encdec_encode(model, batch["enc_frames"])
+    tokens = batch["tokens"].to(params["embed"].device)
+    Btch, S = tokens.shape
+    x = _embed(params, cfg, tokens).to(dt)
+    x = x + _sinusoid(S, cfg.d_model, dt, x.device)[None]
+    positions = torch.arange(S, device=x.device).expand(Btch, S)
+    for i in range(cfg.num_layers):
+        x, _ = B.attn_block(_layer(params["dec"], i), x, cfg,
+                            positions=positions, window=0, enc_out=enc_out)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, cfg, x), aux
+
+
+def encdec_init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+                      device) -> Params:
+    """``dec``: the self-attention's ``k``, ``v`` (``max_len`` rows) and the
+    cross-attention's ``xk``, ``xv`` (``encoder_seq_len`` rows, zeros until
+    ``fill_cross_cache``), stacked over the decoder layers."""
+    dt, _ = _dt(cfg)
+    c = B.init_attn_cache(cfg, batch_size, max_len, dt, device,
+                          cross_len=cfg.encoder_seq_len)
+    return {"dec": {k: v[None].repeat(cfg.num_layers, *[1] * v.dim())
+                    for k, v in c.items()}}
+
+
+def encdec_fill_cross_cache(model: EncDecLM, cache: Params,
+                            frames: torch.Tensor) -> Params:
+    """Encodes ``frames`` (B, F, d) and puts each decoder layer's cross
+    keys and values (``enc_out @ wk``, ``enc_out @ wv``, no norm, as in
+    JAX) in ``cache["dec"]["xk"]``, ``["xv"]``, replacing what was there,
+    as JAX does: F need not be ``encoder_seq_len``.  Returns the cache."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    enc_out = encdec_encode(model, frames)
+    Btch, F, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    xk = enc_out.new_empty((cfg.num_layers, Btch, F, kv, hd), dtype=dt)
+    xv = torch.empty_like(xk)
+    for i in range(cfg.num_layers):
+        xa = _layer(params["dec"], i)["xattn"]
+        xk[i] = (enc_out @ xa["wk"]).reshape(Btch, F, kv, hd)
+        xv[i] = (enc_out @ xa["wv"]).reshape(Btch, F, kv, hd)
+    cache["dec"]["xk"], cache["dec"]["xv"] = xk, xv
+    return cache
+
+
+def encdec_decode_step(model: EncDecLM, cache: Params, tokens: torch.Tensor,
+                       index: int) -> tuple[torch.Tensor, Params]:
+    """tokens: (B, 1) at position ``index`` → (f32 logits (B, 1, vocab),
+    cache).  The position embedding is row ``index`` of the sinusoid over
+    the cache's length; each layer attends to its cached keys and to the
+    cross cache, through the plain ``attention_scores`` (no kernel
+    launches).  The cache is updated in place and returned."""
+    cfg, params = model.cfg, model.params
+    dt, _ = _dt(cfg)
+    index = int(index)
+    dec = cache["dec"]
+    x = _embed(params, cfg, tokens.to(params["embed"].device)).to(dt)
+    x = x + _sinusoid(dec["k"].shape[2], cfg.d_model, dt, x.device)[index]
+    for i in range(cfg.num_layers):
+        x, _, _ = B.attn_block_decode(
+            _layer(params["dec"], i), {n: dec[n][i] for n in
+                                       ("k", "v", "xk", "xv")},
+            x, cfg, index=index)
+    return _head(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
 def _build_lm(cfg: ModelConfig, device, lm_cls: type[DecoderLM],
               forward: Callable, init_cache: Callable,
-              decode_step: Callable) -> Model:
+              decode_step: Callable, **extra: Callable) -> Model:
     """The ``Model`` of an LM family: ``init(seed)`` draws an ``lm_cls``,
-    ``init_cache(batch_size, max_len)`` allocates on the model's device."""
+    ``init_cache(batch_size, max_len)`` allocates on the model's device;
+    ``extra`` sets the encoder-decoder's ``encode`` and
+    ``fill_cross_cache``."""
     device = resolve_device(device)
 
     def init(seed: int = 0) -> DecoderLM:
@@ -494,32 +653,39 @@ def _build_lm(cfg: ModelConfig, device, lm_cls: type[DecoderLM],
     def cache(batch_size: int, max_len: int) -> Params:
         return init_cache(cfg, batch_size, max_len, device)
 
-    return Model(cfg, device, init, forward, cache, decode_step)
+    return Model(cfg, device, init, forward, cache, decode_step, **extra)
+
+
+def lm_family(cfg: ModelConfig) -> tuple[type[DecoderLM], Callable,
+                                         Callable, Callable,
+                                         dict[str, Callable]]:
+    """The LM family JAX's ``build_model`` picks for a non-CNN ``cfg``, in
+    its order: the encoder-decoder, the hybrid, the ``ssm`` family with
+    sLSTM blocks (xLSTM), and any other config as a decoder-only LM.
+    Returns (module class, forward, init_cache, decode_step, the
+    encoder-decoder's extra entry points)."""
+    if cfg.is_encoder_decoder:
+        return EncDecLM, encdec_forward, encdec_init_cache, \
+            encdec_decode_step, {"encode": encdec_encode,
+                                 "fill_cross_cache": encdec_fill_cross_cache}
+    if cfg.family == "hybrid":
+        hybrid_units(cfg)
+        return HybridLM, hybrid_forward, hybrid_init_cache, \
+            hybrid_decode_step, {}
+    if cfg.family == "ssm" and cfg.xlstm_slstm_every:
+        xlstm_units(cfg)
+        return XLSTMLM, xlstm_forward, xlstm_init_cache, xlstm_decode_step, {}
+    return DecoderLM, decoder_forward, decoder_init_cache, \
+        decoder_decode_step, {}
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    """``device`` defaults to ``cuda`` and raises if no card is present;
-    ``device="cpu"`` runs the plain PyTorch path."""
+    """Dispatches as JAX's ``build_model`` does: the CNN, else the LM of
+    ``lm_family``.  ``device`` defaults to ``cuda`` and raises if no card
+    is present; ``device="cpu"`` runs the plain PyTorch path."""
     if cfg.family == "cnn":
         from repro_torch.models.resnet import build_resnet_model
         return build_resnet_model(cfg, device)
-    if cfg.family in ("dense", "moe", "vlm"):
-        return _build_lm(cfg, device, DecoderLM, decoder_forward,
-                         decoder_init_cache, decoder_decode_step)
-    if cfg.family == "hybrid":
-        hybrid_units(cfg)
-        return _build_lm(cfg, device, HybridLM, hybrid_forward,
-                         hybrid_init_cache, hybrid_decode_step)
-    if cfg.family == "ssm" and cfg.xlstm_slstm_every:
-        xlstm_units(cfg)
-        return _build_lm(cfg, device, XLSTMLM, xlstm_forward,
-                         xlstm_init_cache, xlstm_decode_step)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            "family 'ssm' without xlstm_slstm_every is not ported: the port "
-            "builds the ssm family as xLSTM only (ROADMAP queue 1 item 11), "
-            "which needs xlstm_slstm_every > 0 (an sLSTM block every that "
-            "many layers)")
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: whisper's encoder-decoder "
-        f"comes with the next slice, ROADMAP queue 1 item 9 (_build_encdec)")
+    lm_cls, forward, init_cache, decode_step, extra = lm_family(cfg)
+    return _build_lm(cfg, device, lm_cls, forward, init_cache, decode_step,
+                     **extra)

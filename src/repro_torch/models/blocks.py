@@ -2,13 +2,10 @@
 ``repro.models.blocks``: the attention (+ gated MLP or MoE) block of the
 decoder-only LM and of the hybrid, with per-layer init, full-sequence
 forward and one-token decode against a KV cache (pre-norm residual, with
-gemma2's post-norms ``ln1_post``, ``ln2_post`` when the config asks), and
-the pre-norm residuals around the hybrid's Mamba2 cell and xLSTM's mLSTM
-and sLSTM cells.
-
-Cross-attention (the decoder block of the encoder-decoder) is not ported:
-it comes with whisper's slice, ROADMAP queue 1 item 9 (_build_encdec);
-asking for it raises ``NotImplementedError``.
+gemma2's post-norms ``ln1_post``, ``ln2_post`` when the config asks), the
+encoder-decoder's bidirectional encoder block and its decoder block with
+cross-attention (``cross=True``), and the pre-norm residuals around the
+hybrid's Mamba2 cell and xLSTM's mLSTM and sLSTM cells.
 """
 
 from __future__ import annotations
@@ -28,16 +25,16 @@ Params = dict[str, Any]
 def init_attn_block(gen: torch.Generator, cfg, dtype: torch.dtype, *,
                     use_moe: bool = False, cross: bool = False,
                     device=None) -> Params:
-    """The FFN is the MoE with ``use_moe``, else a gated MLP."""
-    if cross:
-        raise NotImplementedError(
-            "cross-attention is not ported yet: it comes with whisper's "
-            "encoder-decoder, ROADMAP queue 1 item 9 (_build_encdec)")
+    """The FFN is the MoE with ``use_moe``, else a gated MLP; ``cross``
+    adds the decoder's cross-attention (``xattn``) and its norm (``ln_x``)."""
     p: Params = {
         "ln1": L.init_rmsnorm(cfg.d_model, dtype, device),
         "attn": L.init_attention(gen, cfg, dtype, device),
         "ln2": L.init_rmsnorm(cfg.d_model, dtype, device),
     }
+    if cross:
+        p["ln_x"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+        p["xattn"] = L.init_attention(gen, cfg, dtype, device)
     if use_moe:
         p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
     else:
@@ -58,14 +55,23 @@ def _ffn(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor,
 
 
 def attn_block(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-               window: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal attention block over (B, S, d) with the given
-    sliding ``window`` (0 = global).  Returns (x, aux_loss)."""
+               window: int, causal: bool = True,
+               enc_out: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence attention block over (B, S, d) with the given sliding
+    ``window`` (0 = global), causal unless ``causal=False`` (the encoder).
+    With ``enc_out`` (B, T, d), cross-attention to it (non-causal, over all
+    T) runs after self-attention and before the FFN, with no post-norm.
+    Returns (x, aux_loss)."""
     h = L.attention(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                    positions=positions, window=window)
+                    positions=positions, window=window, causal=causal)
     if "ln1_post" in p:
         h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
     x = x + h
+    if enc_out is not None:
+        x = x + L.attention(p["xattn"], L.rmsnorm(p["ln_x"], x, cfg.norm_eps),
+                            cfg, positions=positions, window=0, causal=False,
+                            kv_override=enc_out)
     h, aux = _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     if "ln2_post" in p:
         h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
@@ -75,12 +81,18 @@ def attn_block(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 # ---- decode with KV cache ----
 
 def init_attn_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
-                    device=None) -> Params:
+                    device=None, cross_len: int = 0) -> Params:
+    """``k``, ``v``: (batch, max_len, KV, hd) zeros; with ``cross_len``
+    also the cross-attention's ``xk``, ``xv``: (batch, cross_len, KV, hd)."""
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return {"k": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
-                             device=device)}
+
+    def zeros(length: int) -> torch.Tensor:
+        return torch.zeros((batch, length, kv, hd), dtype=dtype,
+                           device=device)
+    c = {"k": zeros(max_len), "v": zeros(max_len)}
+    if cross_len:
+        c["xk"], c["xv"] = zeros(cross_len), zeros(cross_len)
+    return c
 
 
 def attn_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg, *,
@@ -89,7 +101,10 @@ def attn_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg, *,
     this token's k and v into ``cache`` at ``index`` in place (the JAX
     version returns an updated copy) and attends, through the plain
     ``attention_scores``, to keys ``kpos <= index`` and, when
-    ``window > 0``, ``kpos > index - window``.  Returns (x, cache, aux)."""
+    ``window > 0``, ``kpos > index - window``.  With ``xk``/``xv`` in the
+    cache, cross-attention to them follows, also through the plain
+    ``attention_scores`` with an all-ones mask, as in JAX: a decode step
+    launches no kernel.  Returns (x, cache, aux)."""
     B = x.shape[0]
     kv, hd, h_ = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
     xin = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -115,6 +130,14 @@ def attn_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg, *,
     if "ln1_post" in p:
         h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
     x = x + h
+    if "xk" in cache:
+        xq = L.rmsnorm(p["ln_x"], x, cfg.norm_eps)
+        qx = (xq @ p["xattn"]["wq"]).reshape(B, 1, h_, hd)
+        xm = torch.ones((1, 1, cache["xk"].shape[1]), dtype=torch.bool,
+                        device=x.device)
+        hx = L.attention_scores(qx, cache["xk"], cache["xv"], xm,
+                                cfg.attn_softcap)
+        x = x + hx.reshape(B, 1, h_ * hd) @ p["xattn"]["wo"]
     h, aux = _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     if "ln2_post" in p:
         h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)

@@ -176,31 +176,34 @@ def causal_mask(S: int, T: int, q_offset: int = 0,
 
 
 def attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              window: int, kv_override=None) -> torch.Tensor:
-    """Full self-attention block (projections + scores) over the whole
+              window: int, causal: bool = True,
+              kv_override: torch.Tensor | None = None) -> torch.Tensor:
+    """Full attention block (projections + scores) over the whole
     sequence, through ``ops.flash_attention``.
 
     The JAX version takes a ``mask``; its decoder builds it as
     ``causal_mask(S, S) & _win_mask(S, window)``, which is exactly the
     kernel's ``k_pos <= q_pos`` and, when ``window > 0``,
-    ``k_pos > q_pos - window``.  So the port passes ``window`` (0 = global)
-    and ``causal=True`` instead of a mask."""
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override) is not ported yet: it comes with "
-            "whisper's encoder-decoder, ROADMAP queue 1 item 9 "
-            "(_build_encdec)")
+    ``k_pos > q_pos - window``, and its encoder and cross-attention pass
+    all-ones masks, which are ``causal=False`` with no window.  So the port
+    passes ``window`` (0 = global) and ``causal`` instead of a mask.
+
+    ``kv_override`` (B, T, d) feeds cross-attention: keys and values come
+    from it (``src @ wk``, ``src @ wv``, with its own length T), qk-norm
+    applies as to self-attention, and rope is skipped, as in JAX."""
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    src = x if kv_override is None else kv_override
     q = (x @ p["wq"]).reshape(B, S, h, hd)
-    k = (x @ p["wk"]).reshape(B, S, kv, hd)
-    v = (x @ p["wv"]).reshape(B, S, kv, hd)
+    k = (src @ p["wk"]).reshape(B, src.shape[1], kv, hd)
+    v = (src @ p["wv"]).reshape(B, src.shape[1], kv, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
+    if kv_override is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.attn_softcap)
     return out.reshape(B, S, h * hd) @ p["wo"]
 

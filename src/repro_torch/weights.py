@@ -3,9 +3,9 @@
 The layouts are the same on both sides (HWIO conv weights, ``(d_in,
 d_out)`` dense weights, stacked decoder layers beside an unstacked
 ``dense0``, ``(E, d_in, d_out)`` expert weights, hybrid and xLSTM units,
-nested dicts with the same keys), so this is a structured copy, checked key
-by key and shape by shape against the tree the port's own ``init`` makes on
-the ``meta`` device.
+stacked encoder and decoder layers, nested dicts with the same keys), so
+this is a structured copy, checked key by key and shape by shape against
+the tree the port's own ``init`` makes on the ``meta`` device.
 bf16 leaves (``ml_dtypes.bfloat16`` in numpy, which ``torch`` cannot take)
 are carried bit for bit through their 16-bit pattern.
 """
@@ -19,8 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import (init_decoder_params, init_hybrid_params,
-                                    init_xlstm_params)
+from repro_torch.models.api import lm_family
 from repro_torch.models.resnet import init_resnet18
 
 
@@ -63,21 +62,20 @@ def params_from_jax(tree: dict[str, Any], device=None,
     """``tree``: the nested dict of arrays from the JAX package (numpy or
     anything ``np.asarray`` takes): ``repro.models.resnet.init_resnet18``'s
     when ``cfg`` is None or a CNN config, else the ``init`` of
-    ``repro.models.build_model(cfg)`` for the decoder-only (dense, MoE,
-    vlm), hybrid or xLSTM ``cfg``.  Returns the same tree as tensors on
-    ``device`` (default ``cuda``) in the arrays' own dtypes, so an MoE
-    tree's f32 ``router`` stays f32 beside bf16 experts; raises on a
-    missing or extra key or a wrong shape."""
+    ``repro.models.build_model(cfg)``: the tree of the family that
+    ``models.api.lm_family`` picks, as that function picks it (the
+    encoder-decoder, hybrid or xLSTM tree, else the decoder-only one).
+    Returns the same tree as tensors on ``device`` (default ``cuda``) in
+    the arrays' own dtypes, so an MoE tree's f32 ``router`` stays f32
+    beside bf16 experts; raises on a missing or extra key or a wrong
+    shape."""
     device = resolve_device(device)
     if cfg is None or cfg.family == "cnn":
         if not isinstance(tree, dict) or "fc_b" not in tree:
             raise KeyError("params_from_jax: not a ResNet18 tree (no 'fc_b')")
         num_classes = int(np.asarray(tree["fc_b"]).shape[0])
         ref = init_resnet18(torch.Generator(), num_classes, device="meta")
-    elif cfg.family == "hybrid":
-        ref = init_hybrid_params(torch.Generator(), cfg, device="meta")
-    elif cfg.family == "ssm":
-        ref = init_xlstm_params(torch.Generator(), cfg, device="meta")
     else:
-        ref = init_decoder_params(torch.Generator(), cfg, device="meta")
+        ref = lm_family(cfg)[0].init_params(torch.Generator(), cfg,
+                                            device="meta")
     return _copy(tree, ref, device, "")

@@ -136,12 +136,28 @@ def test_attention_window_equals_jax_mask(window):
     _close(out, ref, atol=1e-5)
 
 
-def test_attention_refuses_cross_attention():
-    cfg = get_config("gemma2-2b-smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        L.attention({}, torch.zeros(1, 2, cfg.d_model), cfg,
-                    positions=torch.zeros(1, 2), window=0,
-                    kv_override=torch.zeros(1, 3, cfg.d_model))
+@pytest.mark.parametrize("name", ["gemma2-2b-smoke", "qwen3-32b-smoke"])
+def test_attention_cross_equals_jax(name):
+    """``attention(kv_override=src, causal=False)`` is JAX's cross-attention
+    (``kv_override=src`` with an all-ones mask) over T != S source rows: k
+    and v from the source, qk-norm where the config has it (qwen3), no
+    rope, the softcap where it has one (gemma2)."""
+    cfg, jcfg = get_config(name), jax_get_config(name)
+    tree = jax.tree.map(np.asarray, JL.init_attention(
+        jax.random.PRNGKey(2), jcfg, jnp.float32))
+    B, S, T = 2, 12, 7
+    x = _np(11, (B, S, cfg.d_model))
+    src = _np(12, (B, T, cfg.d_model))
+    pos = np.tile(np.arange(S), (B, 1))
+    ref = JL.attention(jax.tree.map(jnp.asarray, tree), jnp.asarray(x), jcfg,
+                       positions=jnp.asarray(pos),
+                       mask=jnp.ones((1, S, T), bool),
+                       kv_override=jnp.asarray(src))
+    out = L.attention({k: torch.from_numpy(v) for k, v in tree.items()},
+                      torch.from_numpy(x), cfg, positions=torch.from_numpy(pos),
+                      window=0, causal=False,
+                      kv_override=torch.from_numpy(src))
+    _close(out, ref, atol=1e-5)
 
 
 # --- the flash kernel's plain version ------------------------------------------

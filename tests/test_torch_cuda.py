@@ -191,6 +191,22 @@ def test_flash_bf16_kernel_edges_match_plain(cuda, BH, BKV, S, T, D, causal,
                         causal=causal, window=window, softcap=softcap)
 
 
+# whisper-large-v3's heads (20 of 64, 4 clips): the encoder's
+# bidirectional attention over 1500 frames (11 key tiles and a ragged 92),
+# the decoder's cross-attention of 448 tokens to them, and its causal
+# self-attention over 448.
+@pytest.mark.parametrize("S,T,causal,dtype", [
+    (1500, 1500, False, torch.bfloat16),
+    (448, 1500, False, torch.bfloat16),
+    (448, 448, True, torch.bfloat16),
+    (1500, 1500, False, torch.float32),
+    (448, 1500, False, torch.float32),
+])
+def test_flash_whisper_shapes_match_plain(cuda, S, T, causal, dtype):
+    _held_against_plain(*_qkv(cuda, 80, 80, S, T, 64, dtype), causal=causal,
+                        window=0, softcap=0.0)
+
+
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     q, k, v = _qkv(cuda, 4, 2, 8, 8, 32, torch.float32)
     with pytest.raises(TypeError):
@@ -248,6 +264,39 @@ def test_forward_launches_once_per_layer_and_plain_none(cuda, name):
     assert FA.launches == before
     atol = 1e-4 if cfg.dtype == "float32" else 0.25
     assert (logits - plain).abs().max().item() <= atol
+
+
+def test_whisper_smoke_forward_matches_cpu_plain(cuda):
+    """whisper-large-v3-smoke on the card, with the same weights as on the
+    CPU (drawn from one seed): one flash launch per encoder layer and two
+    per decoder layer (self and cross) in the forward, one per encoder
+    layer in ``fill_cross_cache``, none in a decode step; the forward's
+    logits and the decode step's against the CPU's plain path."""
+    cfg = get_config("whisper-large-v3-smoke")
+    model, cpu = build_model(cfg), build_model(cfg, device="cpu")
+    net, cpu_net = model.init(seed=0), cpu.init(seed=0)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
+    frames = torch.randn(2, cfg.encoder_seq_len, cfg.d_model, generator=g)
+    batch = {"tokens": toks.to(cuda), "enc_frames": frames.to(cuda)}
+    before = (FA.launches, FA.launches_by_kernel["simt_f32"])
+    logits, _ = model.forward(net, batch)
+    torch.cuda.synchronize()
+    per_forward = cfg.encoder_layers + 2 * cfg.num_layers
+    assert (FA.launches - before[0], FA.launches_by_kernel["simt_f32"]
+            - before[1]) == (per_forward, per_forward)
+    ref, _ = cpu.forward(cpu_net, {"tokens": toks, "enc_frames": frames})
+    assert (logits.cpu() - ref).abs().max().item() <= 1e-4
+    before = FA.launches
+    cache = model.fill_cross_cache(net, model.init_cache(2, 24), frames)
+    assert FA.launches - before == cfg.encoder_layers
+    before = FA.launches
+    step, _ = model.decode_step(net, cache, toks[:, :1], 0)
+    torch.cuda.synchronize()
+    assert FA.launches == before
+    cpu_cache = cpu.fill_cross_cache(cpu_net, cpu.init_cache(2, 24), frames)
+    ref_step, _ = cpu.decode_step(cpu_net, cpu_cache, toks[:, :1], 0)
+    assert (step.cpu() - ref_step).abs().max().item() <= 1e-4
 
 
 # --- mamba scan ------------------------------------------------------------------

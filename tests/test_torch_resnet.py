@@ -19,7 +19,7 @@ import torch
 from repro.core.graph import OpKind, build_resnet18
 from repro.models import resnet as JR
 from repro_torch import resolve_device
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import get_config
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
 from repro_torch.models import resnet as R
@@ -240,12 +240,14 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch, entry):
     entry("cpu")
 
 
-def test_other_families_not_ported():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*needs xlstm_slstm_every"):
-        build_model(ModelConfig(name="x", family="ssm"), device="cpu")
-    with pytest.raises(KeyError):
-        get_config("whisper-large-v3")
+def test_get_config_refuses_unknown_and_serves_whisper():
+    with pytest.raises(KeyError, match="no port of config"):
+        get_config("no-such-model")
+    cfg = get_config("whisper-large-v3")   # test_arch_smoke.py's dims
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.d_ff, cfg.vocab_size) == (32, 1280, 20, 20, 5120, 51866)
+    assert cfg.is_encoder_decoder and cfg.encoder_layers == 32
+    assert cfg.encoder_seq_len == 1500
 
 
 # --- examples/resnet_pim_torch.py -----------------------------------------
@@ -279,7 +281,8 @@ def test_example_needs_a_card_unless_cpu(monkeypatch):
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "xlstm_drift.py",
-        ROOT / "examples" / "resnet_pim_torch.py"]
+        ROOT / "examples" / "resnet_pim_torch.py",
+        ROOT / "examples" / "serve_lm_torch.py"]
 
 
 def _is_forbidden(module: str) -> bool:

@@ -17,13 +17,14 @@ from repro.kernels import ref as JREF
 from repro.kernels.mlstm_scan import mlstm_scan_kernel as pallas_mlstm
 from repro.models import build_model as jax_build_model
 from repro.models import xlstm as JXL
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import get_config
 from repro_torch.kernels import mlstm_scan as ML
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import mlstm_ref
 from repro_torch.models import build_model
 from repro_torch.models import xlstm as XL
-from repro_torch.models.api import XLSTMLM, init_xlstm_params, param_count
+from repro_torch.models.api import (XLSTMLM, DecoderLM, init_xlstm_params,
+                                    param_count)
 from repro_torch.serve import ServeEngine
 from repro_torch.weights import params_from_jax
 
@@ -403,12 +404,24 @@ def test_xlstm_needs_layers_that_tile_into_units():
         build_model(cfg, device="cpu")
 
 
-def test_ssm_without_slstm_blocks_is_refused():
-    """The port builds the ssm family as xLSTM only."""
-    cfg = ModelConfig(name="x", family="ssm", num_layers=4, d_model=64,
-                      num_heads=4)
-    with pytest.raises(NotImplementedError, match="xlstm_slstm_every"):
-        build_model(cfg, device="cpu")
+def test_ssm_without_slstm_blocks_builds_decoder_only():
+    """Without ``xlstm_slstm_every`` the ssm family is built, as JAX builds
+    it, as a decoder-only LM, and ``params_from_jax`` takes JAX's tree of
+    it; the forwards agree."""
+    cfg = dataclasses.replace(get_config(ARCH), xlstm_slstm_every=0)
+    jcfg = dataclasses.replace(jax_get_config(ARCH), xlstm_slstm_every=0)
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    assert "layers" in jp and "mlstm" not in jp
+    model = build_model(cfg, device="cpu")
+    net = DecoderLM(cfg, params=params_from_jax(
+        jax.tree.map(np.asarray, jp), "cpu", cfg), device="cpu")
+    assert type(model.init(seed=0)) is DecoderLM
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    ref, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    out, _ = model.forward(net, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
 
 
 # --- entry points --------------------------------------------------------------------
