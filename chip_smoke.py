@@ -216,7 +216,39 @@ Phases, each of which raises (exit code 1) on failure:
 33. timings: per flash shape of phase 28 as in phase 10, the library call
     being ``scaled_dot_product_attention`` with no mask and ``is_causal``
     as the shape's, which computes the same function (no softcap).
-34. prints the ``kernels`` JSON line (all four kernels), 35. the final
+34. flash gradient: dq, dk and dv through ``ops.flash_attention`` on a
+    tensor that needs a gradient (the kernel inside the ``FlashAttention``
+    autograd function, whose backward is the plain f32 gradient) against
+    autograd of the plain attention in f32 on the same values, at
+    minicpm-2b's 4x1024 with 36 heads of 64 (bf16 and f32), qwen3's GQA
+    64/8 at D=128 and gemma2's D=256 with window and softcap 50; each
+    element within 1e-5·max|ref| (f32) or half a bf16 ulp + 2e-5 (bf16);
+    the forward moves only its dtype's route, the backward launches none.
+35. training: minicpm-2b at full width and depth (40 layers, d 2304, 36
+    heads of 64, d_ff 5760, vocab 122753, tied embeddings, bf16, random
+    weights from a seed) takes 3 steps of ``make_train_step`` at 4x1024
+    (``batch_for_step``), AdamW lr 3e-4 under WSD, and one with remat:
+    exactly 40 flash launches a step on the tensor-core route (80 with
+    remat), finite loss and grad_norm, every leaf changed or its last
+    update under half a bf16 ulp of every weight (the norms' 1.0 weights
+    keep their bits at lr 3e-4), every leaf's gradient nonzero and finite;
+    the peak device memory is printed.
+36. f32 twin: minicpm-2b at full width cut to 2 layers in f32: one
+    gradient and one step through the kernel path and under
+    ``ops.plain()`` from the same state: loss within 1e-5 relative, every
+    gradient leaf within 1e-4·max|g_plain|, the new parameters within 2·lr
+    + 1e-6, every leaf changed.  This carries the training path's
+    correctness.
+37. restart: ``examples/train_lm_torch.py``'s default run (30 steps, a
+    checkpoint every 10) uninterrupted and with a ``TransientError`` at
+    step 12: per-step losses (the replayed step too) and the final state
+    bit-equal, the loss falls.
+38. timings (printed, not held): the step, tokens/s, the share of 6·N·
+    tokens at 989 TFLOP/s, forward, backward and optimizer apart; a
+    profiled step (flash's share, the attention backward's device time,
+    the idle share); the attention at one layer's shape against
+    ``scaled_dot_product_attention`` forward + backward with ``is_causal``.
+39. prints the ``kernels`` JSON line (all four kernels), 40. the final
 ``{"ok": true, ...}`` line.  The full record goes to
 ``build/chip_smoke.json``.
 
@@ -943,7 +975,7 @@ def device_breakdown(events, window_name: str, runs: int) -> dict | None:
                    for e in events   # annotations also show on the device
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.name != window_name
-                   and e.name not in MOE_RANGES.values())
+                   and e.name not in ANNOTATIONS)
     if not spans:
         return None
     busy, reach, by_name = 0.0, window.start, {}
@@ -1638,6 +1670,10 @@ def lm_timings(cfg, lm: dict, seq: int) -> dict:
 # The profiler ranges annotated_moe puts around the MoE's four steps.
 MOE_RANGES = {"route": "moe_route", "dispatch": "moe_dispatch",
               "experts": "moe_experts", "combine": "moe_combine"}
+# ... and annotated_attention_backward around the flash gradient; their
+# device-side copies are not kernels.
+FLASH_BACKWARD_RANGE = "flash_attention_backward"
+ANNOTATIONS = {*MOE_RANGES.values(), FLASH_BACKWARD_RANGE}
 
 
 @contextlib.contextmanager
@@ -2230,6 +2266,562 @@ def whisper_paths(smi: str) -> dict:
             "w_times": w_times, "w32": w32, "w_flash_rows": w_flash_rows,
             "example": example}
 
+# --- minicpm-2b training (phases 34-38) --------------------------------------
+
+TRAIN_CONFIG = "minicpm-2b"
+TRAIN_ROWS, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS = 3           # through make_train_step; then one more with remat
+TRAIN_LR = 3e-4
+# WSD with a 2-step warmup: lr 0.5, 1, 1, 1 × 3e-4 at steps 1-4, so that an
+# update moves a bf16 weight (the default 100-step warmup's 3e-6 would not)
+TRAIN_WARMUP, TRAIN_TOTAL = 2, 1000
+TRAIN_TWIN_LAYERS = 2
+TRAIN_LOSS_RTOL = 1e-5    # the twin's loss, kernel path vs ops.plain()
+TRAIN_GRAD_RTOL = 1e-4    # per gradient leaf, of max|g_plain|
+GRAD_F32_RTOL = 1e-5      # flash gradient, f32: of max|ref|
+# A bf16 weight keeps its bits when its update is under half an ulp below
+# it: 2^-9 of |p| (the spacing below a power of two is 2^-8 of it).
+BF16_HALF_ULP = 2.0**-9
+# The flash gradient against autograd of the plain attention in f32:
+# name, B, H, KV, S, T, D, causal, window, softcap, dtype.
+GRAD_SHAPES = [
+    ("minicpm_4x1024_bf16", 4, 36, 36, 1024, 1024, 64, True, 0, 0.0,
+     torch.bfloat16),
+    ("minicpm_4x1024_f32", 4, 36, 36, 1024, 1024, 64, True, 0, 0.0,
+     torch.float32),
+    ("qwen3_gqa64to8_S512_bf16", 1, 64, 8, 512, 512, 128, True, 0, 0.0,
+     torch.bfloat16),
+    ("gemma2_D256_win128_cap50_bf16", 1, 8, 4, 512, 512, 256, True, 128,
+     50.0, torch.bfloat16),
+]
+# examples/train_lm_torch.py's default run, and where the failure goes.
+RESTART_STEPS, RESTART_FAIL_AT = 30, 12
+
+
+def flash_grad_check(seed: int) -> list[dict]:
+    """Phase 34: dq, dk and dv through ``ops.flash_attention`` (the kernel
+    inside the ``FlashAttention`` autograd function) against autograd of the
+    plain attention in f32 on the same values; the forward moves only its
+    dtype's route and the backward launches nothing."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    print(f"[grad] limits, per element against autograd of the plain "
+          f"attention in f32 on the same values: f32 |got - ref| <= "
+          f"{GRAD_F32_RTOL}*max|ref|; bf16 |got - ref| <= "
+          f"{FLASH_RTOL[torch.bfloat16]}*|ref| + {FLASH_ATOL} (half a bf16 "
+          f"ulp)")
+    rows = []
+    for i, (name, B, H, KV, S, T, D, causal, window, softcap,
+            dtype) in enumerate(GRAD_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(seed + i)
+        q, k, v = (torch.randn(B, n, heads, D, generator=g, device="cuda")
+                   .to(dtype) for n, heads in ((S, H), (T, KV), (T, KV)))
+        do = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        route = "wgmma_bf16" if dtype == torch.bfloat16 else "simt_f32"
+        before = dict(FA.launches_by_kernel)
+        out = ops.flash_attention(*leaves, **kw)
+        out.backward(do)
+        torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in FA.launches_by_kernel.items()}
+        check(moved == {r: int(r == route) for r in moved},
+              f"{name}: flash launches by route moved {moved}, want one "
+              f"{route} (forward) and none in the backward")
+        refs = [t.float().requires_grad_() for t in (q, k, v)]
+        with ops.plain():
+            ops.flash_attention(*refs, **kw).backward(do.float())
+        errs, used = [], 0.0
+        for t, r in zip(leaves, refs):
+            check(t.grad.dtype == dtype and t.grad.shape == r.grad.shape,
+                  f"{name}: gradient {t.grad.dtype} {tuple(t.grad.shape)}")
+            err = (t.grad.float() - r.grad).abs()
+            errs.append(err.max().item())
+            lim = (GRAD_F32_RTOL * r.grad.abs().max() if dtype ==
+                   torch.float32 else FLASH_RTOL[dtype] * r.grad.abs()
+                   + FLASH_ATOL)
+            used = max(used, (err / lim).max().item())
+        print(f"[grad] {name:30s} {route}: max_abs_err dq {errs[0]:.3e} dk "
+              f"{errs[1]:.3e} dv {errs[2]:.3e}; limit used {used:.3f}")
+        check(used <= 1.0, f"{name}: flash gradient vs plain exceeds its "
+              f"limit {used:.3f}-fold")
+        rows.append({"name": name, "route": route, "B": B, "H": H, "KV": KV,
+                     "S": S, "T": T, "D": D, "causal": causal,
+                     "window": window, "softcap": softcap,
+                     "max_abs_err": max(errs), "limit_used": used})
+        del q, k, v, do, leaves, refs, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_setup(cfg):
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import TrainStepConfig
+    ts = TrainStepConfig(opt=AdamWConfig(lr=TRAIN_LR),
+                         schedule_warmup=TRAIN_WARMUP,
+                         schedule_total_steps=TRAIN_TOTAL)
+    return build_model(cfg), ts
+
+
+def below_half_ulp(state: dict, ts, lr: float, i: int) -> bool:
+    """Whether leaf ``i``'s last AdamW update, recomputed from the moments
+    the step left, is under half a bf16 ulp of every weight: then the bf16
+    weight keeps its bits although the update ran."""
+    from repro_torch import tree
+    step = state["opt"]["step"].float()
+    b1t, b2t = 1 - ts.opt.b1 ** step, 1 - ts.opt.b2 ** step
+    p = tree.leaves(state["params"])[i].detach().float()
+    m = tree.leaves(state["opt"]["m"])[i]
+    v = tree.leaves(state["opt"]["v"])[i]
+    delta = (m / b1t) / ((v / b2t).sqrt() + ts.opt.eps) \
+        + ts.opt.weight_decay * p
+    return bool(m.abs().max() > 0) and bool(
+        (lr * delta.abs() < BF16_HALF_ULP * p.abs()).all())
+
+
+def train_path(smi: str) -> dict:
+    """Phase 35: minicpm-2b at full width and depth in bf16 takes
+    TRAIN_STEPS steps of ``make_train_step`` at TRAIN_ROWS x TRAIN_SEQ and
+    one more with remat: each step exactly one flash launch per layer on
+    the tensor-core route (two with remat), loss and grad_norm finite;
+    every leaf changes, or its last update was under half a bf16 ulp of
+    every weight; every leaf gets a gradient of nonzero finite norm."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.models.api import param_count
+    from repro_torch.train.trainer import (init_train_state, make_grad_fn,
+                                           make_train_step)
+    cfg = get_config(TRAIN_CONFIG)
+    model, ts = train_setup(cfg)
+    t0 = time.perf_counter()
+    lm = model.init(seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(lm.params)
+    before = [p.detach().to("cpu", copy=True) for p in tree.leaves(lm.params)]
+    state = init_train_state(model, lm, ts)
+    check(all(a is b for a, b in zip(tree.leaves(model.bind(
+        state["params"]).params), tree.leaves(lm.params))),
+        "the train state does not hold the model's own tensors")
+    print(f"[train] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings, "
+          f"{cfg.param_dtype}: {n_params} parameters; init from seed {SEED} "
+          f"in {init_s:.1f} s; AdamW lr {TRAIN_LR}, {cfg.lr_schedule} "
+          f"schedule (warmup {TRAIN_WARMUP}, total {TRAIN_TOTAL}); batch "
+          f"{TRAIN_ROWS}x{TRAIN_SEQ} from batch_for_step")
+    torch.cuda.reset_peak_memory_stats()
+    steps, n_layers = [], cfg.num_layers
+    for s in range(TRAIN_STEPS + 1):
+        remat = s == TRAIN_STEPS
+        step_fn = make_train_step(model, dataclasses.replace(ts, remat=remat))
+        batch = batch_for_step(cfg, s, TRAIN_ROWS, TRAIN_SEQ)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = check_launches({"flash_attention":
+                                   (2 if remat else 1) * n_layers},
+                                  f"{cfg.name} train step {s}", "wgmma_bf16")
+        row = {"step": s, "remat": remat, "s": secs,
+               "launches": launches["flash_attention"],
+               **{k: float(metrics[k]) for k in ("loss", "aux_loss",
+                                                  "grad_norm", "lr")}}
+        print(f"[train] step {s}{' (remat)' if remat else ''}: loss "
+              f"{row['loss']:.4f}, grad_norm {row['grad_norm']:.4f}, lr "
+              f"{row['lr']:.3e}, {secs * 1e3:.1f} ms (host clock, first "
+              f"calls included), flash launches {row['launches']} on "
+              f"wgmma_bf16")
+        check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
+              f"step {s}: loss or grad_norm not finite")
+        steps.append(row)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] peak device memory over the steps "
+          f"(torch.cuda.max_memory_allocated): {peak_gb:.2f} GB")
+    moved, kept = 0, []
+    names = list(leaf_names(state["params"]))
+    for i, (old, new) in enumerate(zip(before, tree.leaves(state["params"]))):
+        if torch.equal(old, new.detach().cpu()):
+            kept.append(names[i])
+            check(below_half_ulp(state, ts, steps[-1]["lr"], i),
+                  f"{names[i]} kept its bits but its update was not below "
+                  f"half a bf16 ulp")
+        else:
+            moved += 1
+    del before
+    print(f"[train] leaves changed: {moved} of {moved + len(kept)}; kept "
+          f"their bf16 bits (every update under half an ulp, recomputed "
+          f"from the moments, which are nonzero): {kept}")
+    zero_launches()
+    loss, _, grads = make_grad_fn(model, ts)(state["params"], batch)
+    torch.cuda.synchronize()
+    check_launches({"flash_attention": n_layers}, f"{cfg.name} gradient",
+                   "wgmma_bf16")
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float32).item()
+             for g in tree.leaves(grads)]
+    del grads
+    check(all(math.isfinite(n) and n > 0 for n in norms),
+          "a leaf has a zero or non-finite gradient")
+    low = min(range(len(norms)), key=norms.__getitem__)
+    print(f"[train] every one of {len(norms)} leaves has a nonzero finite "
+          f"gradient; the smallest norm {norms[low]:.3e} ({names[low]})")
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "model": model, "ts": ts, "state": state,
+            "batch": batch, "params": n_params,
+            "record": {"init_s": init_s, "params": n_params,
+                       "steps": steps, "peak_gb": peak_gb,
+                       "leaves_changed": moved, "leaves_kept": kept,
+                       "grad_norm_min": norms[low]}}
+
+
+def leaf_names(params: dict, prefix: str = ""):
+    """The leaf paths of ``params``, in leaf order."""
+    for k in sorted(params):
+        if isinstance(params[k], dict):
+            yield from leaf_names(params[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k
+
+
+@contextlib.contextmanager
+def annotated_attention_backward():
+    """Wraps the flash gradient (``ref.attention_ref_grad``, which
+    ``FlashAttention.backward`` calls) in a profiler range."""
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import ref
+    grad = ref.attention_ref_grad
+
+    def annotated(*args, **kw):
+        with record_function(FLASH_BACKWARD_RANGE):
+            return grad(*args, **kw)
+    ref.attention_ref_grad = annotated
+    try:
+        yield
+    finally:
+        ref.attention_ref_grad = grad
+
+
+def train_timings(tp: dict, smi: str) -> dict:
+    """Phase 38, printed and not held: the step's time, tokens/s and its
+    share of the 6·N·tokens FLOPs at 989 TFLOP/s; forward, backward and
+    optimizer apart; one step under torch.profiler (flash's share of device
+    time, the attention backward's, the idle share); and the attention at
+    one layer's shape: the kernel, the autograd function's forward and
+    backward, the backward alone, the plain version and SDPA's forward
+    and backward with ``is_causal`` (a yardstick the port never calls; the
+    same function, as minicpm has no softcap)."""
+    from torch.profiler import ProfilerActivity, record_function
+
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref_grad
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.schedule import make_schedule
+    from repro_torch.train.trainer import make_loss_fn, make_train_step
+    cfg, model, ts, state, batch = (tp[k] for k in ("cfg", "model", "ts",
+                                                    "state", "batch"))
+    step_fn = make_train_step(model, ts)
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    step_ms = statistics.mean(secs) * 1e3
+    remat_fn = make_train_step(model, dataclasses.replace(ts, remat=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = remat_fn(state, batch)
+    torch.cuda.synchronize()
+    remat_ms = (time.perf_counter() - t0) * 1e3
+    model_flops = 6 * tp["params"] * tokens
+    mfu = model_flops / (step_ms / 1e3) / PEAK_BF16_OPS
+    schedule = make_schedule(cfg.lr_schedule, warmup=ts.schedule_warmup,
+                             total=ts.schedule_total_steps)
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = make_loss_fn(model)(state["params"], batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        leaves = tree.leaves(state["params"])
+        grads = tree.unflatten(state["params"], list(
+            torch.autograd.grad(loss, leaves)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state["params"], state["opt"], _ = adamw_update(
+            ts.opt, state["params"], grads, state["opt"],
+            schedule(state["opt"]["step"] + 1))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del loss, grads
+        for k, a, b in (("forward", t0, t1), ("backward", t1, t2),
+                        ("optimizer", t2, t3)):
+            parts[k].append((b - a) * 1e3)
+    parts_ms = {k: statistics.mean(v) for k, v in parts.items()}
+    # AdamW must read p and g (bf16) and m and v (f32) and write p, m, v:
+    # 22 bytes a parameter
+    opt_bound_ms = 22 * tp["params"] / PEAK_BYTES * 1e3
+    print(f"[time] {cfg.name} train step {TRAIN_ROWS}x{TRAIN_SEQ}, {smi}: "
+          f"{step_ms:.1f} ms (host clock around a synchronised step, mean of "
+          f"2), {tokens / step_ms * 1e3:.0f} tokens/s; 6*N*tokens = "
+          f"{model_flops:.3e} FLOP, {mfu:.3f} of {PEAK_BF16_OPS / 1e12:.0f} "
+          f"TFLOP/s; forward {parts_ms['forward']:.1f} ms, backward "
+          f"{parts_ms['backward']:.1f} ms, optimizer "
+          f"{parts_ms['optimizer']:.1f} ms (mean of 2 each; its bound "
+          f"{opt_bound_ms:.1f} ms, 22 bytes a parameter); with remat "
+          f"{remat_ms:.1f} ms (one step, after its first call)")
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"), annotated_attention_backward():
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+    events = prof.events()
+    prof_ = device_breakdown(events, "train_step", 1)
+    if prof_ is not None:
+        flash_us = sum(k["us"] for k in prof_["all_kernels"]
+                       if "flash_attention" in k["name"])
+        bwd_us = 0.0
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CPU or \
+                    not e.kernels:
+                continue
+            q = e
+            while q is not None and q.name != FLASH_BACKWARD_RANGE:
+                q = q.cpu_parent
+            if q is not None:
+                bwd_us += sum(k.duration for k in e.kernels)
+        busy = prof_["device_busy_us"]
+        prof_.update(flash_us=flash_us, flash_share_of_busy=flash_us / busy,
+                     attention_backward_us=bwd_us,
+                     attention_backward_share_of_busy=bwd_us / busy)
+        del prof_["all_kernels"]
+        print(f"[profile] train step: flash forward kernel "
+              f"{flash_us / 1e3:.2f} ms ({flash_us / busy:.3f} of "
+              f"{busy / 1e3:.1f} ms busy), the attention backward (plain, "
+              f"f32) {bwd_us / 1e3:.2f} ms ({bwd_us / busy:.3f}), idle share "
+              f"{prof_['idle_share']:.3f}")
+    else:
+        print("[profile] the profiler recorded no device time: not measured")
+    del events, prof
+
+    H, D = cfg.num_heads, cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED + 950)
+    q, k, v, do = (torch.randn(TRAIN_ROWS, TRAIN_SEQ, H, D, generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    q3, k3, v3, do3 = (t.transpose(1, 2).reshape(-1, TRAIN_SEQ, D)
+                       .contiguous() for t in (q, k, v, do))
+    q4, k4, v4 = (t.transpose(1, 2).detach().clone().requires_grad_()
+                  for t in (q, k, v))
+    do4 = do.transpose(1, 2).contiguous()
+
+    def fwd_bwd():
+        ops.flash_attention(*leaves).backward(do)
+
+    def plain_fwd_bwd():
+        with ops.plain():
+            ops.flash_attention(*leaves).backward(do)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: ops.flash_attention(q, k, v), iters=10)
+    att = {"forward_ms": fwd_ms,
+           "fwd_bwd_ms": cuda_ms(fwd_bwd, iters=5, warmup=1),
+           "backward_ms": cuda_ms(lambda: attention_ref_grad(
+               q3, k3, v3, do3, causal=True), iters=5, warmup=1),
+           "plain_fwd_bwd_ms": cuda_ms(plain_fwd_bwd, iters=3, warmup=1),
+           "library_fwd_bwd_ms": cuda_ms(
+               lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=True).backward(do4), iters=10)}
+    bh = TRAIN_ROWS * H
+    pairs = flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, 0)
+    # forward 2 products (4·D per visible pair), backward 5 (S again, dP,
+    # dV, dQ, dK: 10·D); q, k, v, dO read, O, dQ, dK, dV written, bf16
+    att.update(roofline(14 * D * bh * pairs, 2 * D * bh * TRAIN_SEQ * 8,
+                        PEAK_BF16_OPS))
+    print(f"[time] attention at one layer's shape ({TRAIN_ROWS}x{TRAIN_SEQ}, "
+          f"{H} heads of {D}, causal, bf16), {smi}: flash forward kernel "
+          f"{att['forward_ms']:.4f} ms; forward + backward through the "
+          f"autograd function {att['fwd_bwd_ms']:.4f} ms, of which the plain "
+          f"f32 backward alone {att['backward_ms']:.4f}; plain forward + "
+          f"backward {att['plain_fwd_bwd_ms']:.4f}; SDPA forward + backward "
+          f"(is_causal) {att['library_fwd_bwd_ms']:.4f}; bound "
+          f"{att['bound_ms']:.4f} ({att['bound_by']}); x{cfg.num_layers} per "
+          f"step: {att['fwd_bwd_ms'] * cfg.num_layers:.1f} ms against SDPA's "
+          f"{att['library_fwd_bwd_ms'] * cfg.num_layers:.1f}")
+    del q, k, v, do, leaves, q3, k3, v3, do3, q4, k4, v4, do4
+    tp["state"] = state
+    return {"step_ms": step_ms, "remat_step_ms": remat_ms,
+            "optimizer_bound_ms": opt_bound_ms,
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "model_flops": model_flops, "mfu": mfu, "parts_ms": parts_ms,
+            "profile": prof_, "attention": att}
+
+
+def train_twin_path() -> dict:
+    """Phase 36: minicpm-2b at full width cut to TRAIN_TWIN_LAYERS layers,
+    in f32 (flash on the CUDA-core route): one gradient and one train step
+    through the kernel path and the same under ``ops.plain()`` from the
+    same state: the loss within TRAIN_LOSS_RTOL relative, every gradient
+    leaf within TRAIN_GRAD_RTOL·max|g_plain|, the new parameters within
+    2·lr + 1e-6 (JAX's bound for an AdamW step whose gradient flips sign),
+    and every leaf changed.  This carries the training path's
+    correctness."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import (init_train_state, make_grad_fn,
+                                           make_train_step)
+    cfg = dataclasses.replace(get_config(TRAIN_CONFIG),
+                              name=f"{TRAIN_CONFIG}-f32-twin",
+                              num_layers=TRAIN_TWIN_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    model, ts = train_setup(cfg)
+    kern, plain = (init_train_state(model, model.init(seed=SEED), ts)
+                   for _ in range(2))
+    check(all(torch.equal(a, b) for a, b in zip(tree.leaves(kern),
+                                                tree.leaves(plain))),
+          "two inits from one seed differ")
+    before = [p.detach().clone() for p in tree.leaves(kern["params"])]
+    batch = batch_for_step(cfg, 0, TRAIN_ROWS, TRAIN_SEQ)
+    grad_fn, step_fn = make_grad_fn(model, ts), make_train_step(model, ts)
+    expect = {"flash_attention": TRAIN_TWIN_LAYERS}
+    zero_launches()
+    lk, _, gk = grad_fn(kern["params"], batch)
+    torch.cuda.synchronize()
+    check_launches(expect, f"{cfg.name} gradient", "simt_f32")
+    with ops.plain():
+        lp, _, gp = grad_fn(plain["params"], batch)
+    check_launches(expect, f"{cfg.name} plain gradient", "simt_f32")
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    grad_used = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(tree.leaves(gk), tree.leaves(gp))) \
+        / TRAIN_GRAD_RTOL
+    del gk, gp
+    zero_launches()
+    kern, mk = step_fn(kern, batch)
+    torch.cuda.synchronize()
+    check_launches(expect, f"{cfg.name} train step", "simt_f32")
+    with ops.plain():
+        plain, mp = step_fn(plain, batch)
+    lr = float(mk["lr"])
+    param_err = max((a - b).abs().max().item() for a, b in zip(
+        tree.leaves(kern["params"]), tree.leaves(plain["params"])))
+    changed = sum(not torch.equal(a, b.detach()) for a, b in zip(
+        before, tree.leaves(kern["params"])))
+    print(f"[train] {cfg.name} ({TRAIN_TWIN_LAYERS} layers at full width, "
+          f"f32, {TRAIN_ROWS}x{TRAIN_SEQ}) kernel path vs ops.plain(): loss "
+          f"{lk.item():.6f} vs {lp.item():.6f} (rel {loss_rel:.2e}, limit "
+          f"{TRAIN_LOSS_RTOL}); gradients limit used {grad_used:.3f} (per "
+          f"leaf, of {TRAIN_GRAD_RTOL}*max|g_plain|); step loss "
+          f"{float(mk['loss']):.6f} vs {float(mp['loss']):.6f}, grad_norm "
+          f"{float(mk['grad_norm']):.6f} vs {float(mp['grad_norm']):.6f}; "
+          f"new parameters max_abs_err {param_err:.3e} (limit 2*lr + 1e-6 = "
+          f"{2 * lr + 1e-6:.3e}); leaves changed {changed} of {len(before)}")
+    check(loss_rel <= TRAIN_LOSS_RTOL, "twin loss differs from plain")
+    check(grad_used <= 1.0, "twin gradients differ from plain")
+    check(param_err <= 2 * lr + 1e-6, "twin update differs from plain")
+    check(changed == len(before), "a twin leaf did not change")
+    del kern, plain
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_rel, "grad_limit_used": grad_used,
+            "param_max_abs_err": param_err, "lr": lr,
+            "leaves_changed": changed}
+
+
+def restart_path() -> dict:
+    """Phase 37: ``examples/train_lm_torch.py``'s default run (lm-10m,
+    f32, 30 steps of 8x128, a checkpoint every 10) on the card, once
+    uninterrupted and once with a ``TransientError`` injected at step 12:
+    the second restores step 10's checkpoint and replays, and its per-step
+    losses (the replayed step 11 too) and final state equal the first's bit
+    for bit; the loss falls; flash launches once a layer a step (f32, the
+    CUDA-core route)."""
+    import importlib.util
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.train.fault_tolerance import TransientError
+    path = ROOT / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    layers = mod.model_config(False).num_layers
+    tripped = {}
+
+    def injector(step):
+        if step == RESTART_FAIL_AT and not tripped:
+            tripped["at"] = step
+            raise TransientError(f"simulated node loss at step {step}")
+
+    runs = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        for name, inject in (("clean", None), ("restarted", injector)):
+            args = mod.parser().parse_args(
+                ["--steps", str(RESTART_STEPS), "--ckpt-dir", f"{d}/{name}"])
+            zero_launches()
+            t0 = time.perf_counter()
+            runs[name] = mod.train(args, fail_injector=inject)
+            torch.cuda.synchronize()
+            runs[name]["s"] = time.perf_counter() - t0
+            runs[name]["launches"] = check_launches(
+                {"flash_attention": layers * len(runs[name]["history"])},
+                f"train_lm_torch {name}", "simt_f32")
+    clean, again = runs["clean"], runs["restarted"]
+    by_step: dict[int, list[float]] = {}
+    for step, loss in again["history"]:
+        by_step.setdefault(step, []).append(loss)
+    twice = sorted(s for s, ls in by_step.items() if len(ls) > 1)
+    replays_equal = all(len(set(ls)) == 1 for ls in by_step.values())
+    same_state = all(torch.equal(a.detach(), b.detach()) for a, b in zip(
+        tree.leaves(clean["state"]), tree.leaves(again["state"])))
+    losses = clean["losses"]
+    print(f"[restart] examples/train_lm_torch.py, {RESTART_STEPS} steps, "
+          f"TransientError at step {RESTART_FAIL_AT}: restarts "
+          f"{again['report'].restarts}, steps run {len(again['history'])} "
+          f"(replayed {twice}), launches clean {clean['launches']} restarted "
+          f"{again['launches']}; per-step losses equal the uninterrupted "
+          f"run's bit for bit: {again['losses'] == losses}; replayed steps "
+          f"equal their first run: {replays_equal}; final state "
+          f"bit-equal: {same_state}; loss {losses[0]:.4f} -> "
+          f"{losses[RESTART_STEPS - 1]:.4f}; {clean['s']:.1f} s and "
+          f"{again['s']:.1f} s")
+    check(again["report"].restarts == 1 and tripped, "no restart happened")
+    check(bool(twice) and replays_equal and again["losses"] == losses,
+          "the restarted run's losses differ from the uninterrupted run's")
+    check(same_state, "the restarted run's final state differs")
+    check(losses[RESTART_STEPS - 1] < losses[0], "the loss did not fall")
+    return {"losses": [losses[s] for s in sorted(losses)],
+            "replayed": twice, "clean_s": clean["s"],
+            "restarted_s": again["s"], "launches": clean["launches"]}
+
+
+def training_paths(smi: str) -> dict:
+    """Phases 34-38: the flash gradient, minicpm-2b's training at full
+    width and depth, its f32 twin, the restart, and the timings."""
+    grad_rows = flash_grad_check(SEED + 900)
+    tp = train_path(smi)
+    times = train_timings(tp, smi)
+    record = {**tp["record"], "timings": times}
+    del tp
+    torch.cuda.empty_cache()
+    twin = train_twin_path()
+    restart = restart_path()
+    return {"grad_rows": grad_rows, "train": record, "twin": twin,
+            "restart": restart}
+
 
 T0 = time.perf_counter()
 
@@ -2353,6 +2945,8 @@ def main() -> int:
     w = whisper_paths(smi)
     wcfg, wlm, w_times = w["wcfg"], w["wlm"], w["w_times"]
     w_flash_rows = w["w_flash_rows"]
+    tr = training_paths(smi)
+    tt = tr["train"]["timings"]
 
     check(sum(r["per_forward"] for r in rows) == CONVS_PER_FORWARD,
           "CONV_SHAPES do not add up to one forward")
@@ -2447,6 +3041,26 @@ def main() -> int:
                                  f"({wcfg.encoder_seq_len} frames + "
                                  f"{WHISPER_TOKENS} tokens) bf16 forward "
                                  f"(D=64)"},
+        "training": {
+            "config": f"{TRAIN_CONFIG} train step, {TRAIN_ROWS}x"
+                      f"{TRAIN_SEQ}, bf16",
+            "launches": tr["train"]["steps"][0]["launches"],
+            "remat_launches": tr["train"]["steps"][-1]["launches"],
+            "gradient_max_abs_err": max(r["max_abs_err"]
+                                        for r in tr["grad_rows"]),
+            "gradient_limit_used": max(r["limit_used"]
+                                       for r in tr["grad_rows"]),
+            **{k: tt["attention"][k] for k in (
+                "forward_ms", "fwd_bwd_ms", "backward_ms",
+                "plain_fwd_bwd_ms", "library_fwd_bwd_ms", "bound_ms",
+                "bound_by")},
+            "backward_is": "the plain f32 gradient of attention_scores "
+                           "(ref.attention_ref_grad), recomputed from q, "
+                           "k, v",
+            "library_is": "F.scaled_dot_product_attention forward + "
+                          "backward, is_causal (the same function)",
+            "times_are": "one layer's attention (CUDA events); x"
+                         f"{get_config(TRAIN_CONFIG).num_layers} per step"},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan_sm90.cu",
@@ -2493,7 +3107,7 @@ def main() -> int:
               "whisper_flash_shapes": w_flash_rows,
               wcfg.name: lm_record(wlm, w["w_served"], w_times),
               w["w32cfg"].name: w["w32"], "serve_lm_torch": w["example"],
-              **kernels}
+              "training": tr, **kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -2520,7 +3134,10 @@ def main() -> int:
           f"frames + {WHISPER_TOKENS} tokens) {w_times['prefill_ms']:.2f} ms "
           f"with flash_attention {w_flash['ms']:.2f} ms; decode step "
           f"{w_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
-          f"script {time.perf_counter() - T0:.0f} s")
+          f"{TRAIN_CONFIG} train step {TRAIN_ROWS}x{TRAIN_SEQ} "
+          f"{tt['step_ms']:.1f} ms ({tt['tokens_per_s']:.0f} tokens/s, "
+          f"{tt['mfu']:.3f} of peak by 6*N*tokens); script "
+          f"{time.perf_counter() - T0:.0f} s")
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

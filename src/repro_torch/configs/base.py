@@ -1,9 +1,8 @@
 """The fields of ``ModelConfig`` that the ported paths read (the ResNet18
 CNN, the decoder-only LM with its dense, MoE and VLM-prefix forms, the
-Mamba2 hybrid, xLSTM and the encoder-decoder), under the same names and
-with the same defaults as in the JAX package's config, plus
-``get_config``.  ``lr_schedule`` comes with the training code that reads
-it."""
+Mamba2 hybrid, xLSTM, the encoder-decoder, and the trainer's
+``lr_schedule``), under the same names and with the same defaults as in
+the JAX package's config, plus ``get_config``."""
 
 from __future__ import annotations
 
@@ -75,6 +74,9 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "float32"            # activation/computation dtype
     param_dtype: str = "float32"
+
+    # --- training ---
+    lr_schedule: str = "cosine"       # cosine | wsd
 
     @property
     def resolved_head_dim(self) -> int:

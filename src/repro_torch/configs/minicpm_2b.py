@@ -1,6 +1,5 @@
 """MiniCPM-2B [arXiv:2404.06395; hf]: llama-like dense decoder trained with
-the WSD schedule.  40L d_model=2304 36H (kv=36) d_ff=5760 vocab=122753.
-The port leaves out ``lr_schedule`` (WSD): nothing in it trains yet."""
+the WSD schedule.  40L d_model=2304 36H (kv=36) d_ff=5760 vocab=122753."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -19,4 +18,5 @@ CONFIG = ModelConfig(
     mlp_activation="silu",
     dtype="bfloat16",
     param_dtype="bfloat16",
+    lr_schedule="wsd",
 )

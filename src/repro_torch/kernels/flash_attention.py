@@ -20,13 +20,22 @@ It takes CUDA tensors only and raises on anything the kernels do not take;
 route's, so a run can show that its path went through the kernel it
 expects.  The Pallas ``block_q``/``block_k`` knobs have no counterpart: the
 kernels fix their own tiles and mask ragged S and T.
+
+``FlashAttention`` gives the kernel's output a gradient.  The JAX package
+trains through the einsum ``attention_scores`` and never through its
+Pallas kernel, which has no backward; so the backward here is the gradient
+of that arithmetic (``ref.attention_ref_grad``), recomputed in f32 from
+the saved q, k and v.  A hand-written backward kernel is a later step.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 
 launches = 0
 launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0}
@@ -126,3 +135,24 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     launches_by_kernel[route] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``forward`` runs ``forward_fn`` (the kernel on the model path; the
+    tests inject the plain version) on q (BH, S, D) and k, v (BKV, T, D)
+    and saves the inputs; ``backward`` returns ``ref.attention_ref_grad``
+    of them: dq, dk and dv in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int, softcap: float,
+                forward_fn: Callable[..., torch.Tensor]) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap)
+        return forward_fn(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = ref.attention_ref_grad(q, k, v, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None

@@ -11,6 +11,14 @@ mask ragged edges.  The scans' ``chunk`` in particular only tiled the
 sequence for the TPU's sequential grid; their results do not depend on it
 (the JAX tests' chunk-invariance cases), so ``mamba_scan`` and
 ``mlstm_scan`` take none.
+
+Training: on a CUDA tensor that needs a gradient (grad mode on, an input
+requiring grad, outside ``plain()``), ``flash_attention`` launches the
+kernel through the ``FlashAttention`` autograd function, whose backward is
+the gradient of the plain arithmetic; ``fused_conv``, ``mamba_scan`` and
+``mlstm_scan`` have no backward yet and raise, rather than return an
+output whose gradient silently stops.  A CPU tensor takes the plain
+version, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from collections.abc import Iterator
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    check_every_row_sees_a_key, flash_attention_kernel)
+    FlashAttention, check_every_row_sees_a_key, flash_attention_kernel)
 from repro_torch.kernels.fused_conv import fused_conv_kernel
 from repro_torch.kernels.mamba_scan import mamba_scan_kernel
 from repro_torch.kernels.mlstm_scan import mlstm_scan_kernel
@@ -47,13 +55,37 @@ def _use_plain(x: torch.Tensor) -> bool:
     return _plain or x.device.type == "cpu"
 
 
+def _needs_grad(*ts: torch.Tensor | None) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+_RECURRENCES = "differentiable hybrid and xLSTM recurrences"
+
+
+def _no_backward(name: str, item: str, *ts: torch.Tensor | None) -> None:
+    """Refuse to launch a kernel that has no backward where a gradient is
+    wanted; ``item`` names the ROADMAP item that adds one."""
+    if _needs_grad(*ts):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, so its output would "
+            f"carry no gradient; training through it waits for ROADMAP "
+            f"queue 1's {item!r} (run under torch.no_grad(), or inside "
+            f"ops.plain() for the plain version)")
+
+
 def fused_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                shift: torch.Tensor, *, stride: int = 1, padding: int = 1,
                relu: bool = True,
                residual: torch.Tensor | None = None) -> torch.Tensor:
     """[relu](conv(x, w, stride, padding)·scale + shift [+ residual]),
     NHWC/HWIO, accumulated in f32."""
-    fn = fused_conv_ref if _use_plain(x) else fused_conv_kernel
+    if _use_plain(x):
+        fn = fused_conv_ref
+    else:
+        _no_backward("fused_conv", "a fused_conv backward", x, w, scale,
+                     shift, residual)
+        fn = fused_conv_kernel
     return fn(x, w, scale, shift, stride=stride, padding=padding, relu=relu,
               residual=residual)
 
@@ -69,11 +101,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Bt, S, H, D = q.shape
     _, T, KV, _ = k.shape
     check_every_row_sees_a_key(S, T, window)
-    fn = attention_ref if _use_plain(q) else flash_attention_kernel
-    out = fn(q.transpose(1, 2).reshape(Bt * H, S, D).contiguous(),
-             k.transpose(1, 2).reshape(Bt * KV, T, D).contiguous(),
-             v.transpose(1, 2).reshape(Bt * KV, T, D).contiguous(),
-             causal=causal, window=window, softcap=softcap)
+    q3 = q.transpose(1, 2).reshape(Bt * H, S, D).contiguous()
+    k3 = k.transpose(1, 2).reshape(Bt * KV, T, D).contiguous()
+    v3 = v.transpose(1, 2).reshape(Bt * KV, T, D).contiguous()
+    if _use_plain(q):
+        out = attention_ref(q3, k3, v3, causal=causal, window=window,
+                            softcap=softcap)
+    elif _needs_grad(q, k, v):
+        out = FlashAttention.apply(q3, k3, v3, causal, window, softcap,
+                                   flash_attention_kernel)
+    else:
+        out = flash_attention_kernel(q3, k3, v3, causal=causal,
+                                     window=window, softcap=softcap)
     return out.reshape(Bt, H, S, D).transpose(1, 2)
 
 
@@ -82,7 +121,11 @@ def mamba_scan(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     """The SSD recurrence ``S_t = e^{a_t}·S_{t-1} + dtx_t ⊗ B_t``,
     ``y_t = S_t·C_t``: dtx (b, S, H, P), a_log (b, S, H), B/C (b, S, N)
     shared by all heads, all f32 → y (b, S, H, P) in f32."""
-    fn = mamba_scan_ref if _use_plain(dtx) else mamba_scan_kernel
+    if _use_plain(dtx):
+        fn = mamba_scan_ref
+    else:
+        _no_backward("mamba_scan", _RECURRENCES, dtx, a_log, B, C)
+        fn = mamba_scan_kernel
     return fn(dtx.contiguous(), a_log.contiguous(), B.contiguous(),
               C.contiguous())
 
@@ -92,6 +135,10 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The stabilised mLSTM recurrence: q, k, v (b, S, H, P), i_pre and
     f_pre (b, S, H), all f32 → h (b, S, H, P) in f32 (``ref.mlstm_ref``
     gives the formulas)."""
-    fn = mlstm_ref if _use_plain(q) else mlstm_scan_kernel
+    if _use_plain(q):
+        fn = mlstm_ref
+    else:
+        _no_backward("mlstm_scan", _RECURRENCES, q, k, v, i_pre, f_pre)
+        fn = mlstm_scan_kernel
     return fn(q.contiguous(), k.contiguous(), v.contiguous(),
               i_pre.contiguous(), f_pre.contiguous())

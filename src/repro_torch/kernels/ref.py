@@ -30,6 +30,20 @@ def fused_conv_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 NEG_INF = -1e30
 
 
+def _visible(S: int, T: int, causal: bool, window: int,
+             device) -> torch.Tensor:
+    """(S, T): query i sees key j when j <= i (causal, top-left) and
+    j > i - window (window > 0)."""
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   softcap: float = 0.0) -> torch.Tensor:
@@ -44,16 +58,47 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("hsd,htd->hst", q.float(), kf) / math.sqrt(D)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(S, device=q.device)[:, None]
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window:
-        mask &= k_pos > q_pos - window
+    mask = _visible(S, T, causal, window, q.device)
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hst,htd->hsd", p, vf).to(q.dtype)
+
+
+def attention_ref_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, *, causal: bool = True,
+                       window: int = 0, softcap: float = 0.0
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``attention_ref`` (the arithmetic of the models'
+    ``attention_scores``) with respect to q, k and v, for the output
+    gradient ``dout`` (BH, S, D): recomputed in f32 from the inputs, dk and
+    dv summed over each KV head's query group, returned in the inputs'
+    dtypes.  The probabilities are recomputed, not saved: the flash kernel
+    keeps none."""
+    BH, S, D = q.shape
+    BKV, T, _ = k.shape
+    G = BH // BKV
+    qf = q.float().reshape(BKV, G, S, D)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(BKV, G, S, D)
+    s = torch.einsum("bgsd,btd->bgst", qf, kf) / math.sqrt(D)
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    mask = _visible(S, T, causal, window, q.device)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    del s
+    dv = torch.einsum("bgst,bgsd->btd", p, do)
+    # softmax backward, p ∘ (dp - rowsum(p ∘ dp)), in dp's storage
+    ds = torch.einsum("bgsd,btd->bgst", do, vf)
+    ds.sub_((p * ds).sum(dim=-1, keepdim=True)).mul_(p)
+    del p
+    if softcap:
+        ds.mul_(t.square_().neg_().add_(1.0))             # tanh backward
+        del t
+    ds.div_(math.sqrt(D))
+    dq = torch.einsum("bgst,btd->bgsd", ds, kf).reshape(BH, S, D)
+    dk = torch.einsum("bgst,bgsd->btd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mamba_scan_ref(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,

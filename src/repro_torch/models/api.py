@@ -25,6 +25,14 @@ through ``ops.mamba_scan`` and every mLSTM recurrence through
 bidirectional attention through ``ops.flash_attention`` too;
 ``decode_step`` is the one-token serving path against a pre-allocated
 KV/state cache, which it updates in place.
+
+Every ``forward`` takes JAX's ``remat`` (each stacked layer, or each
+hybrid or xLSTM unit, under ``torch.utils.checkpoint``, recomputed in the
+backward) and ``return_hidden`` (the last hidden state instead of the
+logits, for the trainer's chunked head and loss).  ``Model.bind(params)``
+holds a parameter tree, such as a train state's, in the family's module
+without copying it, so a forward reads exactly the tensors the optimizer
+updates.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import math
 from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -57,6 +67,8 @@ class Model:
     # the encoder-decoder's two extra entry points (None for other families)
     encode: Callable[..., torch.Tensor] | None = None
     fill_cross_cache: Callable[..., Any] | None = None
+    # params tree → the family's module holding those very tensors (LMs)
+    bind: Callable[[Params], nn.Module] | None = None
 
 
 def _dt(cfg: ModelConfig) -> tuple[torch.dtype, torch.dtype]:
@@ -97,6 +109,17 @@ def _layer(tree: Params, i: int) -> Params:
             for k, v in tree.items()}
 
 
+def _layers(tree: Params, n: int) -> list[Params]:
+    """The ``n`` layers of a stacked tree, as views from one ``unbind`` per
+    leaf.  Under autograd each leaf's gradient is then one stack of the
+    layers' gradients; indexing layer by layer would make every layer's
+    gradient a zero-filled copy of the whole stacked leaf, summed n times
+    (at minicpm-2b's 1 GB MLP leaves, most of a step)."""
+    parts = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: part[i] for k, part in parts.items()} for i in range(n)]
+
+
 def _sinusoid(seq: int, dim: int, dtype: torch.dtype,
               device=None) -> torch.Tensor:
     """(seq, dim) sinusoidal positions, sin in the even columns and cos in
@@ -117,6 +140,17 @@ def param_count(params: Params) -> int:
     return sum(t.numel() for t in L.flatten_tree(params).values())
 
 
+def _remat(remat: bool, fn: Callable, *args: Any) -> Any:
+    """``fn(*args)``, under activation checkpointing when ``remat``: only
+    the inputs are kept, and ``fn`` runs again in the backward (JAX's
+    ``jax.checkpoint`` of a scan body).  The forwards draw no random
+    numbers, so no RNG state is kept."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 # ---------------------------------------------------------------------------
 # shared embed / head
 # ---------------------------------------------------------------------------
@@ -134,7 +168,10 @@ def _init_embed(gen: torch.Generator, cfg: ModelConfig, pdt: torch.dtype,
 
 def _embed(params: Params, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+    # F.embedding, not indexing: its CUDA backward sums each row's
+    # gradients in a fixed order (indexing's accumulates atomically), so a
+    # replayed train step gives the same bits
+    x = F.embedding(tokens.long(), params["embed"])
     if cfg.scale_embed_by_sqrt_dim:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -142,8 +179,9 @@ def _embed(params: Params, cfg: ModelConfig,
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm, tied (or separate) head, f32 logits, final softcap.  The
-    softcap runs in place on the fresh logits: at gemma2-2b's 256000-word
-    vocabulary they are 1 GiB per thousand tokens."""
+    softcap runs in place on the fresh logits when no gradient is wanted:
+    at gemma2-2b's 256000-word vocabulary they are 1 GiB per thousand
+    tokens.  Under autograd it runs out of place, as autograd needs."""
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
@@ -152,7 +190,10 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     if cfg.final_softcap:
         c = cfg.final_softcap
-        logits.div_(c).tanh_().mul_(c)
+        if torch.is_grad_enabled() and logits.requires_grad:
+            logits = c * torch.tanh(logits / c)
+        else:
+            logits.div_(c).tanh_().mul_(c)
     return logits
 
 
@@ -189,11 +230,14 @@ def init_decoder_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 class DecoderLM(nn.Module):
-    """Holds a decoder-only LM's parameter tree (as buffers: this is an
-    inference model) with the JAX package's keys and stacked layout.
+    """Holds a decoder-only LM's parameter tree (as buffers) with the JAX
+    package's keys and stacked layout.
 
     ``params`` is such a tree, e.g. from ``repro_torch.weights.
-    params_from_jax``; without it the weights are drawn from ``seed``.
+    params_from_jax`` or a train state; its tensors are held as they are
+    when they already lie on ``device``, so a trainer that sets
+    ``requires_grad`` on them and updates them in place trains this
+    module.  Without ``params`` the weights are drawn from ``seed``.
     ``device`` defaults to ``cuda`` and raises if no card is present; pass
     ``device="cpu"`` for the plain CPU path."""
 
@@ -216,7 +260,8 @@ class DecoderLM(nn.Module):
         return decoder_forward(self, {"tokens": tokens})[0]
 
 
-def decoder_forward(model: DecoderLM, batch: dict[str, torch.Tensor]
+def decoder_forward(model: DecoderLM, batch: dict[str, torch.Tensor], *,
+                    remat: bool = False, return_hidden: bool = False
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence forward (prefill): ``batch["tokens"]`` (B, S) →
     (f32 logits (B, S, vocab), aux: the sum of the MoE layers' load-balance
@@ -226,7 +271,9 @@ def decoder_forward(model: DecoderLM, batch: dict[str, torch.Tensor]
     the prefix goes in front of the token embeddings, positions run over
     all P + S, the causal mask lets the tokens see it, and its P rows are
     cut from the output.  ``dense0`` runs first, with no window; the
-    stacked layers take the windows of layers ``n_dense`` on."""
+    stacked layers take the windows of layers ``n_dense`` on, each under
+    ``remat`` as in JAX's scan (``dense0`` is not).  ``return_hidden``
+    returns the last hidden state (B, S, d) in place of the logits."""
     cfg, params = model.cfg, model.params
     dt, _ = _dt(cfg)
     n_dense = dense_layers(cfg)
@@ -244,13 +291,17 @@ def decoder_forward(model: DecoderLM, batch: dict[str, torch.Tensor]
         x, a = B.attn_block(params["dense0"], x, cfg, positions=positions,
                             window=0)
         aux = aux + a
-    for i in range(cfg.num_layers - n_dense):
-        x, a = B.attn_block(_layer(params["layers"], i), x, cfg,
-                            positions=positions,
-                            window=cfg.window_for_layer(n_dense + i))
+    stacked = _layers(params["layers"], cfg.num_layers - n_dense)
+    for i, lp in enumerate(stacked):
+        def layer(h, lp=lp, i=i):
+            return B.attn_block(lp, h, cfg, positions=positions,
+                                window=cfg.window_for_layer(n_dense + i))
+        x, a = _remat(remat, layer, x)
         aux = aux + a
     if n_prefix:
         x = x[:, n_prefix:]
+    if return_hidden:
+        return x, aux
     return _head(params, cfg, x), aux
 
 
@@ -345,12 +396,16 @@ class HybridLM(DecoderLM):
         return hybrid_forward(self, {"tokens": tokens})[0]
 
 
-def hybrid_forward(model: HybridLM, batch: dict[str, torch.Tensor]
+def hybrid_forward(model: HybridLM, batch: dict[str, torch.Tensor], *,
+                   remat: bool = False, return_hidden: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence forward (prefill): each unit's K Mamba2 blocks (one
     ``ops.mamba_scan`` each), then its causal global attention block (one
-    ``ops.flash_attention``).  ``batch["tokens"]`` (B, S) → (f32 logits
-    (B, S, vocab), aux = 0)."""
+    ``ops.flash_attention``), each unit under ``remat``.
+    ``batch["tokens"]`` (B, S) → (f32 logits (B, S, vocab), or the hidden
+    state with ``return_hidden``; aux = 0).  Not differentiable yet: on the
+    card ``ops.mamba_scan`` refuses a gradient, and on the CPU the plain
+    scan's in-place recurrence does."""
     cfg, params = model.cfg, model.params
     dt, _ = _dt(cfg)
     U, K = hybrid_units(cfg)
@@ -358,13 +413,15 @@ def hybrid_forward(model: HybridLM, batch: dict[str, torch.Tensor]
     x = _embed(params, cfg, tokens).to(dt)
     Btch, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(Btch, S)
-    for u in range(U):
-        mp = _layer(params["mamba"], u)
-        for k in range(K):
-            x = B.mamba_block(_layer(mp, k), x, cfg)
-        x, _ = B.attn_block(_layer(params["attn"], u), x, cfg,
-                            positions=positions, window=0)
+    for mp, ap in zip(_layers(params["mamba"], U), _layers(params["attn"], U)):
+        def unit(h, mp=mp, ap=ap):
+            for bp in _layers(mp, K):
+                h = B.mamba_block(bp, h, cfg)
+            return B.attn_block(ap, h, cfg, positions=positions, window=0)[0]
+        x = _remat(remat, unit, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
     return _head(params, cfg, x), aux
 
 
@@ -445,23 +502,30 @@ class XLSTMLM(DecoderLM):
         return xlstm_forward(self, {"tokens": tokens})[0]
 
 
-def xlstm_forward(model: XLSTMLM, batch: dict[str, torch.Tensor]
+def xlstm_forward(model: XLSTMLM, batch: dict[str, torch.Tensor], *,
+                  remat: bool = False, return_hidden: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence forward (prefill): each unit's K mLSTM blocks (one
     ``ops.mlstm_scan`` each), then its sLSTM block (a plain loop over
-    time).  ``batch["tokens"]`` (B, S) → (f32 logits (B, S, vocab),
-    aux = 0)."""
+    time), each unit under ``remat``.  ``batch["tokens"]`` (B, S) → (f32
+    logits (B, S, vocab), or the hidden state with ``return_hidden``;
+    aux = 0).  Not differentiable yet: on the card ``ops.mlstm_scan``
+    refuses a gradient, and on the CPU the in-place recurrences do."""
     cfg, params = model.cfg, model.params
     dt, _ = _dt(cfg)
     U, K = xlstm_units(cfg)
     tokens = batch["tokens"].to(params["embed"].device)
     x = _embed(params, cfg, tokens).to(dt)
-    for u in range(U):
-        mp = _layer(params["mlstm"], u)
-        for k in range(K):
-            x = B.mlstm_block(_layer(mp, k), x, cfg)
-        x = B.slstm_block(_layer(params["slstm"], u), x, cfg)
+    for mp, sp in zip(_layers(params["mlstm"], U),
+                      _layers(params["slstm"], U)):
+        def unit(h, mp=mp, sp=sp):
+            for bp in _layers(mp, K):
+                h = B.mlstm_block(bp, h, cfg)
+            return B.slstm_block(sp, h, cfg)
+        x = _remat(remat, unit, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
     return _head(params, cfg, x), aux
 
 
@@ -552,19 +616,22 @@ def encdec_encode(model: EncDecLM, frames: torch.Tensor) -> torch.Tensor:
     Btch, F, _ = x.shape
     x = x + _sinusoid(F, cfg.d_model, dt, dev)[None]
     positions = torch.arange(F, device=dev).expand(Btch, F)
-    for i in range(cfg.encoder_layers):
-        x, _ = B.attn_block(_layer(params["enc"], i), x, cfg,
-                            positions=positions, window=0, causal=False)
+    for lp in _layers(params["enc"], cfg.encoder_layers):
+        x, _ = B.attn_block(lp, x, cfg, positions=positions, window=0,
+                            causal=False)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def encdec_forward(model: EncDecLM, batch: dict[str, torch.Tensor]
+def encdec_forward(model: EncDecLM, batch: dict[str, torch.Tensor], *,
+                   remat: bool = False, return_hidden: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence forward: ``batch["enc_frames"]`` (B, F, d) through
     the encoder, then ``batch["tokens"]`` (B, S) with sinusoidal positions
     through the decoder, each layer's causal self-attention and its
     cross-attention to all F encoder rows one flash launch each →
-    (f32 logits (B, S, vocab), aux = 0)."""
+    (f32 logits (B, S, vocab), or the decoder's hidden state with
+    ``return_hidden``; aux = 0).  ``remat`` checkpoints each decoder layer,
+    as JAX's does (not the encoder's)."""
     cfg, params = model.cfg, model.params
     dt, _ = _dt(cfg)
     enc_out = encdec_encode(model, batch["enc_frames"])
@@ -573,10 +640,14 @@ def encdec_forward(model: EncDecLM, batch: dict[str, torch.Tensor]
     x = _embed(params, cfg, tokens).to(dt)
     x = x + _sinusoid(S, cfg.d_model, dt, x.device)[None]
     positions = torch.arange(S, device=x.device).expand(Btch, S)
-    for i in range(cfg.num_layers):
-        x, _ = B.attn_block(_layer(params["dec"], i), x, cfg,
-                            positions=positions, window=0, enc_out=enc_out)
+    for lp in _layers(params["dec"], cfg.num_layers):
+        def layer(h, lp=lp):
+            return B.attn_block(lp, h, cfg, positions=positions, window=0,
+                                enc_out=enc_out)[0]
+        x = _remat(remat, layer, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
     return _head(params, cfg, x), aux
 
 
@@ -642,18 +713,22 @@ def _build_lm(cfg: ModelConfig, device, lm_cls: type[DecoderLM],
               forward: Callable, init_cache: Callable,
               decode_step: Callable, **extra: Callable) -> Model:
     """The ``Model`` of an LM family: ``init(seed)`` draws an ``lm_cls``,
-    ``init_cache(batch_size, max_len)`` allocates on the model's device;
-    ``extra`` sets the encoder-decoder's ``encode`` and
-    ``fill_cross_cache``."""
+    ``bind(params)`` holds a given tree in one, ``init_cache(batch_size,
+    max_len)`` allocates on the model's device; ``extra`` sets the
+    encoder-decoder's ``encode`` and ``fill_cross_cache``."""
     device = resolve_device(device)
 
     def init(seed: int = 0) -> DecoderLM:
         return lm_cls(cfg, seed=seed, device=device)
 
+    def bind(params: Params) -> DecoderLM:
+        return lm_cls(cfg, params=params, device=device)
+
     def cache(batch_size: int, max_len: int) -> Params:
         return init_cache(cfg, batch_size, max_len, device)
 
-    return Model(cfg, device, init, forward, cache, decode_step, **extra)
+    return Model(cfg, device, init, forward, cache, decode_step, **extra,
+                 bind=bind)
 
 
 def lm_family(cfg: ModelConfig) -> tuple[type[DecoderLM], Callable,

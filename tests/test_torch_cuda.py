@@ -590,3 +590,111 @@ def test_windowed_halo_matches_whole_attention(cuda):
     torch.cuda.synchronize()
     assert FA.launches == before
     assert (out - ref).abs().max().item() <= 2e-5
+
+
+# --- training: the flash gradient, the kernels without one, a train step ----
+
+def _grad_check(dev, dtype, B, H, KV, S, T, D, causal, window, softcap):
+    """dq, dk, dv through ``ops.flash_attention`` (the kernel inside the
+    autograd function) against autograd of the plain attention in f32 on
+    the same values: within 1e-5·max|ref| in f32, half a bf16 ulp of |ref|
+    plus 2e-5 in bf16.  The forward moves only its dtype's route."""
+    g = torch.Generator(device=dev).manual_seed(S * 31 + D)
+    q, k, v = (torch.randn(B, n, H_, D, generator=g, device=dev).to(dtype)
+               for n, H_ in ((S, H), (T, KV), (T, KV)))
+    do = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    route = "wgmma_bf16" if dtype == torch.bfloat16 else "simt_f32"
+    before = dict(FA.launches_by_kernel)
+    out = ops.flash_attention(*leaves, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in FA.launches_by_kernel.items()}
+    assert moved == {r: int(r == route) for r in moved}
+    refs = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    with ops.plain():
+        ref_out = ops.flash_attention(*refs, **kw)
+    ref_out.backward(do.float())
+    for t, r in zip(leaves, refs):
+        assert t.grad.dtype == dtype
+        err = (t.grad.float() - r.grad).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-5 * r.grad.abs().max().item()
+        else:
+            assert bool((err <= 2.0 ** -8 * r.grad.abs() + 2e-5).all()), \
+                err.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,T,D,causal,window,softcap", [
+    (4, 36, 36, 1024, 1024, 64, True, 0, 0.0),   # minicpm-2b's train shape
+    (1, 64, 8, 512, 512, 128, True, 0, 0.0),     # qwen3's GQA 64/8
+    (1, 8, 4, 512, 512, 256, True, 128, 50.0),   # gemma2's D, window, cap
+    (2, 4, 4, 100, 300, 64, False, 0, 0.0),      # cross, ragged tiles
+])
+def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
+                                      window, softcap):
+    _grad_check(cuda, dtype, B, H, KV, S, T, D, causal, window, softcap)
+
+
+def test_kernels_without_a_backward_refuse_a_gradient(cuda):
+    """Under autograd the three kernels with no backward raise rather than
+    return an output whose gradient silently stops; without a gradient
+    (no_grad, or inputs that need none) they launch as before."""
+    x = torch.randn(1, 8, 8, 16, device=cuda, requires_grad=True)
+    w = torch.randn(3, 3, 16, 16, device=cuda)
+    scale, shift = torch.ones(16, device=cuda), torch.zeros(16, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.fused_conv(x, w, scale, shift)
+    with torch.no_grad():
+        assert ops.fused_conv(x, w, scale, shift).shape == (1, 8, 8, 16)
+    dtx = torch.randn(1, 64, 2, 16, device=cuda, requires_grad=True)
+    a = -torch.rand(1, 64, 2, device=cuda)
+    Bm, Cm = (torch.randn(1, 64, 16, device=cuda) for _ in range(2))
+    with pytest.raises(RuntimeError, match="hybrid and xLSTM"):
+        ops.mamba_scan(dtx, a, Bm, Cm)
+    assert ops.mamba_scan(dtx.detach(), a, Bm, Cm).shape == (1, 64, 2, 16)
+    q = torch.randn(1, 64, 2, 16, device=cuda, requires_grad=True)
+    gates = [torch.randn(1, 64, 2, device=cuda) for _ in range(2)]
+    with pytest.raises(RuntimeError, match="hybrid and xLSTM"):
+        ops.mlstm_scan(q, q.detach(), q.detach(), *gates)
+    with torch.no_grad():
+        assert ops.mlstm_scan(q, q, q, *gates).shape == (1, 64, 2, 16)
+
+
+@pytest.mark.parametrize("name", ["minicpm-2b-smoke", "gemma2-2b-smoke"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """One train step of a smoke config on the card (flash through the
+    autograd function, one launch a layer) and on the CPU from the same
+    state: loss within 1e-5 relative, gradients within 1e-4·max per leaf,
+    parameters within 2·lr + 1e-6."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import (TrainStepConfig, init_train_state,
+                                           make_grad_fn, make_train_step)
+    cfg = get_config(name)
+    ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3), schedule_warmup=1)
+    cpu_model = build_model(cfg, device="cpu")
+    gpu_model = build_model(cfg, device=cuda)
+    cpu_state = init_train_state(cpu_model, cpu_model.init(0), ts)
+    gpu_state = init_train_state(gpu_model, gpu_model.init(0), ts)
+    batch = batch_for_step(cfg, 0, 2, 32, device="cpu")
+    _, _, g_cpu = make_grad_fn(cpu_model, ts)(cpu_state["params"], batch)
+    before = FA.launches
+    _, _, g_gpu = make_grad_fn(gpu_model, ts)(gpu_state["params"], batch)
+    torch.cuda.synchronize()
+    assert FA.launches == before + cfg.num_layers
+    for a, b in zip(tree.leaves(g_cpu), tree.leaves(g_gpu)):
+        assert b.norm().item() > 0
+        assert (a - b.cpu()).abs().max().item() <= \
+            1e-4 * a.abs().max().item()
+    s_cpu, m_cpu = make_train_step(cpu_model, ts)(cpu_state, batch)
+    s_gpu, m_gpu = make_train_step(gpu_model, ts)(gpu_state, batch)
+    assert m_gpu["loss"].item() == pytest.approx(m_cpu["loss"].item(),
+                                                 rel=1e-5)
+    for a, b in zip(tree.leaves(s_cpu["params"]),
+                    tree.leaves(s_gpu["params"])):
+        assert (a.detach() - b.detach().cpu()).abs().max().item() \
+            <= 2e-3 + 1e-6

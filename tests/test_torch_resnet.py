@@ -282,12 +282,13 @@ def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "xlstm_drift.py",
         ROOT / "examples" / "resnet_pim_torch.py",
-        ROOT / "examples" / "serve_lm_torch.py"]
+        ROOT / "examples" / "serve_lm_torch.py",
+        ROOT / "examples" / "train_lm_torch.py"]
 
 
 def _is_forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -307,9 +308,11 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.models, repro_torch.weights, "
             "repro_torch.kernels.ops, repro_torch.kernels._build, "
             "repro_torch.core.halo, repro_torch.core.seq_halo, "
-            "repro_torch.core.tiling; "
+            "repro_torch.core.tiling, repro_torch.optim.compression, "
+            "repro_torch.data.pipeline, repro_torch.train.trainer, "
+            "repro_torch.train.fault_tolerance, repro_torch.checkpoint; "
             "bad = [m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'repro')]; "
+            "if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env)
