@@ -9,7 +9,8 @@ Phases, each of which raises (exit code 1) on failure:
    time and ptxas's report, per head dim the bf16 flash kernel's registers,
    spills and dynamic shared memory, the same per tile width (64, 128)
    for the fused-conv kernel, per chunk (64, 128) for the SSD scan's
-   three kernels, and the mLSTM scan's four, none of which may spill.
+   three kernels, the mLSTM scan's four and each backward kernel's four,
+   none of which may spill.
 3. kernel check: the fused-conv kernel (the tensor-core kernel of
    ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
    split K over a cluster) against its plain PyTorch version on the card,
@@ -142,8 +143,9 @@ Phases, each of which raises (exit code 1) on failure:
     (the f64 scores at 67 TFLOP/s and the rest as three TF32 products at
     495, against the bytes; and all of it in f32 on the CUDA cores; no
     single PyTorch call computes the recurrence, so no library time);
-    the xLSTM prefill with mlstm_scan's share of device time and the idle
-    share (and how long the profiler took over its ~10^6 events); the
+    the xLSTM prefill; mlstm_scan's share of device time and the idle
+    share from a profiled prefill of one unit at full width (4 layers:
+    the full depth's ~10^6 profiler events took minutes to read); the
     decode step at batch 4.
 22. flash check at the other decoder-only LMs' heads, with the limits of
     phase 7, each launch moving only its dtype's route: D=128 at
@@ -248,9 +250,40 @@ Phases, each of which raises (exit code 1) on failure:
     profiled step (flash's share, the attention backward's device time,
     the idle share); the attention at one layer's shape against
     ``scaled_dot_product_attention`` forward + backward with ``is_causal``.
-39. prints the ``kernels`` JSON line (all four kernels), 40. the final
-``{"ok": true, ...}`` line.  The full record goes to
-``build/chip_smoke.json``.
+39. the SSD scan's backward kernel (``csrc/mamba_scan_bwd_sm90.cu``, under
+    the ``MambaScan`` autograd function of ``ops.mamba_scan``) against
+    autograd of the plain recurrence in f32 on the card, at zamba2's 4x1024
+    (80 heads, P = N = 64), a full reset (a_log = -30) and long-memory
+    decays: each gradient tensor within 1e-4·max|g_plain| (max|g_plain| at
+    least 1e-6 of the shape's largest), one forward and one backward launch
+    a call, two backward launches bit-equal; both gradients' distances
+    from the gradient in f64 printed.
+40. the same for the mLSTM scan's backward kernel
+    (``csrc/mlstm_scan_bwd_sm90.cu``, ``MLSTMScan``) at xlstm's 4x512 (4
+    heads of 512), forget-all (f_pre = -30) and long-memory gates; then
+    each backward kernel's time per shape against its bound (the fewer
+    operations of the adjoint recurrence and the chunked or pairwise form,
+    f32 at 67 TFLOP/s, against the bytes) and the plain backward's at the
+    training shape; no PyTorch call computes either gradient.
+41. training: zamba2-2.7b at full width and depth (54 layers, bf16) takes 3
+    steps at 4x1024 and one more, every one with remat (the plain step
+    runs out of the card's 80 GB): exactly 90 mamba_scan, 45 backward and
+    18 flash launches a step; loss, gradients and updates as phase 35.
+42. f32 twin: zamba2-2.7b at full width cut to one unit (6 layers) at
+    2x1024 against ``ops.plain()``, as phase 36.
+43. timings of phase 41's step as in phase 38 (every part with remat),
+    the profiled step's shares of the scan's forward and backward
+    kernels, flash and the plain attention backward.
+44. training: xlstm-1.3b at full width and depth (48 layers, bf16) takes 3
+    steps at 4x512 and one with remat: exactly 36 mlstm_scan and 36
+    backward launches a step (72 forward with remat); then the f32 twin of
+    one unit (4 layers) at 1x512 against ``ops.plain()``, as phase 36.
+45. timings of phase 44's step as in phase 43; the profiled step is one
+    unit's at full width (a step of all 48 layers records ~10^6 profiler
+    events).
+46. prints the ``kernels`` JSON line (the four kernels and the two
+    backward kernels), 47. the final ``{"ok": true, ...}`` line.  The full
+    record goes to ``build/chip_smoke.json``.
 
     python3 chip_smoke.py --conv-times
 
@@ -269,6 +302,11 @@ device time of each of the op's kernels, and the sums over one prefill.
     python3 chip_smoke.py --mlstm-times
 
 does the same for the mLSTM scan at every shape of phase 17 (MLSTM_ATOL).
+
+    python3 chip_smoke.py --xlstm-prefill-times
+
+times xlstm-1.3b's bf16 prefill at 1×2048 alone, through whatever
+``src/repro_torch`` lies beside this file, the same way.
 """
 
 from __future__ import annotations
@@ -601,6 +639,8 @@ def kernel_modules() -> dict:
 def zero_launches() -> None:
     for mod in kernel_modules().values():
         mod.launches = 0
+        if hasattr(mod, "backward_launches"):
+            mod.backward_launches = 0
     routes = kernel_modules()["flash_attention"].launches_by_kernel
     for route in routes:
         routes[route] = 0
@@ -613,7 +653,14 @@ def flash_route(cfg) -> str:
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    """Each kernel's launches, the scans' backward kernels as
+    ``<scan>_bwd``."""
+    counts = {}
+    for name, mod in kernel_modules().items():
+        counts[name] = mod.launches
+        if hasattr(mod, "backward_launches"):
+            counts[f"{name}_bwd"] = mod.backward_launches
+    return counts
 
 
 def card() -> str:
@@ -708,9 +755,31 @@ def build() -> tuple[float, dict]:
     check(len(mlstm) == 4
           and all(row.get("spill_bytes") == 0 for row in mlstm.values()),
           f"mlstm_scan_sm90 ptxas report: {mlstm}")
+    # The two scans' backward kernels, four launches each: registers,
+    # spills (none allowed) and dynamic shared memory.
+    backward = {}
+    for lib_name, pattern, phases in (
+            ("mamba_scan_bwd_sm90", r"(mamba_bwd_(?:chunk|pass|grad|"
+             r"head_sum)_kernel)", {"chunk": 1, "grad": 3}),
+            ("mlstm_scan_bwd_sm90", r"(mlstm_bwd_(?:gates|rows|cols|"
+             r"gate_grads)_kernel)", {"rows": 2, "cols": 3})):
+        report = ptxas_report(log, pattern, lambda m: m[1])
+        smem = getattr(lib, f"{lib_name}_smem_bytes")
+        for key, row in sorted(report.items()):
+            phase = next((n for name, n in phases.items()
+                          if f"_bwd_{name}_kernel" in key), 0)
+            row["dynamic_smem_bytes"] = smem(phase) if phase else 0
+            print(f"[build] {key}: {row.get('registers')} registers, "
+                  f"{row.get('spill_bytes')} B spilled, "
+                  f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
+        check(len(report) == 4
+              and all(row.get("spill_bytes") == 0 for row in report.values()),
+              f"{lib_name} ptxas report: {report}")
+        backward[lib_name] = report
     return secs, {"flash_attention_sm90": sm90, "flash_attention_f32": f32,
                   "fused_conv_sm90": conv,
-                  "mamba_scan_sm90": scan, "mlstm_scan_sm90": mlstm}
+                  "mamba_scan_sm90": scan, "mlstm_scan_sm90": mlstm,
+                  **backward}
 
 
 def ptxas_report(log: str, instance: str, key) -> dict:
@@ -1605,7 +1674,12 @@ DEVICE_KERNELS = {"mlstm_scan": ("mlstm_gates_scores_kernel",
                                  "mlstm_chunk_output_kernel")}
 
 
-def lm_timings(cfg, lm: dict, seq: int) -> dict:
+def lm_timings(cfg, lm: dict, seq: int, profile_lm: dict | None = None
+               ) -> dict:
+    """The prefill and a decode step with CUDA events, and one prefill
+    under torch.profiler: of ``profile_lm``'s model where given (a
+    depth-cut copy, for a forward whose events would take minutes to
+    read)."""
     from torch.profiler import ProfilerActivity, record_function
     model, net, batch = lm["model"], lm["net"], lm["batch"]
     prefill_ms = cuda_ms(lambda: model.forward(net, batch), iters=3,
@@ -1620,17 +1694,21 @@ def lm_timings(cfg, lm: dict, seq: int) -> dict:
           f"of 3); decode step at batch {SERVE_BATCH}: {decode_ms:.3f} ms "
           f"({SERVE_BATCH / decode_ms * 1e3:.1f} tokens/s; mean of 10)")
 
+    pl = profile_lm or lm
+    if profile_lm is not None:       # ``lm``'s model is warm from cuda_ms
+        pl["model"].forward(pl["net"], pl["batch"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         with record_function("prefill"), annotated_moe():
-            model.forward(net, batch)
+            pl["model"].forward(pl["net"], pl["batch"])
             torch.cuda.synchronize()
     events = prof.events()
     profile_s = time.perf_counter() - t0
-    print(f"[profile] {cfg.name} prefill: {len(events)} events recorded and "
-          f"read in {profile_s:.1f} s")
+    print(f"[profile] {pl['model'].cfg.name} prefill "
+          f"({pl['model'].cfg.num_layers} layers): {len(events)} events "
+          f"recorded and read in {profile_s:.1f} s")
     out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
            "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
            "profile_events": len(events), "profile_s": profile_s,
@@ -1640,7 +1718,7 @@ def lm_timings(cfg, lm: dict, seq: int) -> dict:
         prof_["split_us"] = moe_split(events, prof_)
     del events
     if prof_ is not None:
-        for name, n in lm["launches"].items():
+        for name, n in pl["launches"].items():
             if not n:
                 continue
             marks = DEVICE_KERNELS.get(name, (name,))
@@ -1905,26 +1983,10 @@ def mlstm_closed_form(shape, q, k, v, i_pre, f_pre):
     return v * kq / kq.abs().clamp_min(1.0)
 
 
-def mlstm_f64(q, k, v, i_pre, f_pre) -> torch.Tensor:
-    """The stabilised mLSTM recurrence of ``ref.mlstm_ref`` in f64."""
-    q, k, v, i_pre = (t.double() for t in (q, k, v, i_pre))
-    log_f = F.logsigmoid(f_pre.double())
-    b, s, H, P = q.shape
-    C = q.new_zeros((b, H, P, P))
-    n = q.new_zeros((b, H, P))
-    m = q.new_full((b, H), -1e30)
-    h = q.new_empty((b, s, H, P))
-    for t in range(s):
-        m_new = torch.maximum(log_f[:, t] + m, i_pre[:, t])
-        i_s = torch.exp(i_pre[:, t] - m_new)[..., None]
-        f_s = torch.exp(log_f[:, t] + m - m_new)[..., None]
-        C = f_s[..., None] * C + i_s[..., None] * (v[:, t, :, :, None]
-                                                  * k[:, t, :, None, :])
-        n = f_s * n + i_s * k[:, t]
-        den = (n * q[:, t]).sum(-1).abs().clamp_min(1.0)
-        h[:, t] = (C @ q[:, t, :, :, None])[..., 0] / den[..., None]
-        m = m_new
-    return h
+def in_f64(plain):
+    """``plain`` (a plain recurrence of ``kernels/ref.py``) on its inputs
+    cast to f64: the recurrence in f64."""
+    return lambda *args: plain(*(t.double() for t in args))
 
 
 def mlstm_ops(b: int, s: int, H: int, P: int) -> tuple[int, str]:
@@ -2073,6 +2135,26 @@ def scan_times() -> None:
                      lambda shape: scan_bounds(shape, hcfg), "bf16x3")
 
 
+def xlstm_prefill_times() -> None:
+    """xlstm-1.3b's bf16 prefill at 1 x XLSTM_PREFILL_S, full width and
+    depth, random weights from SEED, through whatever ``src/repro_torch``
+    lies beside this file (a copy of this script beside an older checkout
+    times that checkout's, in the same call): CUDA events, mean of 3 after
+    one warm-up."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(XLSTM_CONFIG)
+    model = build_model(cfg)
+    net = model.init(seed=SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, XLSTM_PREFILL_S),
+                           generator=g, device="cuda")
+    ms = cuda_ms(lambda: model.forward(net, {"tokens": tokens}), iters=3,
+                 warmup=1)
+    print(f"[time] {cfg.name} bf16 prefill 1x{XLSTM_PREFILL_S} through "
+          f"{ROOT / 'src'}: {ms:.2f} ms (CUDA events, mean of 3)")
+
+
 def mlstm_times() -> None:
     """``recurrence_times`` for the mLSTM scan at every shape of phase 17,
     each also against the recurrence in f64."""
@@ -2086,7 +2168,7 @@ def mlstm_times() -> None:
                      lambda i, shape: mlstm_inputs(i, shape, xcfg),
                      mlstm_closed_form, MLSTM_ATOL, MLSTM_CLOSED_NOTE,
                      lambda shape: mlstm_bounds(shape, xcfg),
-                     "kernel arithmetic", exact=mlstm_f64)
+                     "kernel arithmetic", exact=in_f64(mlstm_ref))
 
 
 def decoder_lm_paths(smi: str) -> dict:
@@ -2380,21 +2462,32 @@ def below_half_ulp(state: dict, ts, lr: float, i: int) -> bool:
         (lr * delta.abs() < BF16_HALF_ULP * p.abs()).all())
 
 
-def train_path(smi: str) -> dict:
-    """Phase 35: minicpm-2b at full width and depth in bf16 takes
-    TRAIN_STEPS steps of ``make_train_step`` at TRAIN_ROWS x TRAIN_SEQ and
-    one more with remat: each step exactly one flash launch per layer on
-    the tensor-core route (two with remat), loss and grad_norm finite;
-    every leaf changes, or its last update was under half a bf16 ulp of
-    every weight; every leaf gets a gradient of nonzero finite norm."""
+def step_launches(expect: dict[str, int], remat: bool) -> dict[str, int]:
+    """A train step's launches from ``expect``, one forward's and one
+    backward's: with remat every forward kernel runs again in the
+    backward."""
+    return {k: n * (2 if remat and not k.endswith("_bwd") else 1)
+            for k, n in expect.items()}
+
+
+def train_path(smi: str, cfg, rows: int, seq: int, expect: dict[str, int],
+               remat: bool = False) -> dict:
+    """Phases 35, 41 and 44: ``cfg`` at full width and depth in bf16 takes
+    TRAIN_STEPS steps of ``make_train_step`` at ``rows`` x ``seq`` and one
+    more with remat (with ``remat``, for a config whose plain step does not
+    fit on the card, every step and the gradient take it): each step
+    exactly ``expect`` launches of each kernel (``step_launches``), flash on
+    its dtype's route; loss and grad_norm finite; every leaf changes, or
+    its last update was under half a bf16 ulp of every weight; every leaf
+    gets a gradient of nonzero finite norm."""
     from repro_torch import tree
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import batch_for_step
     from repro_torch.models.api import param_count
     from repro_torch.train.trainer import (init_train_state, make_grad_fn,
                                            make_train_step)
-    cfg = get_config(TRAIN_CONFIG)
     model, ts = train_setup(cfg)
+    ts = dataclasses.replace(ts, remat=remat)
+    route = flash_route(cfg) if expect.get("flash_attention") else None
     t0 = time.perf_counter()
     lm = model.init(seed=SEED)
     torch.cuda.synchronize()
@@ -2405,43 +2498,50 @@ def train_path(smi: str) -> dict:
     check(all(a is b for a, b in zip(tree.leaves(model.bind(
         state["params"]).params), tree.leaves(lm.params))),
         "the train state does not hold the model's own tensors")
-    print(f"[train] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-          f"{cfg.num_heads} heads of {cfg.resolved_head_dim}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings, "
+    print(f"[train] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads, vocab {cfg.vocab_size}, "
           f"{cfg.param_dtype}: {n_params} parameters; init from seed {SEED} "
           f"in {init_s:.1f} s; AdamW lr {TRAIN_LR}, {cfg.lr_schedule} "
           f"schedule (warmup {TRAIN_WARMUP}, total {TRAIN_TOTAL}); batch "
-          f"{TRAIN_ROWS}x{TRAIN_SEQ} from batch_for_step")
+          f"{rows}x{seq} from batch_for_step; launches a forward and "
+          f"backward {expect}"
+          + ("; every step with remat: the plain step does not fit in the "
+             "card's memory" if remat else ""))
     torch.cuda.reset_peak_memory_stats()
-    steps, n_layers = [], cfg.num_layers
+    steps = []
     for s in range(TRAIN_STEPS + 1):
-        remat = s == TRAIN_STEPS
-        step_fn = make_train_step(model, dataclasses.replace(ts, remat=remat))
-        batch = batch_for_step(cfg, s, TRAIN_ROWS, TRAIN_SEQ)
+        step_remat = ts.remat or s == TRAIN_STEPS
+        step_fn = make_train_step(model, dataclasses.replace(
+            ts, remat=step_remat))
+        batch = batch_for_step(cfg, s, rows, seq)
         torch.cuda.synchronize()
+        if s == TRAIN_STEPS:
+            plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
         zero_launches()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = check_launches({"flash_attention":
-                                   (2 if remat else 1) * n_layers},
-                                  f"{cfg.name} train step {s}", "wgmma_bf16")
-        row = {"step": s, "remat": remat, "s": secs,
-               "launches": launches["flash_attention"],
+        launches = check_launches(step_launches(expect, step_remat),
+                                  f"{cfg.name} train step {s}", route)
+        row = {"step": s, "remat": step_remat, "s": secs,
+               "launches": {k: n for k, n in launches.items() if n},
                **{k: float(metrics[k]) for k in ("loss", "aux_loss",
                                                   "grad_norm", "lr")}}
-        print(f"[train] step {s}{' (remat)' if remat else ''}: loss "
+        print(f"[train] step {s}{' (remat)' if step_remat else ''}: loss "
               f"{row['loss']:.4f}, grad_norm {row['grad_norm']:.4f}, lr "
               f"{row['lr']:.3e}, {secs * 1e3:.1f} ms (host clock, first "
-              f"calls included), flash launches {row['launches']} on "
-              f"wgmma_bf16")
+              f"calls included), launches {row['launches']}"
+              + (f" flash on {route}" if route else ""))
         check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
               f"step {s}: loss or grad_norm not finite")
         steps.append(row)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[train] peak device memory over the steps "
-          f"(torch.cuda.max_memory_allocated): {peak_gb:.2f} GB")
+    remat_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] peak device memory (torch.cuda.max_memory_allocated): "
+          f"{plain_peak_gb:.2f} GB over steps 0-{TRAIN_STEPS - 1}"
+          f"{' (remat)' if ts.remat else ''}, {remat_peak_gb:.2f} GB in the "
+          f"remat step")
     moved, kept = 0, []
     names = list(leaf_names(state["params"]))
     for i, (old, new) in enumerate(zip(before, tree.leaves(state["params"]))):
@@ -2459,8 +2559,8 @@ def train_path(smi: str) -> dict:
     zero_launches()
     loss, _, grads = make_grad_fn(model, ts)(state["params"], batch)
     torch.cuda.synchronize()
-    check_launches({"flash_attention": n_layers}, f"{cfg.name} gradient",
-                   "wgmma_bf16")
+    check_launches(step_launches(expect, ts.remat), f"{cfg.name} gradient",
+                   route)
     norms = [torch.linalg.vector_norm(g, dtype=torch.float32).item()
              for g in tree.leaves(grads)]
     del grads
@@ -2471,9 +2571,10 @@ def train_path(smi: str) -> dict:
           f"gradient; the smallest norm {norms[low]:.3e} ({names[low]})")
     torch.cuda.empty_cache()
     return {"cfg": cfg, "model": model, "ts": ts, "state": state,
-            "batch": batch, "params": n_params,
+            "batch": batch, "params": n_params, "rows": rows, "seq": seq,
             "record": {"init_s": init_s, "params": n_params,
-                       "steps": steps, "peak_gb": peak_gb,
+                       "steps": steps, "peak_gb": plain_peak_gb,
+                       "remat_peak_gb": remat_peak_gb,
                        "leaves_changed": moved, "leaves_kept": kept,
                        "grad_norm_min": norms[low]}}
 
@@ -2506,27 +2607,27 @@ def annotated_attention_backward():
         ref.attention_ref_grad = grad
 
 
-def train_timings(tp: dict, smi: str) -> dict:
-    """Phase 38, printed and not held: the step's time, tokens/s and its
-    share of the 6·N·tokens FLOPs at 989 TFLOP/s; forward, backward and
-    optimizer apart; one step under torch.profiler (flash's share of device
-    time, the attention backward's, the idle share); and the attention at
-    one layer's shape: the kernel, the autograd function's forward and
-    backward, the backward alone, the plain version and SDPA's forward
-    and backward with ``is_causal`` (a yardstick the port never calls; the
-    same function, as minicpm has no softcap)."""
-    from torch.profiler import ProfilerActivity, record_function
-
+def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
+                  profile_tp: dict | None = None) -> dict:
+    """Phases 38, 43 and 45, printed and not held: the step's time,
+    tokens/s and its share of the 6·N·tokens FLOPs at 989 TFLOP/s;
+    forward, backward and optimizer apart; one step under torch.profiler
+    (the top kernels, the share of device time of each kernel named by
+    ``marks`` (label -> substrings of device kernel names), the attention
+    backward's, the idle share), of ``profile_tp``'s model where given."""
     from repro_torch import tree
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import attention_ref_grad
     from repro_torch.optim.adamw import adamw_update
     from repro_torch.optim.schedule import make_schedule
-    from repro_torch.train.trainer import make_loss_fn, make_train_step
+    from repro_torch.train.trainer import cross_entropy, make_train_step
     cfg, model, ts, state, batch = (tp[k] for k in ("cfg", "model", "ts",
                                                     "state", "batch"))
+
+    def loss_fn(params):
+        logits, aux = model.forward(model.bind(params), batch,
+                                    remat=ts.remat)
+        return cross_entropy(logits, batch["labels"]) + aux
     step_fn = make_train_step(model, ts)
-    tokens = TRAIN_ROWS * TRAIN_SEQ
+    tokens = tp["rows"] * tp["seq"]
     secs = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -2549,7 +2650,7 @@ def train_timings(tp: dict, smi: str) -> dict:
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, _ = make_loss_fn(model)(state["params"], batch)
+        loss = loss_fn(state["params"])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         leaves = tree.leaves(state["params"])
@@ -2570,57 +2671,93 @@ def train_timings(tp: dict, smi: str) -> dict:
     # AdamW must read p and g (bf16) and m and v (f32) and write p, m, v:
     # 22 bytes a parameter
     opt_bound_ms = 22 * tp["params"] / PEAK_BYTES * 1e3
-    print(f"[time] {cfg.name} train step {TRAIN_ROWS}x{TRAIN_SEQ}, {smi}: "
+    print(f"[time] {cfg.name} train step {tp['rows']}x{tp['seq']}, {smi}: "
           f"{step_ms:.1f} ms (host clock around a synchronised step, mean of "
           f"2), {tokens / step_ms * 1e3:.0f} tokens/s; 6*N*tokens = "
-          f"{model_flops:.3e} FLOP, {mfu:.3f} of {PEAK_BF16_OPS / 1e12:.0f} "
+          f"{model_flops:.3e} FLOP, {mfu:.4f} of {PEAK_BF16_OPS / 1e12:.0f} "
           f"TFLOP/s; forward {parts_ms['forward']:.1f} ms, backward "
           f"{parts_ms['backward']:.1f} ms, optimizer "
           f"{parts_ms['optimizer']:.1f} ms (mean of 2 each; its bound "
           f"{opt_bound_ms:.1f} ms, 22 bytes a parameter); with remat "
-          f"{remat_ms:.1f} ms (one step, after its first call)")
+          f"{remat_ms:.1f} ms (one step, after its first call)"
+          + (" (every step here takes remat)" if ts.remat else ""))
+    tp["state"] = state
+    prof_ = profile_step(profile_tp or tp, marks)
+    return {"step_ms": step_ms, "remat_step_ms": remat_ms,
+            "optimizer_bound_ms": opt_bound_ms,
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "model_flops": model_flops, "mfu": mfu, "parts_ms": parts_ms,
+            "profile": prof_}
 
+
+def profile_step(tp: dict, marks: dict[str, tuple[str, ...]]) -> dict | None:
+    """One train step of ``tp``'s model under torch.profiler: the top
+    kernels, the idle share, each of ``marks``' share of device time and
+    the attention backward's (the plain f32 gradient of flash's autograd
+    function, by its profiler range)."""
+    from torch.profiler import ProfilerActivity, record_function
+
+    from repro_torch.train.trainer import make_train_step
+    cfg, state, batch = tp["cfg"], tp["state"], tp["batch"]
+    step_fn = make_train_step(tp["model"], tp["ts"])
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         with record_function("train_step"), annotated_attention_backward():
             state, _ = step_fn(state, batch)
             torch.cuda.synchronize()
+    tp["state"] = state
     events = prof.events()
+    print(f"[profile] {cfg.name} ({cfg.num_layers} layers) train step: "
+          f"{len(events)} events recorded and read in "
+          f"{time.perf_counter() - t0:.1f} s")
     prof_ = device_breakdown(events, "train_step", 1)
-    if prof_ is not None:
-        flash_us = sum(k["us"] for k in prof_["all_kernels"]
-                       if "flash_attention" in k["name"])
-        bwd_us = 0.0
-        for e in events:
-            if e.device_type != torch.autograd.DeviceType.CPU or \
-                    not e.kernels:
-                continue
-            q = e
-            while q is not None and q.name != FLASH_BACKWARD_RANGE:
-                q = q.cpu_parent
-            if q is not None:
-                bwd_us += sum(k.duration for k in e.kernels)
-        busy = prof_["device_busy_us"]
-        prof_.update(flash_us=flash_us, flash_share_of_busy=flash_us / busy,
-                     attention_backward_us=bwd_us,
-                     attention_backward_share_of_busy=bwd_us / busy)
-        del prof_["all_kernels"]
-        print(f"[profile] train step: flash forward kernel "
-              f"{flash_us / 1e3:.2f} ms ({flash_us / busy:.3f} of "
-              f"{busy / 1e3:.1f} ms busy), the attention backward (plain, "
-              f"f32) {bwd_us / 1e3:.2f} ms ({bwd_us / busy:.3f}), idle share "
-              f"{prof_['idle_share']:.3f}")
-    else:
+    if prof_ is None:
         print("[profile] the profiler recorded no device time: not measured")
-    del events, prof
+        return None
+    busy = prof_["device_busy_us"]
+    shares = {}
+    for label, names in marks.items():
+        us = sum(k["us"] for k in prof_["all_kernels"]
+                 if any(n in k["name"] for n in names))
+        shares[label] = {"us": us, "share_of_busy": us / busy}
+    bwd_us = 0.0
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        q = e
+        while q is not None and q.name != FLASH_BACKWARD_RANGE:
+            q = q.cpu_parent
+        if q is not None:
+            bwd_us += sum(k.duration for k in e.kernels)
+    shares["attention backward (plain, f32)"] = {
+        "us": bwd_us, "share_of_busy": bwd_us / busy}
+    prof_["shares"] = shares
+    del prof_["all_kernels"], events, prof
+    print(f"[profile] train step, of {busy / 1e3:.1f} ms device busy: "
+          + "; ".join(f"{k} {v['us'] / 1e3:.2f} ms ({v['share_of_busy']:.3f})"
+                      for k, v in shares.items())
+          + f"; idle share {prof_['idle_share']:.3f}")
+    return prof_
 
+
+def attention_timings(tp: dict, smi: str) -> dict:
+    """Phase 38's yardstick: the attention at one layer's shape of ``tp``'s
+    model: the kernel, the autograd function's forward and backward, the
+    backward alone, the plain version and SDPA's forward and backward with
+    ``is_causal`` (a yardstick the port never calls; the same function, as
+    minicpm has no softcap)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref_grad
+    cfg = tp["cfg"]
+    rows, seq = tp["rows"], tp["seq"]
     H, D = cfg.num_heads, cfg.resolved_head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED + 950)
-    q, k, v, do = (torch.randn(TRAIN_ROWS, TRAIN_SEQ, H, D, generator=g,
+    q, k, v, do = (torch.randn(rows, seq, H, D, generator=g,
                                device="cuda").bfloat16() for _ in range(4))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    q3, k3, v3, do3 = (t.transpose(1, 2).reshape(-1, TRAIN_SEQ, D)
+    q3, k3, v3, do3 = (t.transpose(1, 2).reshape(-1, seq, D)
                        .contiguous() for t in (q, k, v, do))
     q4, k4, v4 = (t.transpose(1, 2).detach().clone().requires_grad_()
                   for t in (q, k, v))
@@ -2643,13 +2780,13 @@ def train_timings(tp: dict, smi: str) -> dict:
            "library_fwd_bwd_ms": cuda_ms(
                lambda: F.scaled_dot_product_attention(
                    q4, k4, v4, is_causal=True).backward(do4), iters=10)}
-    bh = TRAIN_ROWS * H
-    pairs = flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, 0)
+    bh = rows * H
+    pairs = flash_pairs(seq, seq, True, 0)
     # forward 2 products (4·D per visible pair), backward 5 (S again, dP,
     # dV, dQ, dK: 10·D); q, k, v, dO read, O, dQ, dK, dV written, bf16
-    att.update(roofline(14 * D * bh * pairs, 2 * D * bh * TRAIN_SEQ * 8,
+    att.update(roofline(14 * D * bh * pairs, 2 * D * bh * seq * 8,
                         PEAK_BF16_OPS))
-    print(f"[time] attention at one layer's shape ({TRAIN_ROWS}x{TRAIN_SEQ}, "
+    print(f"[time] attention at one layer's shape ({rows}x{seq}, "
           f"{H} heads of {D}, causal, bf16), {smi}: flash forward kernel "
           f"{att['forward_ms']:.4f} ms; forward + backward through the "
           f"autograd function {att['fwd_bwd_ms']:.4f} ms, of which the plain "
@@ -2660,32 +2797,27 @@ def train_timings(tp: dict, smi: str) -> dict:
           f"step: {att['fwd_bwd_ms'] * cfg.num_layers:.1f} ms against SDPA's "
           f"{att['library_fwd_bwd_ms'] * cfg.num_layers:.1f}")
     del q, k, v, do, leaves, q3, k3, v3, do3, q4, k4, v4, do4
-    tp["state"] = state
-    return {"step_ms": step_ms, "remat_step_ms": remat_ms,
-            "optimizer_bound_ms": opt_bound_ms,
-            "tokens_per_s": tokens / step_ms * 1e3,
-            "model_flops": model_flops, "mfu": mfu, "parts_ms": parts_ms,
-            "profile": prof_, "attention": att}
+    return att
 
 
-def train_twin_path() -> dict:
-    """Phase 36: minicpm-2b at full width cut to TRAIN_TWIN_LAYERS layers,
-    in f32 (flash on the CUDA-core route): one gradient and one train step
-    through the kernel path and the same under ``ops.plain()`` from the
-    same state: the loss within TRAIN_LOSS_RTOL relative, every gradient
-    leaf within TRAIN_GRAD_RTOL·max|g_plain|, the new parameters within
-    2·lr + 1e-6 (JAX's bound for an AdamW step whose gradient flips sign),
-    and every leaf changed.  This carries the training path's
-    correctness."""
+def train_twin_path(name: str, layers: int, rows: int, seq: int,
+                    expect: dict[str, int]) -> dict:
+    """Phases 36, 42 and 44: ``name`` at full width cut to ``layers``
+    layers, in f32 (flash on the CUDA-core route): one gradient and one
+    train step at ``rows`` x ``seq`` through the kernel path (``expect``
+    launches) and the same under ``ops.plain()`` (none) from the same
+    state: the loss within TRAIN_LOSS_RTOL relative, every gradient leaf
+    within TRAIN_GRAD_RTOL·max|g_plain|, the new parameters within 2·lr +
+    1e-6 (JAX's bound for an AdamW step whose gradient flips sign), and
+    every leaf changed.  This carries the training path's correctness."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import batch_for_step
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import (init_train_state, make_grad_fn,
                                            make_train_step)
-    cfg = dataclasses.replace(get_config(TRAIN_CONFIG),
-                              name=f"{TRAIN_CONFIG}-f32-twin",
-                              num_layers=TRAIN_TWIN_LAYERS, dtype="float32",
+    cfg = dataclasses.replace(get_config(name), name=f"{name}-f32-twin",
+                              num_layers=layers, dtype="float32",
                               param_dtype="float32")
     model, ts = train_setup(cfg)
     kern, plain = (init_train_state(model, model.init(seed=SEED), ts)
@@ -2694,16 +2826,16 @@ def train_twin_path() -> dict:
                                                 tree.leaves(plain))),
           "two inits from one seed differ")
     before = [p.detach().clone() for p in tree.leaves(kern["params"])]
-    batch = batch_for_step(cfg, 0, TRAIN_ROWS, TRAIN_SEQ)
+    batch = batch_for_step(cfg, 0, rows, seq)
     grad_fn, step_fn = make_grad_fn(model, ts), make_train_step(model, ts)
-    expect = {"flash_attention": TRAIN_TWIN_LAYERS}
+    route = flash_route(cfg) if expect.get("flash_attention") else None
     zero_launches()
     lk, _, gk = grad_fn(kern["params"], batch)
     torch.cuda.synchronize()
-    check_launches(expect, f"{cfg.name} gradient", "simt_f32")
+    check_launches(expect, f"{cfg.name} gradient", route)
     with ops.plain():
         lp, _, gp = grad_fn(plain["params"], batch)
-    check_launches(expect, f"{cfg.name} plain gradient", "simt_f32")
+    check_launches(expect, f"{cfg.name} plain gradient", route)
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
     grad_used = max(((a - b).abs().max() / b.abs().max()).item()
                     for a, b in zip(tree.leaves(gk), tree.leaves(gp))) \
@@ -2712,7 +2844,7 @@ def train_twin_path() -> dict:
     zero_launches()
     kern, mk = step_fn(kern, batch)
     torch.cuda.synchronize()
-    check_launches(expect, f"{cfg.name} train step", "simt_f32")
+    check_launches(expect, f"{cfg.name} train step", route)
     with ops.plain():
         plain, mp = step_fn(plain, batch)
     lr = float(mk["lr"])
@@ -2720,8 +2852,8 @@ def train_twin_path() -> dict:
         tree.leaves(kern["params"]), tree.leaves(plain["params"])))
     changed = sum(not torch.equal(a, b.detach()) for a, b in zip(
         before, tree.leaves(kern["params"])))
-    print(f"[train] {cfg.name} ({TRAIN_TWIN_LAYERS} layers at full width, "
-          f"f32, {TRAIN_ROWS}x{TRAIN_SEQ}) kernel path vs ops.plain(): loss "
+    print(f"[train] {cfg.name} ({layers} layers at full width, f32, "
+          f"{rows}x{seq}) kernel path vs ops.plain(): loss "
           f"{lk.item():.6f} vs {lp.item():.6f} (rel {loss_rel:.2e}, limit "
           f"{TRAIN_LOSS_RTOL}); gradients limit used {grad_used:.3f} (per "
           f"leaf, of {TRAIN_GRAD_RTOL}*max|g_plain|); step loss "
@@ -2808,19 +2940,340 @@ def restart_path() -> dict:
             "restarted_s": again["s"], "launches": clean["launches"]}
 
 
+# --- zamba2-2.7b and xlstm-1.3b training: the scans' backward kernels -----------
+
+HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ = 4, 1024
+XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ = 4, 512
+HYBRID_TWIN_LAYERS = 6     # one unit: five Mamba2 layers and an attention
+XLSTM_TWIN_LAYERS = 4      # one unit: three mLSTM layers and an sLSTM
+# The twins' rows: under ops.plain() autograd keeps every step's state of
+# each scan layer, 10.7 GB a Mamba2 layer at 4x1024 (80 heads of 64 x 64,
+# two a step) and ~25 GB an mLSTM layer at 4x512 (4 heads of 512 x 512).
+HYBRID_TWIN_ROWS, XLSTM_TWIN_ROWS = 2, 1
+SCAN_GRAD_RTOL = 1e-4      # per gradient tensor, of max|g_plain|
+# max|g_plain| is taken as at least GRAD_ZERO of the shape's largest
+# gradient: at forget-all i_t sets m_t and cancels, and the plain f32
+# gradient of i_pre is rounding (~1e-10, 73% off the f64 gradient in
+# tests/test_torch_mlstm_scan.py's emulation); at the full reset d a_log is
+# ~1e-12.
+GRAD_ZERO = 1e-6
+# The backward kernels against autograd of the plain recurrence in f32:
+# name, launches per train step, b, S, and a_log (None: -softplus(N(0, 1));
+# "long": long-memory decays; a float: that constant) or f_pre (None: N(0,
+# 1) + 2; "long": + 4; a float: that constant) and the i_pre scale.
+SCAN_GRAD_SHAPES = [
+    ("zamba2_train_4x1024", 45, 4, 1024, None),
+    ("reset_a-30_1x1024", 0, 1, 1024, -30.0),
+    ("long_memory_1x1024", 0, 1, 1024, "long"),
+]
+MLSTM_GRAD_SHAPES = [
+    ("xlstm_train_4x512", 36, 4, 512, None, 1.0),
+    ("forget_all_1x512", 0, 1, 512, -30.0, 1.0),
+    ("long_memory_1x512", 0, 1, 512, "long", 1.0),
+]
+
+
+def plain_grads(fn, args, dout, dtype) -> list[torch.Tensor]:
+    """Autograd of ``fn`` in ``dtype``, one batch row at a time (the rows
+    are independent; the plain recurrences keep every step's state)."""
+    out = [[] for _ in args]
+    for j in range(args[0].shape[0]):
+        leaves = [t[j:j + 1].detach().to(dtype).clone().requires_grad_()
+                  for t in args]
+        fn(*leaves).backward(dout[j:j + 1].to(dtype))
+        for acc, t in zip(out, leaves):
+            acc.append(t.grad)
+        del leaves
+    return [torch.cat(g) for g in out]
+
+
+def backward_check(tag: str, op, plain, mod, shapes, inputs,
+                   names: tuple[str, ...]) -> list[dict]:
+    """Phases 39 and 40: per shape the gradient through ``op`` (the scan
+    kernel under its autograd function, the backward kernel in its
+    backward) against autograd of ``plain`` in f32 on the same values,
+    each gradient tensor within SCAN_GRAD_RTOL·max|g_plain| (at least
+    GRAD_ZERO of the shape's largest); two backward launches bit-equal;
+    both gradients' distances from autograd of ``plain`` in f64 printed,
+    each in units of its tensor's max|g_f64|."""
+    print(f"[{tag}] limits, per gradient tensor against autograd of the "
+          f"plain recurrence in f32 on the same values: |kernel - plain| <= "
+          f"{SCAN_GRAD_RTOL}*max|g_plain| (max|g_plain| at least "
+          f"{GRAD_ZERO} of the shape's largest gradient); two backward "
+          f"launches bit-equal; distances from the f64 gradient printed")
+    rows = []
+    for i, shape in enumerate(shapes):
+        name, count, b, s = shape[:4]
+        args = inputs(i, shape)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 960 + i)
+        dout = torch.randn(args[0].shape, generator=g, device="cuda")
+        before = (mod.launches, mod.backward_launches)
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_() for t in args]
+            op(*leaves).backward(dout)
+            runs.append([t.grad for t in leaves])
+            del leaves
+        torch.cuda.synchronize()
+        moved = (mod.launches - before[0], mod.backward_launches - before[1])
+        check(moved == (2, 2), f"{name}: forward and backward launches "
+              f"moved {moved}, want (2, 2)")
+        check(all(torch.equal(a, c) for a, c in zip(*runs)),
+              f"{name}: two backward launches differ")
+        got = runs[0]
+        del runs
+        refs = plain_grads(plain, args, dout, torch.float32)
+        r64 = plain_grads(plain, args, dout, torch.float64)
+        top = max(r.abs().max().item() for r in refs)
+        errs, used, k64, p64 = {}, 0.0, {}, {}
+        for n, t, ref, e in zip(names, got, refs, r64):
+            check(t.shape == ref.shape and t.dtype == torch.float32,
+                  f"{name}: d{n} {tuple(t.shape)} {t.dtype}")
+            check(bool(torch.isfinite(t).all()), f"{name}: d{n} not finite")
+            errs[n] = (t - ref).abs().max().item()
+            limit = SCAN_GRAD_RTOL * max(ref.abs().max().item(),
+                                         GRAD_ZERO * top)
+            used = max(used, errs[n] / limit)
+            scale = max(e.abs().max().item(), 1e-300)
+            k64[n] = (t.double() - e).abs().max().item() / scale
+            p64[n] = (ref.double() - e).abs().max().item() / scale
+        print(f"[{tag}] {name:20s} {tuple(args[0].shape)} max_abs_err "
+              + ", ".join(f"d{n} {e:.2e}" for n, e in errs.items())
+              + f"; limit used {used:.4f}; vs f64 (of max|g_f64|): kernel "
+              + ", ".join(f"{v:.1e}" for v in k64.values()) + "; plain "
+              + ", ".join(f"{v:.1e}" for v in p64.values()))
+        check(used <= 1.0, f"{name}: backward kernel vs plain exceeds its "
+              f"limit {used:.3f}-fold")
+        rows.append({"name": name, "per_forward": count, "batch": b, "S": s,
+                     "max_abs_err": max(errs.values()), "errors": errs,
+                     "limit_used": used, "kernel_vs_f64": k64,
+                     "plain_vs_f64": p64})
+        del args, dout, got, refs, r64
+    torch.cuda.empty_cache()
+    return rows
+
+
+def scan_bwd_bounds(shape, cfg) -> dict:
+    """The SSD scan's gradient: dy and the inputs read once, the four
+    gradients written once, and the fewer operations of two ways: the
+    adjoint recurrence at 13·P·N a step and head (the state again 3, its
+    adjoint 2, dx, dB, dC and d a_log 2 each), or the chunked form at the
+    kernel's chunk (per chunk and head the causal pairs' dy·x, dx, dB and
+    dC, 2·L(L+1)/2·(2P + 2N), ten products of 2·L·P·N for the states, the
+    adjoints and the carries, and C·Bᵀ once per chunk).  The bound is
+    reckoned as ``scan_bounds`` reckons the forward's: that work as three
+    bf16 products on the tensor cores, against the bytes;
+    ``bound_f32_ms`` is the same work in f32 on the CUDA cores, the route
+    the kernel takes; ``ops`` is the f32 work, for TFLOP/s."""
+    from repro_torch.models.ssm import ssm_dims
+    _, _, b, s, _ = shape
+    _, H, P, N = ssm_dims(cfg)
+    L = 64
+    lens = [min(L, s - t0) for t0 in range(0, s, L)]
+    chunked = b * sum(l * (l + 1) * N + H * (l * (l + 1) * (2 * P + 2 * N)
+                                             + 20 * l * P * N)
+                      for l in lens)
+    recurrence = b * H * s * 13 * P * N
+    ops_ = min(chunked, recurrence)
+    nbytes = 4 * b * s * (3 * H * P + 2 * H + 4 * N)
+    f32 = roofline(ops_, nbytes)
+    return {**roofline(3 * ops_, nbytes, peak=PEAK_BF16_OPS), "ops": ops_,
+            "ops_form": "chunked at 64" if chunked < recurrence
+            else "recurrence", "bound_f32_ms": f32["bound_ms"],
+            "bound_f32_by": f32["bound_by"]}
+
+
+def mlstm_bwd_kernel_ms(b: int, s: int, H: int, P: int) -> tuple[float, int]:
+    """The least time the gradient's arithmetic could take, reckoned as
+    ``mlstm_kernel_ms`` reckons the forward's, and the chunk at which (a
+    chunk of S is the pairs form): per chunk of L steps and head the
+    causal scores q·kᵀ again (L(L+1)·P) in f64 at the f32 CUDA cores'
+    67 TFLOP/s; as three TF32 products at 495 TFLOP/s the four other pair
+    products (dnum·vᵀ, dS·k, dSᵀ·q and the weighted dnum into dv,
+    4·L(L+1)·P), where a state enters the chunk C's adjoint on q and the
+    carry of dC (4·L·P²), and where a later chunk follows the state's
+    carry and dk, dv from the carried dC (6·L·P²); the gates and the
+    denominators, 20·L, at 67 TFLOP/s."""
+    best = None
+    for Q in (*MLSTM_CHUNKS, s):
+        scores = tc = rest = 0
+        for t0 in range(0, s, Q):
+            L = min(Q, s - t0)
+            scores += L * (L + 1) * P
+            tc += 4 * L * (L + 1) * P + (4 * L * P * P if t0 else 0) \
+                + (6 * L * P * P if t0 + L < s else 0)
+            rest += 20 * L
+        ms = b * H * ((scores + rest) / PEAK_F32_OPS
+                      + 3 * tc / PEAK_TF32_OPS) * 1e3
+        if best is None or ms < best[0]:
+            best = (ms, Q)
+    return best
+
+
+def mlstm_bwd_bounds(shape, cfg) -> dict:
+    """The mLSTM scan's gradient: dh, q, k, v, h and the gates read once,
+    the five gradients written once; the bound is the arithmetic as
+    ``mlstm_bwd_kernel_ms`` counts it, against the bytes; ``ops`` is the
+    f32 work, the fewer of two ways: the pairs (t, s <= t) at 10·P each
+    (q·k, dnum·v, dq, dk, dv) and O(S) for the gates, or the adjoint
+    recurrence at 10·P² a step and head; ``bound_f32_ms`` is that work in
+    f32 on the CUDA cores, the route the kernel takes."""
+    _, _, b, s, _, _ = shape
+    H, P = cfg.num_heads, cfg.d_model // cfg.num_heads
+    pairs = b * H * (s * (s + 1) // 2 * 10 * P + 20 * s)
+    recurrence = b * H * s * 10 * P * P
+    ops_ = min(pairs, recurrence)
+    nbytes = 4 * b * s * H * (8 * P + 4)
+    f32 = roofline(ops_, nbytes)
+    ops_ms, chunk = mlstm_bwd_kernel_ms(b, s, H, P)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"ops": ops_, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_chunk": chunk,
+            "ops_form": "pairs" if pairs < recurrence else "recurrence",
+            "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"]}
+
+
+def backward_timings(rows: list[dict], shapes, inputs, plain, bwd_kernel,
+                     bounds, output=None) -> None:
+    """Per shape the backward kernel alone (CUDA events, on the forward's
+    inputs, ``output(*inputs)`` where the kernel also takes the forward's
+    output, and a random output gradient) against its bound, and at the
+    first (training) shape the plain version's backward: autograd of the
+    plain recurrence on a kept graph."""
+    for i, (shape, row) in enumerate(zip(shapes, rows)):
+        args = inputs(i, shape)
+        dout = torch.randn_like(args[0])
+        extra = (output(*args),) if output else ()
+        row.update(bounds(shape))
+        row["ms"] = cuda_ms(lambda: bwd_kernel(dout, *args, *extra), iters=10)
+        row["plain_ms"] = None
+        if i == 0:
+            leaves = [t.clone().requires_grad_() for t in args]
+            out = plain(*leaves)
+            row["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out, leaves, dout, retain_graph=True), iters=2, warmup=1)
+            del leaves, out
+        row["library_ms"] = None
+        print(f"[time] backward {row['name']:20s} x{row['per_forward']:<2d} "
+              f"kernel {row['ms']:.4f} ms ({row['ops'] / row['ms'] / 1e9:.2f} "
+              f"TFLOP/s), bound {row['bound_ms']:.4f} ({row['bound_by']}; "
+              f"{row['ops']:.4g} operations, {row['ops_form']}; f32 CUDA "
+              f"cores {row['bound_f32_ms']:.4f})"
+              + (f"; plain backward {row['plain_ms']:.2f} ms"
+                 if row["plain_ms"] is not None else ""))
+        del args, dout, extra
+    torch.cuda.empty_cache()
+
+
+HYBRID_MARKS = {"mamba_scan forward": ("mamba_scan_chunk_state",
+                                       "mamba_scan_state_pass",
+                                       "mamba_scan_chunk_output"),
+                "mamba_scan backward": ("mamba_bwd_",),
+                "flash forward": ("flash_attention",)}
+XLSTM_MARKS = {"mlstm_scan forward": DEVICE_KERNELS["mlstm_scan"],
+               "mlstm_scan backward": ("mlstm_bwd_",)}
+
+
+def recurrent_training_paths(smi: str) -> dict:
+    """Phases 39-45: the scans' backward kernels against plain, then
+    zamba2-2.7b and xlstm-1.3b each at full width and depth taking train
+    steps, its f32 twin against ``ops.plain()``, and its timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import mlstm_scan as ML
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mamba_scan_ref, mlstm_ref
+    from repro_torch.models.api import hybrid_units, xlstm_units
+    from repro_torch.train.trainer import init_train_state
+    hcfg, xcfg = get_config(HYBRID_CONFIG), get_config(XLSTM_CONFIG)
+
+    def h_inputs(i, shape):
+        return scan_inputs(i, shape, hcfg)
+
+    def x_inputs(i, shape):
+        return mlstm_inputs(i, shape, xcfg)
+    scan_rows = backward_check("scan_grad", ops.mamba_scan, mamba_scan_ref,
+                               MS, SCAN_GRAD_SHAPES, h_inputs,
+                               ("dtx", "a_log", "B", "C"))
+    mlstm_rows = backward_check("mlstm_grad", ops.mlstm_scan, mlstm_ref, ML,
+                                MLSTM_GRAD_SHAPES, x_inputs,
+                                ("q", "k", "v", "i_pre", "f_pre"))
+    print(f"[time] the backward kernels, {smi}; library: none, no PyTorch "
+          f"call computes either scan's gradient")
+    backward_timings(scan_rows, SCAN_GRAD_SHAPES, h_inputs, mamba_scan_ref,
+                     MS.mamba_scan_bwd_kernel,
+                     lambda sh: scan_bwd_bounds(sh, hcfg))
+    backward_timings(mlstm_rows, MLSTM_GRAD_SHAPES, x_inputs, mlstm_ref,
+                     ML.mlstm_scan_bwd_kernel,
+                     lambda sh: mlstm_bwd_bounds(sh, xcfg),
+                     output=ML.mlstm_scan_kernel)
+
+    units, k = hybrid_units(hcfg)
+    h_expect = {"flash_attention": units, "mamba_scan": units * k,
+                "mamba_scan_bwd": units * k}
+    htp = train_path(smi, hcfg, HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ,
+                     h_expect, remat=True)
+    h_times = train_timings(htp, smi, HYBRID_MARKS)
+    h_record = {**htp["record"], "launches_per_step": h_expect,
+                "timings": h_times}
+    del htp
+    torch.cuda.empty_cache()
+    t_units, t_k = hybrid_units(dataclasses.replace(
+        hcfg, num_layers=HYBRID_TWIN_LAYERS))
+    h_twin = train_twin_path(HYBRID_CONFIG, HYBRID_TWIN_LAYERS,
+                             HYBRID_TWIN_ROWS, HYBRID_TRAIN_SEQ,
+                             {"flash_attention": t_units,
+                              "mamba_scan": t_units * t_k,
+                              "mamba_scan_bwd": t_units * t_k})
+
+    units, k = xlstm_units(xcfg)
+    x_expect = {"mlstm_scan": units * k, "mlstm_scan_bwd": units * k}
+    xtp = train_path(smi, xcfg, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ, x_expect)
+    # The profile takes one unit at full width: a step of all twelve
+    # records ~10^6 events, minutes for the profiler to read.
+    ucfg = dataclasses.replace(xcfg, name=f"{xcfg.name}-one-unit",
+                               num_layers=xcfg.xlstm_slstm_every)
+    umodel, uts = train_setup(ucfg)
+    utp = {"cfg": ucfg, "model": umodel, "ts": uts, "batch": xtp["batch"],
+           "state": init_train_state(umodel, umodel.init(seed=SEED), uts)}
+    x_times = train_timings(xtp, smi, XLSTM_MARKS, profile_tp=utp)
+    x_record = {**xtp["record"], "launches_per_step": x_expect,
+                "timings": x_times}
+    del xtp, utp, umodel
+    torch.cuda.empty_cache()
+    t_units, t_k = xlstm_units(dataclasses.replace(
+        xcfg, num_layers=XLSTM_TWIN_LAYERS))
+    x_twin = train_twin_path(XLSTM_CONFIG, XLSTM_TWIN_LAYERS,
+                             XLSTM_TWIN_ROWS, XLSTM_TRAIN_SEQ,
+                             {"mlstm_scan": t_units * t_k,
+                              "mlstm_scan_bwd": t_units * t_k})
+    return {"scan_grad_rows": scan_rows, "mlstm_grad_rows": mlstm_rows,
+            hcfg.name: h_record, f"{hcfg.name}_f32_twin": h_twin,
+            xcfg.name: x_record, f"{xcfg.name}_f32_twin": x_twin}
+
+
 def training_paths(smi: str) -> dict:
-    """Phases 34-38: the flash gradient, minicpm-2b's training at full
-    width and depth, its f32 twin, the restart, and the timings."""
+    """Phases 34-45: the flash gradient, minicpm-2b's training at full
+    width and depth, its f32 twin, the restart, and the timings; then the
+    scans' backward kernels and the hybrid and xLSTM training paths."""
+    from repro_torch.configs import get_config
     grad_rows = flash_grad_check(SEED + 900)
-    tp = train_path(smi)
-    times = train_timings(tp, smi)
+    cfg = get_config(TRAIN_CONFIG)
+    tp = train_path(smi, cfg, TRAIN_ROWS, TRAIN_SEQ,
+                    {"flash_attention": cfg.num_layers})
+    times = train_timings(tp, smi, {"flash forward": ("flash_attention",)})
+    times["attention"] = attention_timings(tp, smi)
     record = {**tp["record"], "timings": times}
     del tp
     torch.cuda.empty_cache()
-    twin = train_twin_path()
+    twin = train_twin_path(TRAIN_CONFIG, TRAIN_TWIN_LAYERS, TRAIN_ROWS,
+                           TRAIN_SEQ, {"flash_attention": TRAIN_TWIN_LAYERS})
     restart = restart_path()
+    recurrent = recurrent_training_paths(smi)
     return {"grad_rows": grad_rows, "train": record, "twin": twin,
-            "restart": restart}
+            "restart": restart, **recurrent}
 
 
 T0 = time.perf_counter()
@@ -2841,6 +3294,9 @@ def main() -> int:
         return 0
     if "--mlstm-times" in sys.argv[1:]:
         mlstm_times()
+        return 0
+    if "--xlstm-prefill-times" in sys.argv[1:]:
+        xlstm_prefill_times()
         return 0
     build_s, ptxas = build()
     rows = kernel_check()
@@ -2910,7 +3366,7 @@ def main() -> int:
     mlstm_rows = recurrence_check(
         "mlstm", mlstm_scan_kernel, mlstm_ref, MLSTM_SHAPES, x_inputs,
         mlstm_closed_form, MLSTM_ATOL, MLSTM_CLOSED_NOTE, twice=True,
-        exact=mlstm_f64)
+        exact=in_f64(mlstm_ref))
     xlm = prefill_path(xcfg, XLSTM_PREFILL_S, x_expect, limit=None)
     x_served = serve_path(xcfg, xlm, x_expect, limit=None)
     # The same prefill in f32 at full depth, held at every position.
@@ -2934,7 +3390,18 @@ def main() -> int:
     recurrence_timings(mlstm_rows, MLSTM_SHAPES, x_inputs, mlstm_scan_kernel,
                        mlstm_ref, lambda sh: mlstm_bounds(sh, xcfg),
                        "the mLSTM recurrence")
-    x_times = lm_timings(xcfg, xlm, XLSTM_PREFILL_S)
+    # The profile takes one unit at full width (the unit the f32 twin
+    # holds): the sLSTM's host loop over 2048 steps makes a prefill of all
+    # twelve ~10^6 profiler events, minutes to read.
+    ucfg = dataclasses.replace(xcfg, name=f"{xcfg.name}-one-unit",
+                               num_layers=xcfg.xlstm_slstm_every)
+    from repro_torch.models import build_model
+    umodel = build_model(ucfg)
+    x_times = lm_timings(xcfg, xlm, XLSTM_PREFILL_S, profile_lm={
+        "model": umodel, "net": umodel.init(seed=SEED),
+        "batch": xlm["batch"], "launches": {"mlstm_scan": xt_expect[
+            "mlstm_scan"]}})
+    del umodel
     del xlm["model"], xlm["net"], xlm["batch"]
     torch.cuda.empty_cache()
 
@@ -2975,6 +3442,15 @@ def main() -> int:
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "library_ms": (None if no_library
                                else per_forward(rs, "library_ms"))}
+
+    def train_totals(rs: list[dict]) -> dict:
+        """A backward kernel's numbers over one train step: its launches at
+        the training shape, the first of ``rs`` (the plain backward is
+        timed there only)."""
+        r, n = rs[0], rs[0]["per_forward"]
+        return {"ms": n * r["ms"], "plain_ms": n * r["plain_ms"],
+                "bound_ms": n * r["bound_ms"], "bound_by": r["bound_by"],
+                "bound_f32_ms": n * r["bound_f32_ms"], "library_ms": None}
 
     h_flash = totals(h_flash_rows)
     m_flash, p_flash = totals(m_flash_rows), totals(p_flash_rows)
@@ -3044,8 +3520,10 @@ def main() -> int:
         "training": {
             "config": f"{TRAIN_CONFIG} train step, {TRAIN_ROWS}x"
                       f"{TRAIN_SEQ}, bf16",
-            "launches": tr["train"]["steps"][0]["launches"],
-            "remat_launches": tr["train"]["steps"][-1]["launches"],
+            "launches": tr["train"]["steps"][0]["launches"][
+                "flash_attention"],
+            "remat_launches": tr["train"]["steps"][-1]["launches"][
+                "flash_attention"],
             "gradient_max_abs_err": max(r["max_abs_err"]
                                         for r in tr["grad_rows"]),
             "gradient_limit_used": max(r["limit_used"]
@@ -3087,6 +3565,36 @@ def main() -> int:
         "times_are": f"sums over the {x_units * x_per_unit} launches of one "
                      f"1x{XLSTM_PREFILL_S} {xcfg.name} prefill; per shape "
                      f"in chip_smoke.json",
+    }, {
+        "name": "mamba_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd_sm90.cu",
+        "replaces": "src/repro/models/ssm.py:82",
+        "replaces_is": "jax.grad of the chunked SSD in jnp; the Pallas "
+                       "kernel src/repro/kernels/mamba_scan.py:62 has no "
+                       "backward",
+        "launches": tr[hcfg.name]["steps"][0]["launches"]["mamba_scan_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in tr["scan_grad_rows"]),
+        "limit_used": max(r["limit_used"] for r in tr["scan_grad_rows"]),
+        **train_totals(tr["scan_grad_rows"]),
+        "library": "none: no PyTorch call computes the SSD scan's gradient",
+        "times_are": f"sums over the {units * per_unit} launches of one "
+                     f"{HYBRID_TRAIN_ROWS}x{HYBRID_TRAIN_SEQ} {hcfg.name} "
+                     f"train step; per shape in chip_smoke.json",
+    }, {
+        "name": "mlstm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_scan_bwd_sm90.cu",
+        "replaces": "src/repro/models/xlstm.py:54",
+        "replaces_is": "jax.grad of the mLSTM lax.scan; the Pallas kernel "
+                       "src/repro/kernels/mlstm_scan.py:62 has no backward",
+        "launches": tr[xcfg.name]["steps"][0]["launches"]["mlstm_scan_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in tr["mlstm_grad_rows"]),
+        "limit_used": max(r["limit_used"] for r in tr["mlstm_grad_rows"]),
+        **train_totals(tr["mlstm_grad_rows"]),
+        "library": "none: no PyTorch call computes the mLSTM scan's "
+                   "gradient",
+        "times_are": f"sums over the {x_units * x_per_unit} launches of one "
+                     f"{XLSTM_TRAIN_ROWS}x{XLSTM_TRAIN_SEQ} {xcfg.name} "
+                     f"train step; per shape in chip_smoke.json",
     }]}
 
     record = {"card": smi, "torch": torch.__version__,
@@ -3136,7 +3644,14 @@ def main() -> int:
           f"{w_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
           f"{TRAIN_CONFIG} train step {TRAIN_ROWS}x{TRAIN_SEQ} "
           f"{tt['step_ms']:.1f} ms ({tt['tokens_per_s']:.0f} tokens/s, "
-          f"{tt['mfu']:.3f} of peak by 6*N*tokens); script "
+          f"{tt['mfu']:.3f} of peak by 6*N*tokens); "
+          + "; ".join(
+              f"{n} train step {r}x{q} {tr[n]['timings']['step_ms']:.1f} ms "
+              f"({tr[n]['timings']['tokens_per_s']:.0f} tokens/s, "
+              f"{tr[n]['timings']['mfu']:.4f} of peak)"
+              for n, r, q in ((hcfg.name, HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ),
+                              (xcfg.name, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ)))
+          + f"; script "
           f"{time.perf_counter() - T0:.0f} s")
     print(smi)
     print(json.dumps(kernels))

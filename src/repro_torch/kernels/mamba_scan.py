@@ -11,6 +11,11 @@ Pallas ``chunk`` knob has no counterpart: the kernel is built for chunks of
 64 and 128 steps, ``chunk_for`` picks one by S, and a ragged last chunk is
 masked, so it takes any S.  ``plan`` picks how many heads a block of the
 first and the last launch takes.
+
+The backward is a kernel of its own (``csrc/mamba_scan_bwd_sm90.cu``, four
+launches, f32 on the CUDA cores), ``mamba_scan_bwd_kernel``, counted by
+``backward_launches``; ``MambaScan`` is the autograd function that runs the
+two.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._operands import INDEX_LIMIT, check_f32_operands
 
 launches = 0
+backward_launches = 0
 
 MAX_STATE = 64            # P and N the kernel holds, each at most this
 BUILT_CHUNKS = (64, 128)  # the chunks (time steps) the kernel is built for
@@ -85,6 +91,33 @@ def resident_blocks(device: int, chunk: int) -> tuple[int, int]:
     return blocks
 
 
+def _check_operands(op: str, dtx: torch.Tensor, a_log: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor,
+                    dy: torch.Tensor | None = None
+                    ) -> tuple[int, int, int, int, int]:
+    """Raises on operands the kernels do not take; returns b, S, H, P, N."""
+    if dtx.dim() != 4 or a_log.dim() != 3 or B.dim() != 3 or C.dim() != 3:
+        raise ValueError(f"{op}: dtx must be 4-d and a_log, B, C 3-d, "
+                         f"got {tuple(dtx.shape)}, {tuple(a_log.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    b, S, H, P = dtx.shape
+    N = B.shape[2]
+    operands = {"dtx": dtx, "a_log": a_log, "B": B, "C": C}
+    if dy is not None:
+        operands = {"dy": dy, **operands}
+    check_f32_operands(op, operands,
+                       {"dy": (b, S, H, P), "dtx": (b, S, H, P),
+                        "a_log": (b, S, H), "B": (b, S, N), "C": (b, S, N)})
+    if min(b, S, H, P, N) < 1 or P > MAX_STATE or N > MAX_STATE:
+        raise ValueError(f"{op}: b {b}, S {S}, H {H}, P {P}, N {N}: "
+                         f"needs each >= 1 and P, N <= {MAX_STATE}")
+    if b * H * STATE_FLOATS >= INDEX_LIMIT:
+        raise ValueError(f"{op}: b·H = {b * H} states of "
+                         f"{STATE_FLOATS} floats; the state pass indexes "
+                         f"them below {INDEX_LIMIT}")
+    return b, S, H, P, N
+
+
 def mamba_scan_kernel(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
                       C: torch.Tensor, *,
                       chunk: int | None = None) -> torch.Tensor:
@@ -96,22 +129,7 @@ def mamba_scan_kernel(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     if chunk is not None and chunk not in BUILT_CHUNKS:
         raise ValueError(f"mamba_scan: chunk {chunk} is not one of the "
                          f"kernel's builds {BUILT_CHUNKS}")
-    if dtx.dim() != 4 or a_log.dim() != 3 or B.dim() != 3 or C.dim() != 3:
-        raise ValueError(f"mamba_scan: dtx must be 4-d and a_log, B, C 3-d, "
-                         f"got {tuple(dtx.shape)}, {tuple(a_log.shape)}, "
-                         f"{tuple(B.shape)}, {tuple(C.shape)}")
-    b, S, H, P = dtx.shape
-    N = B.shape[2]
-    check_f32_operands("mamba_scan", {"dtx": dtx, "a_log": a_log, "B": B,
-                                      "C": C},
-                       {"a_log": (b, S, H), "B": (b, S, N), "C": (b, S, N)})
-    if min(b, S, H, P, N) < 1 or P > MAX_STATE or N > MAX_STATE:
-        raise ValueError(f"mamba_scan: b {b}, S {S}, H {H}, P {P}, N {N}: "
-                         f"needs each >= 1 and P, N <= {MAX_STATE}")
-    if b * H * STATE_FLOATS >= INDEX_LIMIT:
-        raise ValueError(f"mamba_scan: b·H = {b * H} states of "
-                         f"{STATE_FLOATS} floats; the state pass indexes "
-                         f"them below {INDEX_LIMIT}")
+    b, S, H, P, N = _check_operands("mamba_scan", dtx, a_log, B, C)
     chunk = chunk or chunk_for(S)
     y = torch.empty_like(dtx)
     # Per (batch, chunk, head) the chunk's state, then the state entering
@@ -132,3 +150,46 @@ def mamba_scan_kernel(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
                            f"{lib.mamba_scan_sm90_error_string(err).decode()}")
     launches += 1
     return y
+
+
+def mamba_scan_bwd_kernel(dy: torch.Tensor, dtx: torch.Tensor,
+                          a_log: torch.Tensor, B: torch.Tensor,
+                          C: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The gradient of the SSD scan for the output gradient dy (b, S, H,
+    P), from the forward's inputs as ``mamba_scan_kernel`` takes them:
+    (d dtx, d a_log, dB, dC) in float32, dB and dC summed over the heads."""
+    global backward_launches
+    b, S, H, P, N = _check_operands("mamba_scan_bwd", dtx, a_log, B, C, dy)
+    ddtx, da = torch.empty_like(dtx), torch.empty_like(a_log)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    lib = _build.library()
+    scratch = torch.empty(lib.mamba_scan_bwd_sm90_scratch_bytes(b, S, H, N),
+                          dtype=torch.uint8, device=dtx.device)
+    with torch.cuda.device(dtx.device):
+        err = lib.mamba_scan_bwd_sm90_f32(
+            dy.data_ptr(), dtx.data_ptr(), a_log.data_ptr(), B.data_ptr(),
+            C.data_ptr(), ddtx.data_ptr(), da.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), scratch.data_ptr(), b, S, H, P, N,
+            torch.cuda.current_stream(dtx.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mamba_scan backward kernel launch failed: "
+                           f"{lib.mamba_scan_sm90_error_string(err).decode()}")
+    backward_launches += 1
+    return ddtx, da, dB, dC
+
+
+class MambaScan(torch.autograd.Function):
+    """``forward`` launches the scan kernel on dtx, a_log, B and C and saves
+    them; ``backward`` launches the backward kernel on them."""
+
+    @staticmethod
+    def forward(ctx, dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(dtx, a_log, B, C)
+        return mamba_scan_kernel(dtx, a_log, B, C)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        return mamba_scan_bwd_kernel(dy.contiguous(), *ctx.saved_tensors)

@@ -13,12 +13,14 @@ sequence for the TPU's sequential grid; their results do not depend on it
 ``mlstm_scan`` take none.
 
 Training: on a CUDA tensor that needs a gradient (grad mode on, an input
-requiring grad, outside ``plain()``), ``flash_attention`` launches the
-kernel through the ``FlashAttention`` autograd function, whose backward is
-the gradient of the plain arithmetic; ``fused_conv``, ``mamba_scan`` and
-``mlstm_scan`` have no backward yet and raise, rather than return an
-output whose gradient silently stops.  A CPU tensor takes the plain
-version, which autograd differentiates.
+requiring grad, outside ``plain()``), each op with a backward launches its
+kernel through its autograd function: ``flash_attention`` through
+``FlashAttention``, whose backward is the gradient of the plain
+arithmetic; ``mamba_scan`` and ``mlstm_scan`` through ``MambaScan`` and
+``MLSTMScan``, whose backwards are hand-written kernels of their own.
+``fused_conv`` has no backward yet and raises, rather than return an
+output whose gradient silently stops.  A CPU tensor, or any tensor inside
+``plain()``, takes the plain version, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ import torch
 from repro_torch.kernels.flash_attention import (
     FlashAttention, check_every_row_sees_a_key, flash_attention_kernel)
 from repro_torch.kernels.fused_conv import fused_conv_kernel
-from repro_torch.kernels.mamba_scan import mamba_scan_kernel
-from repro_torch.kernels.mlstm_scan import mlstm_scan_kernel
+from repro_torch.kernels.mamba_scan import MambaScan, mamba_scan_kernel
+from repro_torch.kernels.mlstm_scan import MLSTMScan, mlstm_scan_kernel
 from repro_torch.kernels.ref import (attention_ref, fused_conv_ref,
                                      mamba_scan_ref, mlstm_ref)
 
@@ -58,9 +60,6 @@ def _use_plain(x: torch.Tensor) -> bool:
 def _needs_grad(*ts: torch.Tensor | None) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in ts)
-
-
-_RECURRENCES = "differentiable hybrid and xLSTM recurrences"
 
 
 def _no_backward(name: str, item: str, *ts: torch.Tensor | None) -> None:
@@ -121,13 +120,13 @@ def mamba_scan(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     """The SSD recurrence ``S_t = e^{a_t}·S_{t-1} + dtx_t ⊗ B_t``,
     ``y_t = S_t·C_t``: dtx (b, S, H, P), a_log (b, S, H), B/C (b, S, N)
     shared by all heads, all f32 → y (b, S, H, P) in f32."""
+    args = (dtx.contiguous(), a_log.contiguous(), B.contiguous(),
+            C.contiguous())
     if _use_plain(dtx):
-        fn = mamba_scan_ref
-    else:
-        _no_backward("mamba_scan", _RECURRENCES, dtx, a_log, B, C)
-        fn = mamba_scan_kernel
-    return fn(dtx.contiguous(), a_log.contiguous(), B.contiguous(),
-              C.contiguous())
+        return mamba_scan_ref(*args)
+    if _needs_grad(*args):
+        return MambaScan.apply(*args)
+    return mamba_scan_kernel(*args)
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -135,10 +134,10 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The stabilised mLSTM recurrence: q, k, v (b, S, H, P), i_pre and
     f_pre (b, S, H), all f32 → h (b, S, H, P) in f32 (``ref.mlstm_ref``
     gives the formulas)."""
+    args = (q.contiguous(), k.contiguous(), v.contiguous(),
+            i_pre.contiguous(), f_pre.contiguous())
     if _use_plain(q):
-        fn = mlstm_ref
-    else:
-        _no_backward("mlstm_scan", _RECURRENCES, q, k, v, i_pre, f_pre)
-        fn = mlstm_scan_kernel
-    return fn(q.contiguous(), k.contiguous(), v.contiguous(),
-              i_pre.contiguous(), f_pre.contiguous())
+        return mlstm_ref(*args)
+    if _needs_grad(*args):
+        return MLSTMScan.apply(*args)
+    return mlstm_scan_kernel(*args)

@@ -103,22 +103,24 @@ def attention_ref_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mamba_scan_ref(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor) -> torch.Tensor:
-    """The SSD recurrence, one step at a time in f32:
+    """The SSD recurrence, one step at a time in f32 (f64 for f64 inputs):
     ``S_t = e^{a_t}·S_{t-1} + dtx_t ⊗ B_t``, ``y_t = S_t·C_t`` per (batch,
     head), with the (P, N) state starting at 0.  dtx: (b, S, H, P); a_log:
     (b, S, H); B/C: (b, S, N), shared by all heads.  Returns y: (b, S, H,
-    P) in f32."""
+    P) in that dtype.  Each step makes a new state and nothing is written
+    in place, so autograd differentiates it."""
     b, S, H, P = dtx.shape
     N = B.shape[-1]
-    dtx, B, C = dtx.float(), B.float(), C.float()
-    decay = a_log.float().exp()
-    state = torch.zeros((b, H, P, N), dtype=torch.float32, device=dtx.device)
-    y = torch.empty((b, S, H, P), dtype=torch.float32, device=dtx.device)
+    dt = torch.promote_types(dtx.dtype, torch.float32)
+    dtx, B, C = dtx.to(dt), B.to(dt), C.to(dt)
+    decay = a_log.to(dt).exp()
+    state = torch.zeros((b, H, P, N), dtype=dt, device=dtx.device)
+    ys = []
     for t in range(S):
-        state.mul_(decay[:, t, :, None, None])
-        state.addcmul_(dtx[:, t, :, :, None], B[:, t, None, None, :])
-        y[:, t] = (state @ C[:, t, None, :, None])[..., 0]
-    return y
+        state = torch.addcmul(state * decay[:, t, :, None, None],
+                              dtx[:, t, :, :, None], B[:, t, None, None, :])
+        ys.append((state @ C[:, t, None, :, None])[..., 0])
+    return torch.stack(ys, dim=1)
 
 
 MLSTM_M0 = -1e30   # the stabiliser before the first step, as in JAX
@@ -126,8 +128,8 @@ MLSTM_M0 = -1e30   # the stabiliser before the first step, as in JAX
 
 def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
-    """The stabilised mLSTM recurrence, one step at a time in f32, in the
-    order of the JAX oracle: per (batch, head), with log f = logσ(f_pre),
+    """The stabilised mLSTM recurrence, one step at a time in f32 (f64 for
+    f64 inputs), in the order of the JAX oracle: per (batch, head), with log f = logσ(f_pre),
 
         m_t = max(log f_t + m_{t-1}, i_t)
         i_s = exp(i_t - m_t),  f_s = exp(log f_t + m_{t-1} - m_t)
@@ -135,15 +137,16 @@ def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         h_t = C_t q_t / max(|n_t·q_t|, 1)
 
     with C and n starting at 0 and m at -1e30.  q, k, v: (b, S, H, P);
-    i_pre, f_pre: (b, S, H).  Returns h: (b, S, H, P) in f32."""
+    i_pre, f_pre: (b, S, H).  Returns h: (b, S, H, P) in that dtype.
+    Nothing is written in place, so autograd differentiates it."""
     b, S, H, P = q.shape
-    q, k, v = q.float(), k.float(), v.float()
-    i_pre = i_pre.float()
-    log_f = F.logsigmoid(f_pre.float())
-    C = torch.zeros((b, H, P, P), dtype=torch.float32, device=q.device)
-    n = torch.zeros((b, H, P), dtype=torch.float32, device=q.device)
-    m = torch.full((b, H), MLSTM_M0, dtype=torch.float32, device=q.device)
-    h = torch.empty((b, S, H, P), dtype=torch.float32, device=q.device)
+    dt = torch.promote_types(q.dtype, torch.float32)
+    q, k, v, i_pre = q.to(dt), k.to(dt), v.to(dt), i_pre.to(dt)
+    log_f = F.logsigmoid(f_pre.to(dt))
+    C = torch.zeros((b, H, P, P), dtype=dt, device=q.device)
+    n = torch.zeros((b, H, P), dtype=dt, device=q.device)
+    m = torch.full((b, H), MLSTM_M0, dtype=dt, device=q.device)
+    h = []
     for t in range(S):
         lf, it = log_f[:, t], i_pre[:, t]
         m_new = torch.maximum(lf + m, it)
@@ -154,6 +157,6 @@ def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n = f_s[..., None] * n + i_s[..., None] * k[:, t]
         num = (C @ q[:, t, :, :, None])[..., 0]
         den = (n * q[:, t]).sum(-1).abs().clamp_min(1.0)
-        h[:, t] = num / den[..., None]
+        h.append(num / den[..., None])
         m = m_new
-    return h
+    return torch.stack(h, dim=1)

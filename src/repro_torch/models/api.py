@@ -403,9 +403,8 @@ def hybrid_forward(model: HybridLM, batch: dict[str, torch.Tensor], *,
     ``ops.mamba_scan`` each), then its causal global attention block (one
     ``ops.flash_attention``), each unit under ``remat``.
     ``batch["tokens"]`` (B, S) → (f32 logits (B, S, vocab), or the hidden
-    state with ``return_hidden``; aux = 0).  Not differentiable yet: on the
-    card ``ops.mamba_scan`` refuses a gradient, and on the CPU the plain
-    scan's in-place recurrence does."""
+    state with ``return_hidden``; aux = 0).  Differentiable: on the card
+    each scan's gradient is its backward kernel's."""
     cfg, params = model.cfg, model.params
     dt, _ = _dt(cfg)
     U, K = hybrid_units(cfg)
@@ -509,8 +508,8 @@ def xlstm_forward(model: XLSTMLM, batch: dict[str, torch.Tensor], *,
     ``ops.mlstm_scan`` each), then its sLSTM block (a plain loop over
     time), each unit under ``remat``.  ``batch["tokens"]`` (B, S) → (f32
     logits (B, S, vocab), or the hidden state with ``return_hidden``;
-    aux = 0).  Not differentiable yet: on the card ``ops.mlstm_scan``
-    refuses a gradient, and on the CPU the in-place recurrences do."""
+    aux = 0).  Differentiable: on the card each mLSTM scan's gradient is
+    its backward kernel's, the sLSTM loop's autograd's."""
     cfg, params = model.cfg, model.params
     dt, _ = _dt(cfg)
     U, K = xlstm_units(cfg)

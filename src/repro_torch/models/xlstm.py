@@ -20,6 +20,7 @@ no output: C and n start at 0 and f_s = exp(-huge) = 0 either way.
 The sLSTM is strictly recurrent (h_{t-1} feeds the next step through
 ``r_z``) and has no kernel in JAX either: it is a Python loop over time
 with the input projections taken once outside it, as JAX's ``lax.scan``.
+Each step makes new c, n, m and h, so autograd differentiates the loop.
 Decode is plain PyTorch for both cells, as in JAX, and updates the cache
 in place.  The bf16 casts sit where JAX has them.
 """
@@ -154,10 +155,9 @@ def init_slstm(gen: torch.Generator, cfg, dtype: torch.dtype,
 
 def _slstm_step(p: Params, state: Params, h_prev: torch.Tensor,
                 zt: torch.Tensor, it: torch.Tensor, log_f: torch.Tensor,
-                ot: torch.Tensor, h_out: torch.Tensor, cfg) -> None:
-    """One sLSTM step on (B, d) f32 inputs: updates c, n and m of ``state``
-    in place and writes the new h into ``h_out`` (which may be
-    ``h_prev``: the recurrence reads it first)."""
+                ot: torch.Tensor, cfg) -> tuple[Params, torch.Tensor]:
+    """One sLSTM step on (B, d) f32 inputs: returns the new c, n and m and
+    the new h, all new tensors."""
     Bt = zt.shape[0]
     H, P = _heads(cfg)
     c, n, m = state["c"], state["n"], state["m"]
@@ -168,28 +168,28 @@ def _slstm_step(p: Params, state: Params, h_prev: torch.Tensor,
     m_new = torch.maximum(lf_m, it)
     i_s = torch.exp(it - m_new)
     f_s = torch.exp(lf_m - m_new)
-    c.mul_(f_s).addcmul_(i_s, z)
-    n.mul_(f_s).add_(i_s)
-    m.copy_(m_new)
-    torch.div(ot * c, n.clamp_min(1.0), out=h_out)
+    c = torch.addcmul(c * f_s, i_s, z)
+    n = n * f_s + i_s
+    h = ot * c / n.clamp_min(1.0)
+    return {"c": c, "n": n, "m": m_new}, h
 
 
 def slstm_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """The sLSTM over the sequence, step by step (about 17 small kernels a
     step).  x: (B, S, d) → (B, S, d)."""
-    Bt, S, d = x.shape
+    Bt, S, _ = x.shape
     xf = x.float()
     z_in = (x @ p["w_z"]).float()
     i_in = xf @ p["w_i"]
     log_f = F.logsigmoid(xf @ p["w_f"])
     o_in = torch.sigmoid(x @ p["w_o"]).float()
     state = slstm_init_cache(cfg, Bt, x.device)
-    hs = torch.empty((Bt, S, d), dtype=torch.float32, device=x.device)
-    h_prev = state["h"]
+    h, hs = state.pop("h"), []
     for t in range(S):
-        _slstm_step(p, state, h_prev, z_in[:, t], i_in[:, t], log_f[:, t],
-                    o_in[:, t], hs[:, t], cfg)
-        h_prev = hs[:, t]
+        state, h = _slstm_step(p, state, h, z_in[:, t], i_in[:, t],
+                               log_f[:, t], o_in[:, t], cfg)
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)
     return rmsnorm(p["norm_w"], hs.to(x.dtype), cfg.norm_eps) @ p["out_proj"]
 
 
@@ -211,9 +211,10 @@ def slstm_decode_step(p: Params, cache: Params, x: torch.Tensor, cfg
     returns it."""
     x0 = x[:, 0]
     xf = x0.float()
-    h = cache["h"]
-    _slstm_step(p, cache, h, (x0 @ p["w_z"]).float(), xf @ p["w_i"],
-                F.logsigmoid(xf @ p["w_f"]),
-                torch.sigmoid(x0 @ p["w_o"]).float(), h, cfg)
+    state, h = _slstm_step(p, cache, cache["h"], (x0 @ p["w_z"]).float(),
+                           xf @ p["w_i"], F.logsigmoid(xf @ p["w_f"]),
+                           torch.sigmoid(x0 @ p["w_o"]).float(), cfg)
+    for key, value in (*state.items(), ("h", h)):
+        cache[key].copy_(value)
     y = rmsnorm(p["norm_w"], h.to(x.dtype), cfg.norm_eps) @ p["out_proj"]
     return y[:, None, :], cache

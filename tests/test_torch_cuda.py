@@ -639,9 +639,11 @@ def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
 
 
 def test_kernels_without_a_backward_refuse_a_gradient(cuda):
-    """Under autograd the three kernels with no backward raise rather than
-    return an output whose gradient silently stops; without a gradient
-    (no_grad, or inputs that need none) they launch as before."""
+    """Under autograd the fused conv, which has no backward, raises rather
+    than return an output whose gradient silently stops; without a
+    gradient (no_grad, or inputs that need none) it launches as before.
+    The two scans give gradients through their backward kernels: a forward
+    and a backward launch each, and only the forward without a gradient."""
     x = torch.randn(1, 8, 8, 16, device=cuda, requires_grad=True)
     w = torch.randn(3, 3, 16, 16, device=cuda)
     scale, shift = torch.ones(16, device=cuda), torch.zeros(16, device=cuda)
@@ -652,23 +654,127 @@ def test_kernels_without_a_backward_refuse_a_gradient(cuda):
     dtx = torch.randn(1, 64, 2, 16, device=cuda, requires_grad=True)
     a = -torch.rand(1, 64, 2, device=cuda)
     Bm, Cm = (torch.randn(1, 64, 16, device=cuda) for _ in range(2))
-    with pytest.raises(RuntimeError, match="hybrid and xLSTM"):
-        ops.mamba_scan(dtx, a, Bm, Cm)
-    assert ops.mamba_scan(dtx.detach(), a, Bm, Cm).shape == (1, 64, 2, 16)
     q = torch.randn(1, 64, 2, 16, device=cuda, requires_grad=True)
     gates = [torch.randn(1, 64, 2, device=cuda) for _ in range(2)]
-    with pytest.raises(RuntimeError, match="hybrid and xLSTM"):
-        ops.mlstm_scan(q, q.detach(), q.detach(), *gates)
-    with torch.no_grad():
-        assert ops.mlstm_scan(q, q, q, *gates).shape == (1, 64, 2, 16)
+    for mod, run, leaf in ((MS, lambda: ops.mamba_scan(dtx, a, Bm, Cm), dtx),
+                           (ML, lambda: ops.mlstm_scan(q, q.detach(),
+                                                       q.detach(), *gates),
+                            q)):
+        before = (mod.launches, mod.backward_launches)
+        run().sum().backward()
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.backward_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+        assert torch.isfinite(leaf.grad).all() and leaf.grad.abs().max() > 0
+        with torch.no_grad():
+            run()
+        assert (mod.launches, mod.backward_launches) == (before[0] + 2,
+                                                         before[1] + 1)
 
 
-@pytest.mark.parametrize("name", ["minicpm-2b-smoke", "gemma2-2b-smoke"])
+# --- the scans' backward kernels ---------------------------------------------------
+
+BWD_RTOL = 1e-4   # per gradient tensor, of max|g_plain|
+BWD_ZERO = 1e-6   # max|g_plain| taken as at least this of the call's largest
+
+
+def _bwd_check(op, plain, mod, args):
+    """The gradient through ``op`` (the kernel under its autograd function,
+    whose backward is the backward kernel) against autograd of ``plain`` in
+    f32 on the same values, each tensor within BWD_RTOL·max|g_plain|; two
+    backward launches give the same bits; each counter moves by two."""
+    g = torch.Generator(device=args[0].device).manual_seed(99)
+    dout = torch.randn(args[0].shape, generator=g, device=args[0].device)
+    before = (mod.launches, mod.backward_launches)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in args]
+        op(*leaves).backward(dout)
+        runs.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert (mod.launches, mod.backward_launches) == (before[0] + 2,
+                                                     before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    leaves = [t.clone().requires_grad_() for t in args]
+    plain(*leaves).backward(dout)
+    refs = [t.grad for t in leaves]
+    top = max(r.abs().max().item() for r in refs)
+    for got, ref in zip(runs[0], refs):
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        limit = BWD_RTOL * max(ref.abs().max().item(), BWD_ZERO * top)
+        assert (got - ref).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("b,S,H,P,N,decays", [
+    (2, 64, 3, 16, 8, None),
+    (1, 1024, 8, 64, 64, None),      # zamba2's train S, P and N
+    (1, 1024, 8, 64, 64, "long"),    # the adjoint crosses every chunk
+    (1, 200, 3, 64, 64, -30.0),      # full reset
+    (2, 37, 5, 33, 17, "long"),      # ragged everything
+    (1, 1, 1, 1, 1, None),
+])
+def test_scan_backward_matches_plain(cuda, b, S, H, P, N, decays):
+    _bwd_check(ops.mamba_scan, mamba_scan_ref, MS,
+               _scan_inputs(cuda, b, S, H, P, N, a_log=decays))
+
+
+@pytest.mark.parametrize("b,S,H,P,gates,i_scale,qk", [
+    (2, 32, 2, 16, None, 1.0, 1.0),
+    (2, 256, 2, 512, None, 1.0, 1.0),     # xlstm-1.3b's P
+    (2, 256, 2, 512, "long", 1.0, 1.0),   # long memory
+    (2, 200, 2, 512, None, 10.0, 1.0),    # the stabiliser follows i_t
+    (1, 100, 4, 512, -30.0, 1.0, 1.0),    # forget-all
+    (2, 256, 2, 512, None, 1.0, 0.1),     # |n.q| < 1 at most steps
+    (2, 37, 3, 33, None, 1.0, 1.0),       # ragged everything
+    (1, 1, 1, 1, None, 1.0, 1.0),
+])
+def test_mlstm_backward_matches_plain(cuda, b, S, H, P, gates, i_scale, qk):
+    q, k, v, i_pre, f_pre = _mlstm_inputs(cuda, b, S, H, P, f_pre=gates,
+                                          i_scale=i_scale)
+    _bwd_check(ops.mlstm_scan, mlstm_ref, ML,
+               (q * qk, k * qk, v, i_pre, f_pre))
+
+
+def test_backward_kernels_refuse_what_they_cannot_take(cuda):
+    dtx, a_log, Bm, Cm = _scan_inputs(cuda, 1, 16, 2, 8, 4)
+    with pytest.raises(ValueError, match="mamba_scan_bwd_kernel runs on"):
+        MS.mamba_scan_bwd_kernel(dtx.cpu(), dtx, a_log, Bm, Cm)
+    with pytest.raises(ValueError, match="shape"):
+        MS.mamba_scan_bwd_kernel(dtx[:, :8].contiguous(), dtx, a_log, Bm, Cm)
+    q, k, v, i_pre, f_pre = _mlstm_inputs(cuda, 1, 16, 2, 8)
+    with pytest.raises(TypeError, match="float32"):
+        ML.mlstm_scan_bwd_kernel(q.double(), q, k, v, i_pre, f_pre, q)
+    with pytest.raises(ValueError, match="shape"):
+        ML.mlstm_scan_bwd_kernel(q, q, k, v, i_pre, f_pre, q[:, :8])
+
+
+def _train_launches(cfg) -> dict[str, int]:
+    """Each kernel's launches in one gradient of ``cfg``: flash once per
+    attention block; each scan once per layer forward and once backward."""
+    from repro_torch.models.api import hybrid_units, xlstm_units
+    if cfg.family == "hybrid":
+        units, k = hybrid_units(cfg)
+        return {"flash": units, "mamba": units * k, "mlstm": 0}
+    if cfg.family == "ssm":
+        units, k = xlstm_units(cfg)
+        return {"flash": 0, "mamba": 0, "mlstm": units * k}
+    return {"flash": cfg.num_layers, "mamba": 0, "mlstm": 0}
+
+
+def _launch_counts() -> dict[str, int]:
+    return {"flash": FA.launches, "mamba": MS.launches,
+            "mamba_bwd": MS.backward_launches, "mlstm": ML.launches,
+            "mlstm_bwd": ML.backward_launches}
+
+
+@pytest.mark.parametrize("name", ["minicpm-2b-smoke", "gemma2-2b-smoke",
+                                  "zamba2-2.7b-smoke", "xlstm-1.3b-smoke"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, name):
-    """One train step of a smoke config on the card (flash through the
-    autograd function, one launch a layer) and on the CPU from the same
-    state: loss within 1e-5 relative, gradients within 1e-4·max per leaf,
-    parameters within 2·lr + 1e-6."""
+    """One train step of a smoke config on the card (flash through its
+    autograd function, one launch an attention block; each scan through its
+    own, one forward and one backward launch a layer) and on the CPU from
+    the same state: loss within 1e-5 relative, gradients within 1e-4·max
+    per leaf, parameters within 2·lr + 1e-6."""
     from repro_torch import tree
     from repro_torch.data.pipeline import batch_for_step
     from repro_torch.optim.adamw import AdamWConfig
@@ -682,10 +788,12 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, name):
     gpu_state = init_train_state(gpu_model, gpu_model.init(0), ts)
     batch = batch_for_step(cfg, 0, 2, 32, device="cpu")
     _, _, g_cpu = make_grad_fn(cpu_model, ts)(cpu_state["params"], batch)
-    before = FA.launches
+    before = _launch_counts()
     _, _, g_gpu = make_grad_fn(gpu_model, ts)(gpu_state["params"], batch)
     torch.cuda.synchronize()
-    assert FA.launches == before + cfg.num_layers
+    want = _train_launches(cfg)
+    want.update(mamba_bwd=want["mamba"], mlstm_bwd=want["mlstm"])
+    assert {k: n - before[k] for k, n in _launch_counts().items()} == want
     for a, b in zip(tree.leaves(g_cpu), tree.leaves(g_gpu)):
         assert b.norm().item() > 0
         assert (a - b.cpu()).abs().max().item() <= \

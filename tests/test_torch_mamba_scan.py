@@ -11,7 +11,14 @@ one TF32 pass misses it, and that the long-memory draw catches a state pass
 that drops the carried state, which the fast draws cannot.  The CUDA kernel
 itself is held against the plain version on the card, in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  The wrapper's plan of
-heads per block is checked here too."""
+heads per block is checked here too.
+
+The backward kernel (``csrc/mamba_scan_bwd_sm90.cu``) is emulated the same
+way: its chunk of 64, its four launches (chunk sums, the passes of the
+entering states and the leaving adjoints, the chunk gradients with d a_log
+as the quadrant sums of (1) in its header, the sum over heads) in f32, held
+against autograd of the plain recurrence in f32 and against the gradient of
+the recurrence in f64, each gradient tensor within ATOL·max|g|."""
 
 import functools
 import math
@@ -20,9 +27,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.ref import mamba_scan_ref as jax_mamba_scan_ref
 from repro_torch.kernels import mamba_scan as MS
+from repro_torch.kernels.ref import mamba_scan_ref
 
 ATOL = 1e-4            # chip_smoke.SCAN_ATOL: per element, against plain
 B, S, H, P, N = 1, 4096, 2, 64, 64   # zamba2's P and N and its prefill S
@@ -224,3 +233,200 @@ def test_plan_stays_in_bounds(b, s, h, resident):
 def test_more_resident_blocks_never_mean_more_heads_per_block():
     groups = [MS.heads_per_block(32, 80, r, 1.0) for r in (66, 132, 264, 528)]
     assert groups == sorted(groups, reverse=True)
+
+
+# --- the backward kernel -----------------------------------------------------------
+
+BWD_CHUNK = 64          # the backward kernel's chunk
+BWD_SHAPE = (1, 512, 3, 64, 64)   # zamba2's P and N, 8 chunks
+ZERO = 1e-6             # of the largest gradient: below it, rounding
+
+
+def emulate_bwd(dy, dtx, a_log, Bm, Cm, *, quadrant=True, carry=True):
+    """The SSD scan's gradient (d dtx, d a_log, dB, dC) computed as the
+    backward kernel computes it, in f32: chunks of BWD_CHUNK steps (padded
+    steps with a_log = 0 and zero inputs), cum summed in order,
+    gl = e^{cum}, gr = e^{cum_L - cum}, then
+      1. per chunk dS = (gr∘X)ᵀB and L = (gl∘dY)ᵀC;
+      2. the state S0 entering each chunk, forwards, and the adjoint Gh
+         leaving it, backwards (``carry=False``: Gh = 0, dropping what the
+         later chunks give back);
+      3. E1 = D∘(C Bᵀ), E2 = D∘(dY Xᵀ) with D = [r >= k] e^{cum_r - cum_k}
+         masked before the exp; dx = E1ᵀ dY + gr∘(B Ghᵀ), the heads' dB = E2ᵀ
+         C + gr∘(X Gh) and dC = E2 B + gl∘(dY S0); d a_log as the sums of
+         (1) in the kernel's header, the pair terms W = [r > k] E1∘(dY Xᵀ)
+         as quadrant sums (``quadrant=False``: as the reverse cumulative
+         sum of the adjoint of cum instead, the usual form);
+      4. dB and dC summed over the heads."""
+    b, s, h, p = dtx.shape
+    L = BWD_CHUNK
+    nc = math.ceil(s / L)
+    pad = nc * L - s
+
+    def heads(t):       # (b, s, h, x) -> (b, nc, h, L, x)
+        t = F.pad(t, [0, 0, 0, 0, 0, pad])
+        return t.reshape(b, nc, L, h, -1).permute(0, 1, 3, 2, 4)
+
+    def shared(t):      # (b, s, n) -> (b, nc, 1, L, n)
+        return F.pad(t, [0, 0, 0, pad]).reshape(b, nc, 1, L, -1)
+
+    def back(t):        # (b, nc, h, L, x) -> (b, s, h, x)
+        return t.permute(0, 1, 3, 2, 4).reshape(b, nc * L, h, -1)[:, :s]
+    X, dY, Bc, Cc = heads(dtx), heads(dy), shared(Bm), shared(Cm)
+    a = heads(a_log[..., None])[..., 0]
+    cum, run = torch.empty_like(a), torch.zeros_like(a[..., 0])
+    for i in range(L):
+        run = run + a[..., i]
+        cum[..., i] = run
+    gl, gr = torch.exp(cum), torch.exp(cum[..., -1:] - cum)
+    dS = (gr[..., None] * X).transpose(-1, -2) @ Bc
+    own = (gl[..., None] * dY).transpose(-1, -2) @ Cc
+    decay = gl[..., -1, None, None]
+    S0, Gh = torch.empty_like(dS), torch.zeros_like(own)
+    run = torch.zeros_like(dS[:, 0])
+    for c in range(nc):
+        S0[:, c] = run
+        run = decay[:, c] * run + dS[:, c]
+    run = torch.zeros_like(own[:, 0])
+    for c in reversed(range(nc)):
+        if carry:
+            Gh[:, c] = run
+        run = decay[:, c] * run + own[:, c]
+    tri = torch.ones(L, L, dtype=torch.bool).tril()
+    D = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                              -torch.inf))
+    YX = dY @ X.transpose(-1, -2)
+    E1, E2 = D * (Cc @ Bc.transpose(-1, -2)), D * YX
+    cx, cc = Bc @ Gh.transpose(-1, -2), dY @ S0
+    dX = E1.transpose(-1, -2) @ dY + gr[..., None] * cx
+    dBh = E2.transpose(-1, -2) @ Cc + gr[..., None] * (X @ Gh)
+    dCh = E2 @ Bc + gl[..., None] * cc
+    f = gr * (X * cx).sum(-1)                 # e^{cum_L - cum_s} x_s.(Gh B_s)
+    e = gl * (Cc * cc).sum(-1)                # e^{cum_t} dy_t.(S0 C_t)
+    gs = gl[..., -1:] * (Gh * S0).sum((-1, -2))[..., None]
+    if quadrant:
+        W = torch.where(tri & ~torch.eye(L, dtype=torch.bool), E1 * YX, 0.0)
+        quad = ((torch.cumsum(W, -1) - W) * tri).sum(-2)
+        e_after = torch.flip(torch.cumsum(torch.flip(e, [-1]), -1), [-1])
+        da = (e_after + gs) + ((torch.cumsum(f, -1) - f) + quad)
+    else:
+        pairs = E1 * YX * tri
+        dcum = pairs.sum(-1) - pairs.sum(-2) + e - f
+        dcum[..., -1] += gs[..., 0] + f.sum(-1)
+        da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    return (back(dX), back(da[..., None])[..., 0], back(dBh).sum(2),
+            back(dCh).sum(2))
+
+
+def scan_grads(args, dy, fn, dtype):
+    leaves = [a.to(dtype).detach().clone().requires_grad_() for a in args]
+    fn(*leaves).backward(dy.to(dtype))
+    return [t.grad for t in leaves]
+
+
+def grad_errors(got, want) -> list[float]:
+    """Each tensor's largest error in units of its limit ATOL·max|want|,
+    max|want| taken as at least ZERO of the largest of ``want``."""
+    top = max(w.abs().max().item() for w in want)
+    return [((g.double() - w.double()).abs().max()
+             / (ATOL * max(w.abs().max().item(), ZERO * top))).item()
+            for g, w in zip(got, want)]
+
+
+@functools.cache
+def _bwd_case(kind: str):
+    """The inputs at BWD_SHAPE (zamba2's P and N, 3 heads), an output
+    gradient, and the plain gradient in f32 and in f64."""
+    b, s, h, p, n = BWD_SHAPE
+    dtx, a_log, Bm, Cm = map(torch.from_numpy,
+                             draw(23, b, s, h, p, n, kind == "long_memory"))
+    if kind == "reset":
+        a_log = torch.full_like(a_log, -30.0)
+    args = (dtx, a_log, Bm, Cm)
+    dy = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        dtx.shape).astype(np.float32))
+    return args, dy, scan_grads(args, dy, mamba_scan_ref, torch.float32), \
+        scan_grads(args, dy, mamba_scan_ref, torch.float64)
+
+
+BWD_DRAWS = pytest.mark.parametrize("kind", ["fast", "long_memory", "reset"])
+
+
+@pytest.fixture
+def one_thread():
+    """The plain recurrences' autograd is thousands of small ops, which
+    gain nothing from intra-op threads and, beside other test processes,
+    lose much to them: run the test on one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@BWD_DRAWS
+def test_backward_arithmetic_holds_the_limit(kind, one_thread):
+    """Each of d dtx, d a_log, dB and dC within ATOL·max|g| of autograd of
+    the plain recurrence in f32 and of the gradient in f64."""
+    args, dy, g32, g64 = _bwd_case(kind)
+    got = emulate_bwd(dy, *args)
+    assert max(grad_errors(got, g32)) <= 1.0
+    assert max(grad_errors(got, g64)) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["fast", "long_memory"])
+def test_quadrant_and_usual_forms_of_d_a_log_agree(kind, one_thread):
+    """d a_log as quadrant sums (the kernel's) and as the reverse cumulative
+    sum of cum's adjoint (the usual form): both within 0.02 of the limit of
+    the f64 gradient where d a_log is of the order of the others."""
+    args, dy, _, g64 = _bwd_case(kind)
+    for quadrant in (True, False):
+        da = emulate_bwd(dy, *args, quadrant=quadrant)[1]
+        assert grad_errors([da], [g64[1]])[0] <= 0.02
+
+
+def test_quadrant_sums_keep_a_vanishing_d_a_log(one_thread):
+    """At the full reset d a_log is ~1e-12: the quadrant sums hold it within
+    1e-6 of itself, while the usual form's differences of the larger pair
+    terms lose all of it."""
+    args, dy, g32, g64 = _bwd_case("reset")
+
+    def rel(quadrant):
+        da = emulate_bwd(dy, *args, quadrant=quadrant)[1]
+        return ((da.double() - g64[1]).abs().max()
+                / g64[1].abs().max()).item()
+    assert rel(True) <= 1e-6 and rel(False) > 0.5
+
+
+def test_dropped_adjoint_misses_long_memory(one_thread):
+    """With Gh = 0 (nothing from the later chunks) the long-memory draw
+    misses the limit by orders of magnitude: its state gradient crosses
+    every chunk."""
+    args, dy, g32, _ = _bwd_case("long_memory")
+    assert max(grad_errors(emulate_bwd(dy, *args, carry=False), g32)) > 100
+
+
+def test_backward_full_reset_is_finite_and_local(one_thread):
+    """a_log = -30: every exp of a masked entry underflows to 0 and none
+    overflows, so d dtx_t = (C_t.B_t) dy_t, dB_t = sum_h (dy_t.dtx_t) C_t
+    and dC_t = sum_h (dy_t.dtx_t) B_t, and d a_log is below 1e-9."""
+    args, dy, _, _ = _bwd_case("reset")
+    dtx, _, Bm, Cm = args
+    ddtx, da, dB, dC = emulate_bwd(dy, *args)
+    assert all(torch.isfinite(t).all() for t in (ddtx, da, dB, dC))
+    yx = (dy * dtx).sum(-1).sum(-1)[..., None]
+    for got, want in ((ddtx, (Cm * Bm).sum(-1)[..., None, None] * dy),
+                      (dB, yx * Cm), (dC, yx * Bm)):
+        torch.testing.assert_close(got, want, atol=ATOL * want.abs().max(),
+                                   rtol=0)
+    assert da.abs().max() < 1e-9
+
+
+@pytest.mark.parametrize("s,p,n", [(200, 33, 17), (65, 64, 64), (1, 1, 1)])
+def test_backward_ragged_shapes_hold_the_limit(s, p, n, one_thread):
+    """A ragged last chunk and P, N below the tile."""
+    arrays = draw(s + n, 2, s, 3, p, n, True)
+    args = tuple(map(torch.from_numpy, arrays))
+    dy = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        args[0].shape).astype(np.float32))
+    g32 = scan_grads(args, dy, mamba_scan_ref, torch.float32)
+    assert max(grad_errors(emulate_bwd(dy, *args), g32)) <= 1.0

@@ -16,7 +16,17 @@ exponents from exact sums of log f, or a dropped carry miss it; f32 or
 TF32×3 scores leave the denominator 4-7 times further from exact.  The
 CUDA kernel itself is held against the plain version on the card, in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  The wrapper's
-scratch sizes and refusals are checked here too."""
+scratch sizes and refusals are checked here too.
+
+The backward kernel (``csrc/mlstm_scan_bwd_sm90.cu``) is emulated the same
+way: the plain version's exponents with f64 prefix sums, d in f64, the
+pairs (t, s) in the quadratic form with their row and column sums over
+the same f64 terms, and the m chain run backwards; held against autograd of
+the plain recurrence in f32 and against the gradient of the recurrence in
+f64 on the usual, stabiliser and long-memory draws, forget-all and a draw
+where the clamp max(|n·q|, 1) holds at most steps, each gradient tensor
+within ATOL·max|g|.  Treating the stabiliser as gradient-free misses the
+limit there."""
 
 import functools
 import math
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 
 from repro.kernels.ref import mlstm_ref as jax_mlstm_ref
 from repro_torch.kernels import mlstm_scan as ML
+from repro_torch.kernels.ref import mlstm_ref as ML_REF
 
 ATOL = 1e-4            # chip_smoke.MLSTM_ATOL: per element, against plain
 B, S, H, P = 1, 2048, 2, 512   # xlstm-1.3b's P and its prefill S
@@ -313,3 +324,155 @@ def test_state_pass_refuses_counts_past_32_bits(b, h, p, fits):
     """xlstm-1.3b at batch 1 and 4 fits; 2**13 heads of 512 or 2**27
     states of 64 x 64 do not."""
     assert ML.state_pass_fits(b, h, p) is fits
+
+
+# --- the backward kernel -----------------------------------------------------------
+
+BWD_SHAPE = (1, 160, 1, 512)   # xlstm-1.3b's P; S cut for the plain autograd
+BWD_DRAWS = ("usual", "stabiliser", "long_memory", "forget_all", "clamp")
+ZERO = 1e-6    # of the largest gradient: below it, rounding (forget-all's
+               # d i_pre: i_t sets m_t and cancels)
+
+
+@pytest.fixture
+def one_thread():
+    """The plain recurrences' autograd is thousands of small ops, which
+    gain nothing from intra-op threads and, beside other test processes,
+    lose much to them: run the test on one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def emulate_bwd(dh, q, k, v, i_pre, f_pre, h, *, stabiliser=True):
+    """The mLSTM scan's gradient (dq, dk, dv, d i_pre, d f_pre) computed as
+    the backward kernel computes it, from the output h:
+      1. the plain version's m chain, lf' and i', the max's share w, and G
+         the prefix sums of lf'_u for u >= 1 in f64;
+      2. D_ts = e^{i'_s + G_t - G_s} in f64 (masked, s <= t), d_t = sum_s
+         D_ts (q_t.k_s) in f64, den_t, dd_t = -(dh_t.h_t)/den_t sign(d_t)
+         where |d_t| >= 1, dnum = dh/den; per pair M = (dnum_t.v_s + dd_t)
+         D_ts (f32) and dl = M (q_t.k_s) in f64, their row and column sums;
+         dq = M K, dk = Mᵀ Q, dv = (D∘QKᵀ)ᵀ dnum;
+      3. backwards over t in f64: G^m_t = w_{t+1} G^m_{t+1} - rowsum_t,
+         d lf'_t = sum_{u>=t} (rowsum_u - colsum_u), d log f_t = d lf'_t +
+         w_t G^m_t, d i_t = colsum_t + (1 - w_t) G^m_t, d f_pre = d log f
+         σ(-f_pre).
+    ``stabiliser=False`` drops the m chain's adjoint (G^m = 0)."""
+    f64 = torch.float64
+    s = q.shape[1]
+    m, lfs, iota, lf, ii = plain_chain(i_pre, f_pre)      # (b, H, s)
+    above = lf + torch.cat([torch.full_like(m[..., :1], M0), m[..., :-1]], -1)
+    w = torch.where(above > ii, 1.0, torch.where(above == ii, 0.5, 0.0))
+    G = lfs.to(f64)
+    G[..., 0] = 0.0
+    G = G.cumsum(-1)
+    tri = torch.ones(s, s, dtype=torch.bool).tril()
+    D = torch.exp(torch.where(tri, iota.to(f64)[..., None, :]
+                              + (G[..., :, None] - G[..., None, :]),
+                              -torch.inf))
+    Q, K, V, dH, Hh = (t.permute(0, 2, 1, 3) for t in (q, k, v, dh, h))
+    d = (D * (Q.to(f64) @ K.to(f64).transpose(-1, -2))).sum(-1)
+    clamp = d.abs() < 1.0
+    den = torch.where(clamp, 1.0, d.abs()).float()
+    hd = (dH.to(f64) * Hh.to(f64)).sum(-1)
+    dd = torch.where(clamp, 0.0, -(hd / den) * torch.sign(d)).float()
+    dnum = dH / den[..., None]
+    Df, S32 = D.float(), Q @ K.transpose(-1, -2)
+    M = (dnum @ V.transpose(-1, -2) + dd[..., None]) * Df
+    dl = M.to(f64) * S32.to(f64)
+    rowsum, colsum = dl.sum(-1), dl.sum(-2)
+    dq, dk = M @ K, M.transpose(-1, -2) @ Q
+    dv = (Df * S32).transpose(-1, -2) @ dnum
+    dlf, di = torch.empty_like(rowsum), torch.empty_like(rowsum)
+    carry, quad = torch.zeros_like(rowsum[..., 0]), torch.zeros_like(d[..., 0])
+    wd = w.to(f64) if stabiliser else torch.zeros_like(rowsum)
+    for t in reversed(range(s)):
+        gm = carry - rowsum[..., t] if stabiliser else torch.zeros_like(carry)
+        quad = quad + (rowsum[..., t] - colsum[..., t])
+        dlf[..., t] = quad + wd[..., t] * gm
+        di[..., t] = colsum[..., t] + (1 - wd[..., t]) * gm
+        carry = wd[..., t] * gm
+    df = dlf.float() * torch.sigmoid(-f_pre.float().permute(0, 2, 1))
+
+    def back(t):
+        return t.permute(0, 2, 1, *range(3, t.dim()))
+    return back(dq), back(dk), back(dv), back(di.float()), back(df)
+
+
+def grad_errors(got, want) -> list[float]:
+    """Each tensor's largest error in units of its limit ATOL·max|want|,
+    max|want| taken as at least ZERO of the largest of ``want``."""
+    top = max(w.abs().max().item() for w in want)
+    return [((g.double() - w.double()).abs().max()
+             / (ATOL * max(w.abs().max().item(), ZERO * top))).item()
+            for g, w in zip(got, want)]
+
+
+@functools.cache
+def _bwd_case(kind: str):
+    """The inputs at BWD_SHAPE, dh, h and the plain gradient in f32 and
+    f64.  ``forget_all`` sets f_pre = -30; ``clamp`` scales q and k by 0.1,
+    so |n·q| < 1 at most steps."""
+    b, s, h, p = BWD_SHAPE
+    q, k, v, i_pre, f_pre = map(torch.from_numpy, draw(
+        SEED + 1, b, s, h, p, kind if kind in DRAWS else "usual"))
+    if kind == "forget_all":
+        f_pre = torch.full_like(f_pre, -30.0)
+    if kind == "clamp":
+        q, k = q * 0.1, k * 0.1
+    args = (q, k, v, i_pre, f_pre)
+    dh = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        q.shape).astype(np.float32))
+
+    def grads(fn, dtype):
+        leaves = [a.to(dtype).clone().requires_grad_() for a in args]
+        out = fn(*leaves)
+        out.backward(dh.to(dtype))
+        return [t.grad for t in leaves], out.detach()
+    g32, out = grads(ML_REF, torch.float32)
+    return args, dh, out, g32, grads(ML_REF, torch.float64)[0]
+
+
+@pytest.mark.parametrize("kind", BWD_DRAWS)
+def test_backward_arithmetic_holds_the_limit(kind, one_thread):
+    """Each of dq, dk, dv, d i_pre and d f_pre within ATOL·max|g| of
+    autograd of the plain recurrence in f32 and of the gradient in f64."""
+    args, dh, h, g32, g64 = _bwd_case(kind)
+    got = emulate_bwd(dh, *args, h)
+    assert max(grad_errors(got, g32)) <= 1.0
+    assert max(grad_errors(got, g64)) <= 1.0
+
+
+def test_clamp_draw_clamps_at_most_steps_the_usual_at_some(one_thread):
+    """The clamp draw has |n·q| < 1 at most steps; the usual draw at some
+    (14%), so its gates' gradients go through the m chain too."""
+    def share(kind):
+        args, *_ = _bwd_case(kind)
+        q, k, _, i_pre, f_pre = args
+        _, den = emulate(q, k, q, i_pre, f_pre, parts=True)
+        return (den == 1.0).float().mean().item()
+    assert share("clamp") > 0.5 > share("usual") > 0.05
+
+
+@pytest.mark.parametrize("kind", ["usual", "clamp"])
+def test_gradient_free_stabiliser_misses_the_limit(kind, one_thread):
+    """Dropping the m chain's adjoint: the gates' gradients miss the limit
+    wherever the clamp holds at some step."""
+    args, dh, h, g32, _ = _bwd_case(kind)
+    got = emulate_bwd(dh, *args, h, stabiliser=False)
+    assert max(grad_errors(got, g32)[3:]) > 10
+
+
+@pytest.mark.parametrize("b,s,h,p", [(2, 40, 3, 48), (1, 1, 1, 1)])
+def test_backward_ragged_shapes_hold_the_limit(b, s, h, p, one_thread):
+    q, k, v, i_pre, f_pre = map(torch.from_numpy,
+                                draw(SEED + s, b, s, h, p, "usual"))
+    dh = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        q.shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, i_pre, f_pre)]
+    out = ML_REF(*leaves)
+    out.backward(dh)
+    got = emulate_bwd(dh, q, k, v, i_pre, f_pre, out.detach())
+    assert max(grad_errors(got, [t.grad for t in leaves])) <= 1.0

@@ -10,8 +10,8 @@ gradient leaf within 1e-4·max|g_jax| of that leaf, the moments within
 ``tests/test_trainer.py``).  Every floating leaf gets a gradient of
 nonzero norm.  The remat and chunked-loss forms give the plain step's
 gradients; gemma2's final softcap runs out of place under autograd and in
-place without it; the hybrid and xLSTM recurrences are not differentiable
-yet."""
+place without it.  The hybrid (zamba2) and xLSTM families train through
+the plain recurrences here, which write nothing in place."""
 
 import dataclasses
 import functools
@@ -47,7 +47,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CFG = get_config("qwen3-32b", smoke=True)
 TRAINABLE = ["minicpm-2b", "gemma2-2b", "phi3-mini-3.8b", "qwen3-32b",
              "granite-moe-1b-a400m", "deepseek-moe-16b", "paligemma-3b",
-             "whisper-large-v3"]
+             "whisper-large-v3", "zamba2-2.7b", "xlstm-1.3b"]
 LR = 1e-3
 GRAD_RTOL = 1e-4       # per leaf, of max|g|: f32 sums in another order
 LOSS_RTOL = 1e-5
@@ -270,24 +270,6 @@ def test_head_softcap_in_place_only_without_autograd():
     assert float(logits.detach().abs().max()) <= cfg.final_softcap
     logits.sum().backward()
     assert all(p.grad is not None for p in tree.leaves(state["params"]))
-
-
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "xlstm-1.3b"])
-def test_recurrent_families_are_not_differentiable_yet(name):
-    """The hybrid's and xLSTM's plain recurrences update their state in
-    place (the sLSTM writes through ``out=``); the forward or the backward
-    under autograd raises (ROADMAP: differentiable hybrid and xLSTM
-    recurrences).  The forwards take the training keywords."""
-    cfg = get_config(name, smoke=True)
-    model = build_model(cfg, device="cpu")
-    lm = model.init(0)
-    batch = batch_for_step(cfg, 0, 1, 8, device="cpu")
-    hidden, _ = model.forward(lm, batch, remat=False, return_hidden=True)
-    assert hidden.shape == (1, 8, cfg.d_model)
-    state = init_train_state(model, lm, TrainStepConfig())
-    with pytest.raises(RuntimeError, match="inplace|out="):
-        loss, _ = make_loss_fn(model)(state["params"], batch)
-        loss.backward()
 
 
 @pytest.mark.parametrize("family", ["decoder", "encdec"])
