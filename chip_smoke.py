@@ -281,8 +281,32 @@ Phases, each of which raises (exit code 1) on failure:
 45. timings of phase 44's step as in phase 43; the profiled step is one
     unit's at full width (a step of all 48 layers records ~10^6 profiler
     events).
-46. prints the ``kernels`` JSON line (the four kernels and the two
-    backward kernels), 47. the final ``{"ok": true, ...}`` line.  The full
+46. the launcher: ``python -m repro_torch.launch.train --arch minicpm-2b
+    --mesh 1x1 --policy fused_seq`` (``launch.train.run`` in this process,
+    on a one-rank NCCL group) at 4x1024 bf16, 4 steps, its state's leaves
+    DTensors on the 1x1 mesh: at full width and depth without checkpoints
+    (the machine's disk takes no two 27 GB states: LAUNCH_CUT_LAYERS), then
+    at full width cut to 4 layers with a checkpoint every 2 and a
+    ``TransientError`` at step 3, restored from step 2's checkpoint; each
+    step exactly one flash launch a layer through the kernels' DTensor
+    route, zero collective bytes (``launch/comm.py``), and each step's loss
+    and the final parameters bit-equal to the plain-tensor trainer's from
+    the same seed on the same batches.
+47. ``layerwise_tp`` on the same state and batch: the loss bit-equal to
+    ``fused_seq``'s, zero collective bytes, 40 launches (80 in a step with
+    remat), none in a forward under ``ops.plain()``; then one step split
+    into its gradient and AdamW (phase 49).
+48. the dry run as users run it, in a subprocess: ``python -m
+    repro_torch.launch.dryrun --mesh single --cells
+    minicpm-2b@prefill_32k`` under each policy (256 fake ranks, meta
+    shards): exit 0; per-device argument bytes, FLOPs and collective bytes
+    by kind printed.
+49. time: the launcher's step (host clock, synchronised) beside the plain
+    trainer's at the same shape, the difference being the launcher's
+    overhead over the plain trainer; one step of each split into its
+    gradient and its AdamW update, to say where that overhead lies.
+50. prints the ``kernels`` JSON line (the four kernels and the two
+    backward kernels), 51. the final ``{"ok": true, ...}`` line.  The full
     record goes to ``build/chip_smoke.json``.
 
     python3 chip_smoke.py --conv-times
@@ -3254,6 +3278,371 @@ def recurrent_training_paths(smi: str) -> dict:
             xcfg.name: x_record, f"{xcfg.name}_f32_twin": x_twin}
 
 
+# --- the sharded launch path: the launcher, both policies, the dry run ---------
+
+LAUNCH_CONFIG = "minicpm-2b"
+LAUNCH_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_FAIL_AT = 4, 2, 3
+# The checkpointed restart's depth.  minicpm-2b's whole train state is 27 GB
+# (bf16 parameters, f32 moments); the loop writes one at step 0 and one at
+# its last step, and the card's machine stops a call that has written 45 GiB
+# to its disk, so at full depth the launcher runs without checkpoints and
+# the restart from a checkpoint runs at full width cut to 4 layers (5.2 GB
+# a checkpoint, three of them).
+LAUNCH_CUT_LAYERS = 4
+LAUNCH_LOSS_RTOL = 1e-3   # only if the launcher's losses are not bit-equal
+DRYRUN_CELL = "minicpm-2b@prefill_32k"
+DRYRUN_POLICIES = ("fused_seq", "layerwise_tp")
+
+
+def launcher_args(policy: str, ckpt: Path, *extra: str):
+    from repro_torch.launch import train as LT
+    return LT.parser().parse_args([
+        "--arch", LAUNCH_CONFIG, "--mesh", "1x1", "--policy", policy,
+        "--steps", str(LAUNCH_STEPS), "--global-batch", str(TRAIN_ROWS),
+        "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--ckpt-dir",
+        str(ckpt), *extra])
+
+
+def split_step(model, ts, state, batch) -> dict:
+    """One train step as ``make_train_step`` takes it, timed in two parts
+    on the host clock around synchronised calls: the gradient
+    (``make_grad_fn``) and the AdamW update, in ms."""
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.schedule import make_schedule
+    from repro_torch.train.trainer import make_grad_fn
+    schedule = make_schedule(model.cfg.lr_schedule,
+                             warmup=ts.schedule_warmup,
+                             total=ts.schedule_total_steps)
+    grad_fn = make_grad_fn(model, ts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = grad_fn(state["params"], batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(ts.opt, state["params"], grads, state["opt"],
+                 schedule(state["opt"]["step"] + 1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    zero_launches()
+    return {"grad_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3}
+
+
+def plain_trainer(cfg, ts, expect: dict[str, int], init: list | None = None,
+                  split: bool = False) -> dict:
+    """The plain-tensor trainer (``make_train_step`` on plain tensors) from
+    seed 0 on the launcher's batches: per-step losses and host-clock
+    seconds, the final parameters on the host, and, when ``init`` is a
+    list, the initial parameters appended to it (on the host); with
+    ``split``, one more step after those, timed by ``split_step``."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    model = build_model(cfg)
+    step_fn = make_train_step(model, ts)
+    lm = model.init(0)
+    if init is not None:
+        init.extend(p.detach().cpu() for p in tree.leaves(lm.params))
+    state = init_train_state(model, lm, ts)
+    del lm
+    losses, secs = [], []
+    for s in range(LAUNCH_STEPS):
+        batch = batch_for_step(cfg, s, TRAIN_ROWS, TRAIN_SEQ)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+        check_launches(expect, f"{cfg.name} plain trainer step {s}",
+                       flash_route(cfg))
+    final = [p.detach().cpu() for p in tree.leaves(state["params"])]
+    parts = split_step(model, ts, state, batch_for_step(
+        cfg, LAUNCH_STEPS, TRAIN_ROWS, TRAIN_SEQ)) if split else None
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "s": secs, "final": final, "split": parts}
+
+
+def run_launcher(args, expect: dict[str, int], route: str, layers: int = 0,
+                 fail_at: int = -1) -> dict:
+    """``launch.train.run(args, layers=layers)`` in this process: each
+    step's launches held to ``expect`` (on ``route``) and step 0's
+    collectives counted; a ``TransientError`` raised once at step
+    ``fail_at`` (-1: none); every state leaf must be a DTensor on the 1x1
+    mesh.  The final parameters go to the host and the state is freed."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.core.dtensor import is_dtensor
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.comm import CommCounter
+    from repro_torch.train.fault_tolerance import TransientError
+    shutil.rmtree(args.ckpt_dir, ignore_errors=True)
+    launches: list[int] = []
+    comm: dict = {}
+    failed: list[int] = []
+
+    @contextlib.contextmanager
+    def counted(step: int):
+        if step == fail_at and not failed:
+            failed.append(step)
+            print(f"  [launch] TransientError at step {step}")
+            raise TransientError(f"injected at step {step}")
+        zero_launches()
+        counter = CommCounter() if not comm else None
+        with counter if counter is not None else contextlib.nullcontext():
+            yield
+        torch.cuda.synchronize()
+        launches.append(check_launches(
+            expect, f"launcher step {step}", route)["flash_attention"])
+        if counter is not None:
+            comm.update(counter.costs().record())
+
+    t0 = time.perf_counter()
+    out = LT.run(args, step_context=counted, layers=layers)
+    run_s = time.perf_counter() - t0
+    state = out["state"]
+    leaves = [x for k in ("params", "opt") for x in tree.leaves(state[k])
+              if k == "params" or x.dim() > 0]
+    check(all(is_dtensor(x) and tuple(x.device_mesh.shape) == (1, 1)
+              for x in leaves), "a launcher state leaf is not a DTensor on "
+          "the 1x1 mesh")
+    placements = sorted({str(x.placements) for x in leaves})
+    final = [p.to_local().detach().cpu() for p in
+             tree.leaves(state["params"])]
+    history, report = out["history"], out["report"]
+    del out, state, leaves
+    torch.cuda.empty_cache()
+    shutil.rmtree(args.ckpt_dir, ignore_errors=True)
+    check(comm.get("total", -1) == 0, f"collectives on a 1x1 mesh: {comm}")
+    return {"losses": [loss for _, loss, _ in history],
+            "steps": [s for s, _, _ in history],
+            "s": [secs for _, _, secs in history], "final": final,
+            "launches": launches, "collectives": comm,
+            "placements": placements, "restarts": report.restarts,
+            "run_s": run_s}
+
+
+def held_against_plain(tag: str, got: dict, plain: dict) -> dict:
+    """The launcher's per-step losses against the plain trainer's: bit-equal,
+    or within LAUNCH_LOSS_RTOL (and said); final parameters compared."""
+    bit_equal = got["losses"] == plain["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   plain["losses"]))
+    same = all(torch.equal(a, b) for a, b in zip(got["final"],
+                                                 plain["final"]))
+    print(f"[launch] {tag}: steps run {got['steps']} (restarts "
+          f"{got['restarts']}), flash launches a step {got['launches']}, "
+          f"step 0's collectives {got['collectives']}; state placements "
+          f"{got['placements']}; launcher losses {got['losses']}; plain "
+          f"trainer {plain['losses']}; bit-equal {bit_equal} (max rel "
+          f"{rel:.3e}); final parameters bit-equal {same}; run "
+          f"{got['run_s']:.1f} s")
+    check(bit_equal or rel <= LAUNCH_LOSS_RTOL,
+          f"{tag}: launcher losses differ from the plain trainer's by "
+          f"{rel:.3e}")
+    check(same or not bit_equal, f"{tag}: the losses agree bit for bit but "
+          f"the final parameters do not")
+    return {k: v for k, v in got.items() if k != "final"} | {
+        "plain_losses": plain["losses"], "plain_s": plain["s"],
+        "bit_equal": bit_equal, "max_rel": rel,
+        "final_params_bit_equal": same}
+
+
+def launcher_path(smi: str) -> dict:
+    """Phase 46 (a): ``python -m repro_torch.launch.train --arch minicpm-2b
+    --mesh 1x1 --policy fused_seq`` in this process (``run``, within a
+    one-rank NCCL group), 4x1024 bf16, 4 steps: at full width and depth
+    without checkpoints (see LAUNCH_CUT_LAYERS), then at full width cut to
+    4 layers with a checkpoint every 2 and a ``TransientError`` at step 3,
+    restored from step 2's checkpoint and replayed.  Each run: every state
+    leaf a DTensor on the 1x1 mesh, exactly one flash launch a layer a step
+    on the tensor-core route, zero collective bytes in step 0
+    (``launch/comm.py``); and the plain-tensor trainer from the same seed on
+    the same batches: each step's loss equal to the launcher's bit for bit
+    (else within LAUNCH_LOSS_RTOL, and the run says so), the replayed
+    step's too, the final parameters bit-equal.  Returns the records and
+    the initial parameters (host) for phase 47."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    cfg = get_config(LAUNCH_CONFIG)
+    ckpt = ROOT / "build" / "launch_ckpt"
+    print(f"[launch] python -m repro_torch.launch.train --arch "
+          f"{LAUNCH_CONFIG} --mesh 1x1 --policy fused_seq --steps "
+          f"{LAUNCH_STEPS} --global-batch {TRAIN_ROWS} --seq {TRAIN_SEQ} "
+          f"--lr {TRAIN_LR}, in this process (one-rank NCCL group), {smi}")
+    args = launcher_args("fused_seq", ckpt, "--ckpt-every", "0")
+    expect = {"flash_attention": cfg.num_layers}
+    full = run_launcher(args, expect, flash_route(cfg))
+    init: list = []
+    plain = plain_trainer(cfg, LT.train_config(args), expect, init,
+                          split=True)
+    full = held_against_plain(f"{cfg.name} full depth, --ckpt-every 0",
+                              full, plain)
+    cut_args = launcher_args("fused_seq", ckpt, "--ckpt-every",
+                             str(LAUNCH_CKPT_EVERY))
+    ccfg = dc.replace(cfg, name=f"{cfg.name}-{LAUNCH_CUT_LAYERS}-layers",
+                      num_layers=LAUNCH_CUT_LAYERS)
+    cut = run_launcher(cut_args, {"flash_attention": LAUNCH_CUT_LAYERS},
+                       flash_route(cfg), layers=LAUNCH_CUT_LAYERS,
+                       fail_at=LAUNCH_FAIL_AT)
+    check(cut["restarts"] == 1 and cut["steps"] == list(
+        range(LAUNCH_STEPS)), f"the launcher's restart: {cut['steps']}")
+    cut = held_against_plain(
+        f"{ccfg.name}, --ckpt-every {LAUNCH_CKPT_EVERY}, a TransientError "
+        f"at step {LAUNCH_FAIL_AT} (replayed from step "
+        f"{LAUNCH_FAIL_AT - 1}'s checkpoint)", cut,
+        plain_trainer(ccfg, LT.train_config(cut_args),
+                      {"flash_attention": LAUNCH_CUT_LAYERS}))
+    check(cut["bit_equal"] and cut["final_params_bit_equal"],
+          "the restarted launcher run is not bit-equal to the plain run")
+    return {"full": full, "cut": cut, "init": init,
+            "plain_split": plain["split"]}
+
+
+def policy_step_path(launcher: dict) -> dict:
+    """Phase 47 (b): one ``layerwise_tp`` step from the same seed (phase
+    46's initial parameters) on the same batch as the launcher's step 0 at
+    full depth: its loss bit-equal to ``fused_seq``'s (a 1x1 mesh moves
+    nothing), 40 flash launches, zero collective bytes; then a step with
+    remat (80 launches), a step timed in two parts (``split_step``), and a
+    forward of the DTensor state under ``ops.plain()`` (none)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.policies import get_policy
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.comm import CommCounter
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import (init_train_state, make_train_step,
+                                           sharded)
+    cfg = get_config(LAUNCH_CONFIG)
+    route = flash_route(cfg)
+    ts = LT.train_config(launcher_args("layerwise_tp", ROOT / "build"))
+    model = build_model(cfg)
+    policy = get_policy("layerwise_tp", make_mesh((1, 1), ("data", "model")),
+                        cfg)
+    # the seed's parameters, as phase 46's plain trainer drew them
+    like = build_model(cfg, device="meta").init(0).params
+    params = tree.unflatten(like, [p.cuda() for p in launcher["init"]])
+    launcher["init"].clear()
+    state = LT.shard_state(policy, init_train_state(model, params, ts))
+    counter = CommCounter()
+    batch = LT.shard_batch(policy, batch_for_step(cfg, 0, TRAIN_ROWS,
+                                                  TRAIN_SEQ))
+    zero_launches()
+    with counter:
+        state, metrics = make_train_step(model, ts)(state, batch)
+    loss = float(metrics["loss"])
+    check_launches({"flash_attention": cfg.num_layers}, "layerwise_tp step",
+                   route)
+    comm = counter.costs().record()
+    zero_launches()
+    state, m_remat = make_train_step(model, dataclasses.replace(
+        ts, remat=True))(state, LT.shard_batch(
+            policy, batch_for_step(cfg, 1, TRAIN_ROWS, TRAIN_SEQ)))
+    remat_loss = float(m_remat["loss"])
+    check_launches({"flash_attention": 2 * cfg.num_layers},
+                   "layerwise_tp step with remat", route)
+    # the DTensor step split into its gradient and AdamW (phase 49)
+    split = split_step(model, ts, state, LT.shard_batch(
+        policy, batch_for_step(cfg, LAUNCH_STEPS, TRAIN_ROWS, TRAIN_SEQ)))
+    batch = LT.shard_batch(policy, batch_for_step(cfg, 2, TRAIN_ROWS,
+                                                  TRAIN_SEQ))
+    with torch.no_grad(), ops.plain(), sharded([state["params"]["embed"]]):
+        logits, _ = model.forward(model.bind(state["params"]), batch)
+        finite = bool(torch.isfinite(logits.to_local()).all())
+    check_launches({}, "a DTensor forward under ops.plain()")
+    del state, logits
+    torch.cuda.empty_cache()
+    print(f"[launch] layerwise_tp on the same state and batch: loss {loss} "
+          f"vs fused_seq's {launcher['full']['losses'][0]} (bit-equal "
+          f"{loss == launcher['full']['losses'][0]}); collectives {comm}; "
+          f"{cfg.num_layers} flash launches; a remat step (loss "
+          f"{remat_loss:.4f}) {2 * cfg.num_layers}; a forward under "
+          f"ops.plain() none, logits finite {finite}")
+    check(loss == launcher["full"]["losses"][0], "layerwise_tp's loss "
+          "differs from fused_seq's on a 1x1 mesh")
+    check(comm["total"] == 0, f"layerwise_tp collectives on 1x1: {comm}")
+    check(math.isfinite(remat_loss) and finite, "a non-finite loss or logit")
+    return {"loss": loss, "collectives": comm, "remat_loss": remat_loss,
+            "split": split}
+
+
+def dryrun_path(smi: str) -> dict:
+    """Phase 48 (c): ``python -m repro_torch.launch.dryrun --mesh single
+    --cells minicpm-2b@prefill_32k`` for each policy, as users run it, in
+    subprocesses run side by side (a fake group of 256 ranks, meta shards,
+    on the CPU): exit 0, one ``ok`` record; per-device argument bytes,
+    FLOPs and collective bytes by kind printed."""
+    import os
+    t0 = time.perf_counter()
+    runs = {policy: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single", "--cells", DRYRUN_CELL, "--policy", policy, "--out",
+         str(ROOT / "build" / f"dryrun_{policy}.json")], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for policy in DRYRUN_POLICIES}
+    out = {}
+    for policy, proc in runs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"dry run {policy} exited "
+              f"{proc.returncode}: {stdout[-2000:]} {stderr[-2000:]}")
+        (rec,) = json.loads((ROOT / "build" / f"dryrun_{policy}.json")
+                            .read_text())
+        check(rec["status"] == "ok", f"dry run {policy}: {rec}")
+        coll = {k: v for k, v in rec["collectives"].items() if v}
+        print(f"[dryrun] {DRYRUN_CELL} single_pod_16x16 (256 fake ranks) "
+              f"{policy}: exit 0; per device: argument "
+              f"{rec['bytes_per_device']['argument']} B, "
+              f"{rec['flops_per_device']:.4e} FLOPs, collectives {coll}")
+        out[policy] = rec
+    secs = time.perf_counter() - t0
+    print(f"[dryrun] both policies in {secs:.1f} s (side by side)")
+    return {**out, "s": secs}
+
+
+def launch_paths(smi: str) -> dict:
+    """Phases 46-49: the launcher, the second policy and the dry run, then
+    the launcher's step time beside the plain trainer's."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        launcher = launcher_path(smi)
+        policies = policy_step_path(launcher)
+    finally:
+        dist.destroy_process_group()
+    dry = dryrun_path(smi)
+    # steps 1 onwards: step 0 pays first calls and the collective counter
+    full = launcher["full"]
+    launch_ms = statistics.median(full["s"][1:]) * 1e3
+    plain_ms = statistics.median(full["plain_s"][1:]) * 1e3
+    print(f"[time] {LAUNCH_CONFIG} train step {TRAIN_ROWS}x{TRAIN_SEQ} bf16, "
+          f"host clock around a synchronised step, median of steps 1-"
+          f"{LAUNCH_STEPS - 1}, {smi}: launcher (DTensor state, 1x1 mesh) "
+          f"{launch_ms:.1f} ms, plain trainer {plain_ms:.1f} ms; launcher "
+          f"overhead over the plain trainer {launch_ms - plain_ms:.1f} ms a "
+          f"step; every step: launcher "
+          f"{[round(t * 1e3, 1) for t in full['s']]} plain "
+          f"{[round(t * 1e3, 1) for t in full['plain_s']]}")
+    dsplit, psplit = policies["split"], launcher["plain_split"]
+    print(f"[time] one step split, {smi}: DTensor state (1x1 mesh) gradient "
+          f"{dsplit['grad_ms']:.1f} ms + AdamW {dsplit['adamw_ms']:.1f} ms; "
+          f"plain state gradient {psplit['grad_ms']:.1f} ms + AdamW "
+          f"{psplit['adamw_ms']:.1f} ms; of the difference, gradient "
+          f"{dsplit['grad_ms'] - psplit['grad_ms']:.1f} ms, AdamW "
+          f"{dsplit['adamw_ms'] - psplit['adamw_ms']:.1f} ms")
+    return {"launcher": launcher, "layerwise_tp": policies, "dryrun": dry,
+            "launcher_step_ms": launch_ms, "plain_step_ms": plain_ms}
+
+
 def training_paths(smi: str) -> dict:
     """Phases 34-45: the flash gradient, minicpm-2b's training at full
     width and depth, its f32 twin, the restart, and the timings; then the
@@ -3414,6 +3803,7 @@ def main() -> int:
     w_flash_rows = w["w_flash_rows"]
     tr = training_paths(smi)
     tt = tr["train"]["timings"]
+    la = launch_paths(smi)
 
     check(sum(r["per_forward"] for r in rows) == CONVS_PER_FORWARD,
           "CONV_SHAPES do not add up to one forward")
@@ -3539,6 +3929,13 @@ def main() -> int:
                           "backward, is_causal (the same function)",
             "times_are": "one layer's attention (CUDA events); x"
                          f"{get_config(TRAIN_CONFIG).num_layers} per step"},
+        "launcher": {
+            "config": f"python -m repro_torch.launch.train --arch "
+                      f"{LAUNCH_CONFIG} --mesh 1x1 --policy fused_seq, "
+                      f"{TRAIN_ROWS}x{TRAIN_SEQ} bf16, DTensor state",
+            "launches": la["launcher"]["full"]["launches"],
+            "cut_launches": la["launcher"]["cut"]["launches"],
+            "route": "local_map onto the local shards (kernels/ops.py)"},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan_sm90.cu",
@@ -3615,7 +4012,7 @@ def main() -> int:
               "whisper_flash_shapes": w_flash_rows,
               wcfg.name: lm_record(wlm, w["w_served"], w_times),
               w["w32cfg"].name: w["w32"], "serve_lm_torch": w["example"],
-              "training": tr, **kernels}
+              "training": tr, "launch": la, **kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -3651,6 +4048,8 @@ def main() -> int:
               f"{tr[n]['timings']['mfu']:.4f} of peak)"
               for n, r, q in ((hcfg.name, HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ),
                               (xcfg.name, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ)))
+          + f"; launcher step {la['launcher_step_ms']:.1f} ms (plain "
+          f"trainer {la['plain_step_ms']:.1f} ms)"
           + f"; script "
           f"{time.perf_counter() - T0:.0f} s")
     print(smi)

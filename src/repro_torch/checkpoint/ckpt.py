@@ -23,6 +23,12 @@ writes and reads those bits through an int16 view, without ml_dtypes.
   training.
 * RETENTION: keeps the newest ``keep`` checkpoints, deleting older ones
   only after a successful commit.
+* SHARDED: a DTensor leaf is gathered (``full_tensor``, a collective that
+  every rank joins) and rank 0 writes, so the files are those of the same
+  state unsharded; the other ranks wait at a barrier until the commit.
+  ``restore_checkpoint`` places each leaf with ``shardings`` (a tree of
+  ``NamedSharding``s, JAX's argument), or, without it, as ``like_tree``'s
+  leaf lies: reshard-on-restore, the path elastic re-meshing takes.
 """
 
 from __future__ import annotations
@@ -35,8 +41,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.core.dtensor import is_dtensor
+from repro_torch.core.policies import NamedSharding
 
 MANIFEST = "manifest.json"
 LATEST = "LATEST"
@@ -45,10 +54,21 @@ _BF16_DESCR = "<V2"          # numpy's descr for ml_dtypes.bfloat16
 
 def _to_host(leaf: Any) -> Any:
     """A host copy of a tensor leaf (a copy also when it lies on the CPU,
-    so that training on in place cannot change a snapshot)."""
+    so that training on in place cannot change a snapshot); a DTensor's
+    whole global tensor, gathered on every rank."""
+    if is_dtensor(leaf):
+        return leaf.detach().full_tensor().to("cpu", copy=True)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return leaf
+
+
+def _ranks() -> tuple[int, int]:
+    """(this rank, world size) of the default process group; (0, 1)
+    without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def _save_leaf(path: str, leaf: Any) -> dict:
@@ -78,7 +98,22 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
 
 def save_checkpoint(directory: str, step: int, state: Any,
                     extra: dict | None = None, keep: int = 3) -> str:
-    """Synchronous atomic save.  Returns the committed path."""
+    """Synchronous atomic save.  Returns the committed path.  With a
+    process group of several ranks every rank must call it (DTensor leaves
+    are gathered); rank 0 writes, and all return after the commit."""
+    rank, world = _ranks()
+    if any(is_dtensor(x) for x in tree.leaves(state)):
+        state = tree.map(_to_host, state)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if rank == 0:
+        _write(directory, step, state, extra, keep)
+    if world > 1:
+        dist.barrier()
+    return final
+
+
+def _write(directory: str, step: int, state: Any, extra: dict | None,
+           keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     name = f"step_{step:08d}"
     tmp = os.path.join(directory, name + ".tmp")
@@ -137,11 +172,17 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, like_tree: Any, device=None,
-                       step: int | None = None) -> tuple[Any, dict]:
+                       step: int | None = None, shardings: Any = None
+                       ) -> tuple[Any, dict]:
     """Restore into the structure of ``like_tree``: each leaf as a tensor
     of the checkpoint's dtype on ``device``, or, when that is None, on the
     device of ``like_tree``'s leaf (the host for a non-tensor leaf), with
-    that leaf's ``requires_grad``.  Returns (tree, extra + {"step"})."""
+    that leaf's ``requires_grad``.  ``shardings``, a tree like
+    ``like_tree`` of ``NamedSharding``s (or None for a leaf to keep
+    plain), distributes each leaf onto its mesh and placements; without
+    it a DTensor leaf of ``like_tree`` gives one of its own mesh and
+    placements.  Every rank reads the files.  Returns (tree, extra +
+    {"step"})."""
     if step is None:
         with open(os.path.join(directory, LATEST)) as f:
             name = f.read().strip()
@@ -155,12 +196,23 @@ def restore_checkpoint(directory: str, like_tree: Any, device=None,
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, "
             f"expected {len(like)} — structure mismatch")
+    wants = tree.leaves(shardings) if shardings is not None else [
+        NamedSharding(x.device_mesh, tuple(x.placements)) if is_dtensor(x)
+        else None for x in like]
+    if len(wants) != len(like):
+        raise ValueError("restore_checkpoint: shardings differ from "
+                         "like_tree in structure")
     loaded = []
-    for ref, rec in zip(like, manifest["leaves"]):
+    for ref, want, rec in zip(like, wants, manifest["leaves"]):
         t = _load_leaf(os.path.join(base, rec["file"]), rec["dtype"])
         is_tensor = isinstance(ref, torch.Tensor)
-        t = t.to(device if device is not None
-                 else ref.device if is_tensor else "cpu")
+        if want is not None:
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t.to(want.mesh.device_type), want.mesh,
+                                  want.placements)
+        else:
+            t = t.to(device if device is not None
+                     else ref.device if is_tensor else "cpu")
         if is_tensor and ref.requires_grad:
             t.requires_grad_(True)
         loaded.append(t)
@@ -176,11 +228,19 @@ class CheckpointManager:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._pending = False
 
     def wait(self) -> None:
+        """Joins the save in flight; with several ranks, all of them then
+        meet at a barrier, so that none reads the directory before rank
+        0's commit."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            if _ranks()[1] > 1:
+                dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -188,13 +248,16 @@ class CheckpointManager:
     def save_async(self, step: int, state: Any,
                    extra: dict | None = None) -> None:
         self.wait()                              # one save in flight max
-        # snapshot to host BEFORE returning control (consistent state)
+        # snapshot to host BEFORE returning control (consistent state);
+        # DTensor leaves are gathered here, on every rank
         host_state = tree.map(_to_host, state)
+        self._pending = True
+        if _ranks()[0] != 0:
+            return
 
         def work():
             try:
-                save_checkpoint(self.directory, step, host_state, extra,
-                                self.keep)
+                _write(self.directory, step, host_state, extra, self.keep)
             except BaseException as e:  # noqa: BLE001 - surfaced via wait()
                 self._error = e
 

@@ -125,6 +125,20 @@ class ModelConfig:
         return dataclasses.replace(self, **small)
 
 
+# the LMs of the JAX registry, in its order (resnet18 is served apart)
+ARCH_REGISTRY = [
+    "paligemma-3b",
+    "phi3-mini-3.8b",
+    "qwen3-32b",
+    "gemma2-2b",
+    "minicpm-2b",
+    "zamba2-2.7b",
+    "granite-moe-1b-a400m",
+    "deepseek-moe-16b",
+    "xlstm-1.3b",
+    "whisper-large-v3",
+]
+
 _MODULE_FOR = {name: "repro_torch.configs." + name.replace("-", "_")
                .replace(".", "_")
                for name in ("resnet18", "gemma2-2b", "zamba2-2.7b",
@@ -142,3 +156,4 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
             f"no port of config {name!r}; the port serves {sorted(_MODULE_FOR)}")
     cfg: ModelConfig = importlib.import_module(_MODULE_FOR[name]).CONFIG
     return cfg.smoke() if smoke else cfg
+

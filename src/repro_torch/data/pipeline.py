@@ -13,6 +13,8 @@ differ in the last float32 bits, so those agree to about 1e-8 at the 0.02
 scale, not bit for bit.
 
 A background thread prefetches batches, standing in for a corpus reader.
+``make_batch_specs`` gives the batch's shapes and dtypes on the meta
+device, the dry run's stand-ins.
 """
 
 from __future__ import annotations
@@ -194,3 +196,25 @@ def synthetic_batches(cfg: ModelConfig, global_batch: int, seq_len: int,
             yield step, {k: v.to(device) for k, v in b.items()}
     finally:
         stop.set()
+
+
+def make_batch_specs(cfg: ModelConfig, global_batch: int, seq_len: int,
+                     dtype=None) -> dict[str, torch.Tensor]:
+    """Meta-device tensors of every model input's shape and dtype — the dry
+    run's stand-ins (shardable, no allocation): int32 ``tokens`` and
+    ``labels`` (global_batch, seq_len), and ``prefix_embed`` and
+    ``enc_frames`` in ``dtype`` (default ``cfg.dtype``) where the config
+    has them."""
+    dt = dtype or getattr(torch, cfg.dtype)
+
+    def spec(shape, d):
+        return torch.empty(shape, dtype=d, device="meta")
+    specs = {"tokens": spec((global_batch, seq_len), torch.int32),
+             "labels": spec((global_batch, seq_len), torch.int32)}
+    if cfg.num_prefix_tokens:
+        specs["prefix_embed"] = spec(
+            (global_batch, cfg.num_prefix_tokens, cfg.d_model), dt)
+    if cfg.is_encoder_decoder:
+        specs["enc_frames"] = spec(
+            (global_batch, cfg.encoder_seq_len, cfg.d_model), dt)
+    return specs

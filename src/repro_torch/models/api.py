@@ -48,6 +48,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dtensor import whole
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -170,8 +171,9 @@ def _embed(params: Params, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not indexing: its CUDA backward sums each row's
     # gradients in a fixed order (indexing's accumulates atomically), so a
-    # replayed train step gives the same bits
-    x = F.embedding(tokens.long(), params["embed"])
+    # replayed train step gives the same bits; a vocab-sharded DTensor
+    # table is gathered first (``whole``), see ``core/dtensor.py``
+    x = F.embedding(tokens.long(), whole(params["embed"], "embed"))
     if cfg.scale_embed_by_sqrt_dim:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x

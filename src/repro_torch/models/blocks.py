@@ -14,6 +14,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.dtensor import merge_last, split_last
+from repro_torch.core.hints import hint
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -62,12 +64,14 @@ def attn_block(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     ``window`` (0 = global), causal unless ``causal=False`` (the encoder).
     With ``enc_out`` (B, T, d), cross-attention to it (non-causal, over all
     T) runs after self-attention and before the FFN, with no post-norm.
-    Returns (x, aux_loss)."""
+    The ``residual`` sharding hint sits on the block's input and on the
+    attention's output, as in JAX.  Returns (x, aux_loss)."""
+    x = hint("residual", x)
     h = L.attention(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                     positions=positions, window=window, causal=causal)
     if "ln1_post" in p:
         h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
-    x = x + h
+    x = x + hint("residual", h)
     if enc_out is not None:
         x = x + L.attention(p["xattn"], L.rmsnorm(p["ln_x"], x, cfg.norm_eps),
                             cfg, positions=positions, window=0, causal=False,
@@ -108,9 +112,9 @@ def attn_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg, *,
     B = x.shape[0]
     kv, hd, h_ = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
     xin = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q = (xin @ p["attn"]["wq"]).reshape(B, 1, h_, hd)
-    k = (xin @ p["attn"]["wk"]).reshape(B, 1, kv, hd)
-    v = (xin @ p["attn"]["wv"]).reshape(B, 1, kv, hd)
+    q = split_last(xin @ p["attn"]["wq"], h_, hd)
+    k = split_last(xin @ p["attn"]["wk"], kv, hd)
+    v = split_last(xin @ p["attn"]["wv"], kv, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(p["attn"]["q_norm"], q, cfg.norm_eps)
         k = L.rmsnorm(p["attn"]["k_norm"], k, cfg.norm_eps)
@@ -126,18 +130,18 @@ def attn_block_decode(p: Params, cache: Params, x: torch.Tensor, cfg, *,
         m &= kpos > index - window
     attn_out = L.attention_scores(q, ck, cv, m[None, None, :],
                                   cfg.attn_softcap)
-    h = attn_out.reshape(B, 1, h_ * hd) @ p["attn"]["wo"]
+    h = merge_last(attn_out) @ p["attn"]["wo"]
     if "ln1_post" in p:
         h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
     x = x + h
     if "xk" in cache:
         xq = L.rmsnorm(p["ln_x"], x, cfg.norm_eps)
-        qx = (xq @ p["xattn"]["wq"]).reshape(B, 1, h_, hd)
+        qx = split_last(xq @ p["xattn"]["wq"], h_, hd)
         xm = torch.ones((1, 1, cache["xk"].shape[1]), dtype=torch.bool,
                         device=x.device)
         hx = L.attention_scores(qx, cache["xk"], cache["xv"], xm,
                                 cfg.attn_softcap)
-        x = x + hx.reshape(B, 1, h_ * hd) @ p["xattn"]["wo"]
+        x = x + merge_last(hx) @ p["xattn"]["wo"]
     h, aux = _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     if "ln2_post" in p:
         h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)

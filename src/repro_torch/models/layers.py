@@ -17,6 +17,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.dtensor import merge_last, split_last
+from repro_torch.core.hints import hint
 from repro_torch.kernels import ops
 
 Params = dict[str, Any]
@@ -188,24 +190,29 @@ def attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     all-ones masks, which are ``causal=False`` with no window.  So the port
     passes ``window`` (0 = global) and ``causal`` instead of a mask.
 
+    The sharding hints (``core.hints``) sit where JAX has them: ``qkv``
+    on q (and on self-attention's k and v) after the head reshape and
+    after the qk-norm, ``attn_out`` on the attention's output.
+
     ``kv_override`` (B, T, d) feeds cross-attention: keys and values come
     from it (``src @ wk``, ``src @ wv``, with its own length T), qk-norm
     applies as to self-attention, and rope is skipped, as in JAX."""
-    B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     src = x if kv_override is None else kv_override
-    q = (x @ p["wq"]).reshape(B, S, h, hd)
-    k = (src @ p["wk"]).reshape(B, src.shape[1], kv, hd)
-    v = (src @ p["wv"]).reshape(B, src.shape[1], kv, hd)
+    q = hint("qkv", split_last(x @ p["wq"], h, hd))
+    k = split_last(src @ p["wk"], kv, hd)
+    v = split_last(src @ p["wv"], kv, hd)
+    if kv_override is None:
+        k, v = hint("qkv", k), hint("qkv", v)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        q = hint("qkv", rmsnorm(p["q_norm"], q, cfg.norm_eps))
+        k = hint("qkv", rmsnorm(p["k_norm"], k, cfg.norm_eps))
     if kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_softcap)
-    return out.reshape(B, S, h * hd) @ p["wo"]
+    out = hint("attn_out", ops.flash_attention(
+        q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap))
+    return merge_last(out) @ p["wo"]
 
 
 # --- gated MLP (SwiGLU / GeGLU) ----------------------------------------------

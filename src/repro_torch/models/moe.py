@@ -33,6 +33,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.dtensor import is_dtensor, replicated_call, settle
 from repro_torch.models import layers as L
 from repro_torch.models.layers import _randn
 
@@ -131,7 +132,13 @@ def combine(out_buf: torch.Tensor, r: Route) -> torch.Tensor:
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) → (out in ``x.dtype``, f32 aux loss)."""
+    """x: (B, S, d) → (out in ``x.dtype``, f32 aux loss).  A DTensor runs
+    whole on every rank (``core.dtensor.replicated_call``) and the output
+    goes back to x's placements."""
+    if is_dtensor(x):
+        y, aux = replicated_call(lambda p_, x_: moe_ffn(p_, x_, cfg), p, x,
+                                 what="moe_ffn")
+        return y.redistribute(placements=settle(x).placements), aux
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     r = route(p, xt, cfg)

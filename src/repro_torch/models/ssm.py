@@ -23,6 +23,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.dtensor import merge_last, split_last
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _randn, dense_init
 
@@ -101,7 +102,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """Full-sequence forward.  x: (B, S, d) → (B, S, d).  Refuses, as JAX
     does, an S that does not divide into ``ssm_chunk`` steps, though the
     kernel itself takes any S."""
-    Bt, S, _ = x.shape
+    S = x.shape[1]
     d_inner, H, P, N = ssm_dims(cfg)
     Q = min(cfg.ssm_chunk, S)
     if S % Q:
@@ -111,7 +112,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     z, xbc, dt_raw = _split_proj(proj, cfg)
     xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xbc = F.silu(xbc)
-    xh = xbc[..., :d_inner].reshape(Bt, S, H, P)
+    xh = split_last(xbc[..., :d_inner], H, P)
     Bm = xbc[..., d_inner:d_inner + N]                      # (B,S,N) 1 group
     Cm = xbc[..., d_inner + N:]
 
@@ -120,7 +121,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     dtx = xh.float() * dt[..., None]                        # (B,S,H,P)
     y = ops.mamba_scan(dtx, a_log, Bm.float(), Cm.float())
     y = y + xh.float() * p["D"][None, None, :, None]
-    return _gated_norm(p, y.reshape(Bt, S, d_inner), z, cfg, x.dtype)
+    return _gated_norm(p, merge_last(y), z, cfg, x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.dtensor import local_pointwise, merge_last, split_last
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MLSTM_M0
 from repro_torch.models.layers import _randn, dense_init, rmsnorm
@@ -72,21 +73,20 @@ def _mlstm_out(p: Params, h: torch.Tensor, o: torch.Tensor, cfg,
                dtype: torch.dtype) -> torch.Tensor:
     """h in f32 → ``dtype``, times the output gate, RMSNorm, out_proj."""
     h = h.to(dtype) * o
-    h = h.reshape(*h.shape[:-2], cfg.d_model)
+    h = merge_last(h)
     return rmsnorm(p["norm_w"], h, cfg.norm_eps) @ p["out_proj"]
 
 
 def mlstm_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """The stabilised mLSTM over the sequence.  x: (B, S, d) → (B, S, d)."""
-    Bt, S, _ = x.shape
     H, P = _heads(cfg)
-    q = (x @ p["wq"]).reshape(Bt, S, H, P).float() / math.sqrt(P)
-    k = (x @ p["wk"]).reshape(Bt, S, H, P).float()
-    v = (x @ p["wv"]).reshape(Bt, S, H, P).float()
+    q = split_last(x @ p["wq"], H, P).float() / math.sqrt(P)
+    k = split_last(x @ p["wk"], H, P).float()
+    v = split_last(x @ p["wv"], H, P).float()
     xf = x.float()
     i_pre = xf @ p["w_i"]                                   # (B, S, H)
     f_pre = xf @ p["w_f"]
-    o = torch.sigmoid(x @ p["w_o"]).reshape(Bt, S, H, P)
+    o = split_last(torch.sigmoid(x @ p["w_o"]), H, P)
     h = ops.mlstm_scan(q, k, v, i_pre, f_pre)
     return _mlstm_out(p, h, o, cfg, x.dtype)
 
@@ -107,13 +107,14 @@ def mlstm_decode_step(p: Params, cache: Params, x: torch.Tensor, cfg
     in place (the JAX version returns an updated copy) and returns it."""
     Bt = x.shape[0]
     H, P = _heads(cfg)
-    qt = (x @ p["wq"]).reshape(Bt, H, P).float() / math.sqrt(P)
-    kt = (x @ p["wk"]).reshape(Bt, H, P).float()
-    vt = (x @ p["wv"]).reshape(Bt, H, P).float()
+    qt = split_last(x @ p["wq"], H, P).reshape(Bt, H, P).float() \
+        / math.sqrt(P)
+    kt = split_last(x @ p["wk"], H, P).reshape(Bt, H, P).float()
+    vt = split_last(x @ p["wv"], H, P).reshape(Bt, H, P).float()
     xf = x[:, 0].float()
     it = xf @ p["w_i"]
     ft = xf @ p["w_f"]
-    o = torch.sigmoid(x @ p["w_o"]).reshape(Bt, 1, H, P)
+    o = split_last(torch.sigmoid(x @ p["w_o"]), H, P)
 
     C, n, m = cache["C"], cache["n"], cache["m"]
     log_f = F.logsigmoid(ft)
@@ -158,11 +159,10 @@ def _slstm_step(p: Params, state: Params, h_prev: torch.Tensor,
                 ot: torch.Tensor, cfg) -> tuple[Params, torch.Tensor]:
     """One sLSTM step on (B, d) f32 inputs: returns the new c, n and m and
     the new h, all new tensors."""
-    Bt = zt.shape[0]
     H, P = _heads(cfg)
     c, n, m = state["c"], state["n"], state["m"]
-    hr = torch.bmm(h_prev.reshape(Bt, H, P).transpose(0, 1),
-                   p["r_z"]).transpose(0, 1).reshape(Bt, cfg.d_model)
+    hr = merge_last(torch.bmm(split_last(h_prev, H, P).transpose(0, 1),
+                              p["r_z"]).transpose(0, 1))
     z = torch.tanh(zt + hr)
     lf_m = log_f + m
     m_new = torch.maximum(lf_m, it)
@@ -181,7 +181,7 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     xf = x.float()
     z_in = (x @ p["w_z"]).float()
     i_in = xf @ p["w_i"]
-    log_f = F.logsigmoid(xf @ p["w_f"])
+    log_f = local_pointwise(F.logsigmoid, xf @ p["w_f"])
     o_in = torch.sigmoid(x @ p["w_o"]).float()
     state = slstm_init_cache(cfg, Bt, x.device)
     h, hs = state.pop("h"), []

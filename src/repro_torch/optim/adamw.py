@@ -12,6 +12,15 @@ temporaries are alive at once.  At minicpm-2b's stacked (40, 2304, 5760)
 MLP leaves a whole clipped float32 copy of the gradients would add 10.9 GB
 and each temporary of the largest leaf 2.1 GB.  ``step`` is an int32 0-d
 tensor that lives on the host.
+
+Sharded leaves (DTensors, ``repro_torch.core.policies``): the global norm
+sums each leaf's GLOBAL sum of squares (``full_tensor`` of the local
+sums), and each gradient leaf is first redistributed to its moments'
+placements (ZeRO-1: the data-parallel partial sum reduce-scattered onto
+the moments' shards), the parameter read there too; the update runs on
+those local shards in the same arithmetic, and the new parameter goes
+back to the parameter's placements (cast first, so the gather moves its
+own dtype).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Any
 import torch
 
 from repro_torch import tree
+from repro_torch.core.dtensor import is_dtensor
 
 Params = Any
 
@@ -38,8 +48,8 @@ class AdamWConfig:
 
 def adamw_init(params: Params) -> dict[str, Any]:
     def zeros(p: Params) -> Params:
-        return tree.map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                              device=x.device), p)
+        return tree.map(lambda x: torch.zeros_like(
+            x, dtype=torch.float32, requires_grad=False), p)
 
     return {"m": zeros(params), "v": zeros(params),
             "step": torch.zeros((), dtype=torch.int32)}
@@ -48,8 +58,10 @@ def adamw_init(params: Params) -> dict[str, Any]:
 def global_norm(grads: Params) -> torch.Tensor:
     """sqrt of the sum, in leaf order, of each leaf's float32 sum of
     squares."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in tree.leaves(grads)]
+    def sum_sq(x: torch.Tensor) -> torch.Tensor:
+        s = torch.sum(torch.square(x.to(torch.float32)))
+        return s.full_tensor() if is_dtensor(s) else s
+    sums = [sum_sq(x) for x in tree.leaves(grads)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -81,6 +93,11 @@ def adamw_update(cfg: AdamWConfig, params: Params, grads: Params,
         for p, g, m, v in zip(tree.leaves(params), tree.leaves(grads),
                               tree.leaves(state["m"]),
                               tree.leaves(state["v"])):
+            pm = p
+            if is_dtensor(m):
+                g = g.redistribute(m.device_mesh, m.placements)
+                if p.placements != m.placements:
+                    pm = p.redistribute(m.device_mesh, m.placements)
             g32 = g.to(torch.float32) * scale
             v.mul_(cfg.b2).add_(g32.square().mul_(1 - cfg.b2))
             m.mul_(cfg.b1).add_(g32.mul_(1 - cfg.b1))
@@ -88,8 +105,12 @@ def adamw_update(cfg: AdamWConfig, params: Params, grads: Params,
             denom = (v / b2t).sqrt_().add_(cfg.eps)
             delta = (m / b1t).div_(denom)
             del denom
-            delta.add_(p, alpha=cfg.weight_decay)   # + wd * p in float32
-            p.copy_(p.to(torch.float32) - delta.mul_(lr))
-            del delta
+            delta.add_(pm, alpha=cfg.weight_decay)  # + wd * p in float32
+            if pm is p:
+                p.copy_(p.to(torch.float32) - delta.mul_(lr))
+            else:
+                new = (pm.to(torch.float32) - delta.mul_(lr)).to(p.dtype)
+                p.copy_(new.redistribute(p.device_mesh, p.placements))
+            del delta, pm
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

@@ -16,6 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch import tree
+from repro_torch.core.dtensor import is_dtensor
 
 BLOCK = 256
 
@@ -49,7 +50,15 @@ def dequantize_int8(codes: torch.Tensor, scale: torch.Tensor, pad: int,
 
 def compress_leaf(g: torch.Tensor, err: torch.Tensor):
     """Error-feedback compression of one gradient leaf.
-    Returns (g_compressed, new_err) with g_compressed ≈ g + err."""
+    Returns (g_compressed, new_err) with g_compressed ≈ g + err.  A
+    sharded leaf (a DTensor) is compressed as the global tensor it holds,
+    every rank computing the same blocks, and both results take ``err``'s
+    placements."""
+    if is_dtensor(err):
+        from torch.distributed.tensor import distribute_tensor
+        g_hat, new_err = compress_leaf(g.full_tensor(), err.full_tensor())
+        return tuple(distribute_tensor(t, err.device_mesh, err.placements)
+                     for t in (g_hat, new_err))
     target = g.to(torch.float32) + err
     codes, scale, pad = quantize_int8(target)
     g_hat = dequantize_int8(codes, scale, pad, g.shape)
@@ -57,8 +66,8 @@ def compress_leaf(g: torch.Tensor, err: torch.Tensor):
 
 
 def init_error_feedback(params: Any) -> Any:
-    return tree.map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                          device=x.device), params)
+    return tree.map(lambda x: torch.zeros_like(
+        x, dtype=torch.float32, requires_grad=False), params)
 
 
 def compress_grads(grads: Any, err_state: Any):

@@ -10,8 +10,11 @@ of ``repro.train.fault_tolerance``.
   estimate of step time (median + MAD) and flags steps or hosts that run
   k·MAD over it.
 
-Elastic re-meshing (``elastic_remesh``, ``reshard_state``) comes with the
-port's device mesh.
+* ELASTIC SCALING: ``elastic_remesh`` re-carves the mesh for a new
+  healthy device count and ``reshard_state`` re-places a state tree onto
+  it (DTensor ``redistribute`` within a mesh, ``distribute_tensor`` of the
+  whole leaf onto another); the checkpoint path works identically through
+  ``restore_checkpoint(shardings=...)``.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tree
 from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
                                          restore_checkpoint)
+from repro_torch.core.dtensor import is_dtensor
+from repro_torch.core.policies import NamedSharding, placements
 
 
 @dataclasses.dataclass
@@ -71,6 +77,8 @@ class RunReport:
 def _wait_for(x: Any) -> None:
     """Block until the device has computed ``x`` (JAX's
     ``block_until_ready``)."""
+    if is_dtensor(x):
+        x = x.to_local()
     if isinstance(x, torch.Tensor) and x.is_cuda:
         torch.cuda.synchronize(x.device)
 
@@ -84,14 +92,20 @@ def run_restartable(*,
                     ckpt_every: int = 50,
                     max_restarts: int = 3,
                     device=None,
+                    state_shardings: Any | None = None,
                     fail_injector: Callable[[int], None] | None = None
                     ) -> RunReport:
     """Checkpointed training loop with restart-on-transient-failure.
 
     ``fail_injector(step)`` (tests) may raise TransientError to simulate a
     node loss; the loop restores from the latest checkpoint and replays.
+    ``ckpt_every <= 0`` writes no checkpoint (JAX's loop divides by it): a
+    restart then replays from ``init_state()``, for a state too large to
+    write out.
     A restored state's leaves go to ``device``, or, when that is None, to
-    the devices of ``init_state()``'s (``restore_checkpoint``)."""
+    the devices of ``init_state()``'s; ``state_shardings`` places them as
+    ``restore_checkpoint``'s ``shardings`` does (without it a DTensor leaf
+    of ``init_state()`` keeps its mesh and placements)."""
     mgr = CheckpointManager(ckpt_dir)
     watch = StragglerWatch()
     restarts = 0
@@ -103,7 +117,8 @@ def run_restartable(*,
         start = 0
         last = latest_step(ckpt_dir)
         if last is not None:
-            state, extra = restore_checkpoint(ckpt_dir, state, device=device)
+            state, extra = restore_checkpoint(ckpt_dir, state, device=device,
+                                              shardings=state_shardings)
             start = extra["step"] + 1
         return state, start
 
@@ -117,7 +132,8 @@ def run_restartable(*,
             _wait_for(metrics["loss"])
             if watch.observe(time.monotonic() - t0):
                 stragglers += 1
-            if step % ckpt_every == 0 or step == total_steps - 1:
+            if ckpt_every > 0 and (step % ckpt_every == 0
+                                   or step == total_steps - 1):
                 mgr.save_async(step, state, extra={})
             step += 1
         except TransientError:
@@ -129,3 +145,40 @@ def run_restartable(*,
     mgr.wait()
     return RunReport(steps_done=step, restarts=restarts,
                      straggler_events=stragglers, final_metrics=metrics)
+
+
+# ---------------------------------------------------------------------------
+# elastic re-meshing
+# ---------------------------------------------------------------------------
+
+def elastic_remesh(n_devices: int, *, model_parallel: int,
+                   device_type: str | None = None):
+    """Best (data, model) mesh for a surviving device count: keep the model
+    axis (weights layout) and shrink data parallelism.  A ``DeviceMesh``
+    over the default process group, whose world size must be
+    ``n_devices``; on ``cuda`` unless ``device_type`` says otherwise."""
+    from repro_torch.launch.mesh import make_mesh
+    if n_devices % model_parallel:
+        # degrade model parallelism to the largest divisor that fits
+        while model_parallel > 1 and n_devices % model_parallel:
+            model_parallel //= 2
+    data = n_devices // model_parallel
+    return make_mesh((data, model_parallel), ("data", "model"),
+                     device_type=device_type)
+
+
+def reshard_state(state: Any, spec_tree: Any, mesh) -> Any:
+    """Each leaf placed by its spec on ``mesh``: a DTensor already on that
+    mesh is redistributed; any other leaf (a plain tensor, or a DTensor of
+    another mesh, gathered whole) is distributed from its whole value."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(x, s):
+        want = NamedSharding(mesh, placements(s, mesh))
+        if is_dtensor(x):
+            if x.device_mesh == mesh:
+                return x.redistribute(mesh, want.placements)
+            x = x.full_tensor()
+        return distribute_tensor(x.to(mesh.device_type), mesh,
+                                 want.placements)
+    return tree.map(put, state, spec_tree)

@@ -10,13 +10,21 @@ PyTorch runs eagerly, so ``make_train_step`` returns a plain function
 leaf tensors with ``requires_grad`` that the forward reads directly (through
 ``Model.bind``) and the optimizer updates in place, under
 ``torch.no_grad()``.  A step therefore overwrites the state it is given and
-returns it: clone a state that must survive.  The sharding helpers
-(``opt_spec_from_param_spec``, ``state_spec``, ``named``) come with the
-port's mesh policies.
+returns it: clone a state that must survive.
+
+The same step trains a SHARDED state, whose leaves are DTensors placed by
+a policy (``repro_torch.core.policies``): the loss and its gradient then
+run under ``implicit_replication`` (plain tensors the model makes, such as
+positions, count as replicated) and DTensor's sharding propagation inserts
+the collectives, the counterpart of GSPMD under JAX's jit.  The sharding
+helpers: ``opt_spec_from_param_spec`` (ZeRO-1 moments), ``state_spec``
+(the whole state's specs) and ``named`` (specs → ``NamedSharding``s, a
+mesh and its placements).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -24,6 +32,9 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import tree
+from repro_torch.core.dtensor import is_dtensor
+from repro_torch.core.policies import P, NamedSharding, Policy, mesh_shape, \
+    placements
 from repro_torch.models.api import Model, _head
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import compress_grads, init_error_feedback
@@ -74,6 +85,44 @@ def init_train_state(model: Model, params, ts_cfg: TrainStepConfig):
     return state
 
 
+def _micro(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` along dim 0.  A DTensor splits shard by
+    shard: the i-th slice of every rank's local rows, a slice of the batch
+    in another grouping than the contiguous one, whose n equal parts
+    average to the same loss and gradient; slicing the global dim would
+    gather the batch onto every rank.  Every rank's rows must split into
+    n equal parts: the microbatch must be a multiple of the data-parallel
+    size."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        local = x.to_local()
+        if local.shape[0] % n:
+            raise ValueError(
+                f"{local.shape[0]} local rows of a batch of {x.shape[0]} "
+                f"do not split into {n} microbatches: the microbatch must "
+                f"be a multiple of the data-parallel size")
+        rows = local.shape[0] // n
+        return DTensor.from_local(local[i * rows:(i + 1) * rows],
+                                  x.device_mesh, x.placements,
+                                  run_check=False)
+    mb = x.shape[0] // n
+    return x[i * mb:(i + 1) * mb]
+
+
+def _metric(x: torch.Tensor) -> torch.Tensor:
+    """A detached metric, as a plain tensor (a DTensor's global value)."""
+    x = x.detach()
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def sharded(leaves: list) -> contextlib.AbstractContextManager:
+    """``implicit_replication`` when a leaf is a DTensor, else nothing."""
+    if not any(is_dtensor(x) for x in leaves):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
 def make_grad_fn(model: Model, ts_cfg: TrainStepConfig
                  ) -> Callable[[Any, Any], tuple[Any, Any, Any]]:
     """grad_fn(params, batch) → (loss, aux, grads): the loss of one
@@ -108,28 +157,40 @@ def make_grad_fn(model: Model, ts_cfg: TrainStepConfig
 
     def value_and_grad(params, batch):
         leaves = tree.leaves(params)
-        loss, aux = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with sharded(leaves):
+            loss, aux = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        return loss.detach(), aux.detach(), tree.unflatten(params, grads)
+        return _metric(loss), _metric(aux), tree.unflatten(params, grads)
 
     def grad_fn(params, batch):
         if not ts_cfg.microbatch:
             return value_and_grad(params, batch)
         mb = ts_cfg.microbatch
-        n = batch["tokens"].shape[0] // mb
-        acc = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        gb = batch["tokens"].shape[0]
+        if gb % mb:
+            # JAX's reshape to (gb // mb, mb) refuses it too
+            raise ValueError(f"a batch of {gb} rows does not split into "
+                             f"microbatches of {mb}")
+        n = gb // mb
+        acc = None
         losses, auxes = [], []
         for i in range(n):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            micro = {k: _micro(v, i, n) for k, v in batch.items()}
             l_i, a_i, g = value_and_grad(params, micro)
-            for a, b in zip(tree.leaves(acc), tree.leaves(g)):
-                a.add_(b.to(torch.float32) / n)
+            # the first microbatch's gradients start the sums, in their own
+            # placements: a DTensor's partial sum then stays partial until
+            # the optimizer reduces it once
+            parts = [b.to(torch.float32) / n for b in tree.leaves(g)]
+            if acc is None:
+                acc = parts
+            else:
+                for a, b in zip(acc, parts):
+                    a.add_(b)
             losses.append(l_i / n)
             auxes.append(a_i / n)
-        return sum(losses), sum(auxes), acc
+        return sum(losses), sum(auxes), tree.unflatten(params, acc)
 
     return grad_fn
 
@@ -179,3 +240,47 @@ def make_serve_step(model: Model, *, sample: bool = False):
         return logits, cache
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers
+# ---------------------------------------------------------------------------
+
+def opt_spec_from_param_spec(policy: Policy, param_spec, params_shape):
+    """ZeRO-1: moments = param sharding + every free mesh axis slotted into
+    the first divisible unsharded dim."""
+    sizes = mesh_shape(policy.mesh)
+
+    def rule(spec: P, shp):
+        used = {a for part in spec for a in
+                ((part,) if isinstance(part, str) else (part or ()))}
+        parts = list(spec) + [None] * (len(shp.shape) - len(spec))
+        for ax, size in sizes.items():
+            if ax in used:
+                continue
+            for d in range(len(parts)):
+                dim_ok = parts[d] is None and shp.shape[d] % size == 0 \
+                    and shp.shape[d] >= size
+                if dim_ok:
+                    parts[d] = ax
+                    used.add(ax)
+                    break
+        return P(*parts)
+
+    return tree.map(rule, param_spec, params_shape)
+
+
+def state_spec(policy: Policy, params_shapes) -> dict:
+    """Spec tree for the full train state given param SHAPES (meta-device
+    tensors will do — no allocation)."""
+    pspec = policy.param_spec(params_shapes)
+    ospec = opt_spec_from_param_spec(policy, pspec, params_shapes)
+    return {"params": pspec,
+            "opt": {"m": ospec, "v": ospec, "step": P()}}
+
+
+def named(mesh, spec_tree):
+    """Each spec as a ``NamedSharding``: ``mesh`` and the spec's DTensor
+    placements on it."""
+    return tree.map(lambda s: NamedSharding(mesh, placements(s, mesh)),
+                    spec_tree)

@@ -53,6 +53,29 @@ def map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     return unflatten(tree, [fn(*xs) for xs in zip(*flat)])
 
 
+def map_with_path(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``jax.tree_util.tree_map_with_path``: ``fn(path, leaf, *others)``
+    leaf by leaf, in ``leaves`` order.  ``path`` is the tuple of keys from
+    the root to the leaf: a dict's key as it is (a str in every tree of
+    this package), a list's or tuple's index as an int."""
+    paths: list[tuple] = []
+
+    def walk(node: Any, path: tuple) -> None:
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, c in enumerate(node):
+                walk(c, path + (i,))
+        else:
+            paths.append(path)
+    walk(tree, ())
+    flat = [leaves(t) for t in (tree, *rest)]
+    if any(len(f) != len(paths) for f in flat):
+        raise ValueError("tree.map_with_path: the trees differ in structure")
+    return unflatten(tree, [fn(p, *xs) for p, *xs in zip(paths, *flat)])
+
+
 def structure(tree: Any) -> str:
     """``str(jax.tree.structure(tree))`` for a tree of dicts, lists, tuples
     and leaves, e.g. ``PyTreeDef({'a': *, 'b': [*, *]})``."""

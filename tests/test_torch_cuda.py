@@ -806,3 +806,82 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, name):
                     tree.leaves(s_gpu["params"])):
         assert (a.detach() - b.detach().cpu()).abs().max().item() \
             <= 2e-3 + 1e-6
+
+
+# The DTensor route (``ops._local_route``) needs a process group, which a
+# pytest process must not hold: each case runs in a process of its own, on
+# a one-rank NCCL group over an in-memory store and a 1×1 mesh.
+DTENSOR_ROUTE = """
+import json, sys
+import torch, torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.kernels import flash_attention as FA, mamba_scan as MS
+from repro_torch.kernels import mlstm_scan as ML, ops
+from repro_torch.launch.mesh import make_mesh
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+mesh = make_mesh((1, 1), ("data", "model"))
+g = torch.Generator(device="cuda").manual_seed(0)
+def rand(*shape, dtype=torch.float32):
+    return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+# the placements of fused_seq's sequence-sharded q and of a head shard
+PLACE = {"seq": [Shard(0), Shard(1)], "heads": [Replicate(), Shard(2)]}
+out = {}
+for op, mod, args in [
+        ("flash", FA, [rand(2, 256, 8, 64, dtype=torch.bfloat16),
+                       rand(2, 256, 4, 64, dtype=torch.bfloat16),
+                       rand(2, 256, 4, 64, dtype=torch.bfloat16)]),
+        ("mamba", MS, [rand(2, 128, 4, 64) * 0.1, -rand(2, 128, 4).abs(),
+                       rand(2, 128, 64) * 0.1, rand(2, 128, 64) * 0.1]),
+        ("mlstm", ML, [rand(2, 128, 4, 64) * 0.1, rand(2, 128, 4, 64) * 0.1,
+                       rand(2, 128, 4, 64), rand(2, 128, 4), rand(2, 128, 4)])]:
+    fn = {"flash": ops.flash_attention, "mamba": ops.mamba_scan,
+          "mlstm": ops.mlstm_scan}[op]
+    want = fn(*args)
+    for place in PLACE:
+        for grad in (False, True):
+            xs = [distribute_tensor(a, mesh, PLACE[place] if a.dim() > 3
+                  or op != "mamba" else [Replicate(), Replicate()])
+                  .requires_grad_(grad) for a in args]
+            mod.launches = 0
+            got = fn(*xs)
+            torch.cuda.synchronize()
+            launched = mod.launches
+            if grad:
+                got.float().sum().backward()
+            mod.launches = 0
+            with ops.plain():
+                fn(*[x.detach() for x in xs])
+            out[f"{op}/{place}/{grad}"] = {
+                "launches": launched, "plain_launches": mod.launches,
+                "placements": str(got.placements),
+                "equal": bool(torch.equal(got.to_local(), want)),
+                "grads": all(x.grad is not None for x in xs) if grad else True}
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_dtensor_route_launches_the_kernels_on_a_1x1_mesh(cuda):
+    """On a 1×1 mesh a DTensor reaches each kernel through ``local_map``:
+    one launch a call (the autograd function's too, with a gradient), none
+    under ``ops.plain()``, the output in the first input's placements and
+    bit-equal to the same kernel's call on the plain tensors."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, "-c", DTENSOR_ROUTE], env=env,
+                         capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(out) == 12
+    for case, rec in out.items():
+        assert rec["launches"] == 1 and rec["plain_launches"] == 0, case
+        assert rec["equal"] and rec["grads"], case
+        want = "(Shard(dim=0), Shard(dim=1))" if "/seq/" in case \
+            else "(Replicate(), Shard(dim=2))"
+        assert rec["placements"] == want, case
