@@ -157,7 +157,9 @@ Phases, each of which raises (exit code 1) on failure:
 23. MoE prefill: deepseek-moe-16b at full width and depth (28 layers: a
     dense first layer and 27 MoE layers of 64 routed experts, top 6, and
     2 shared experts; d 2048, vocab 102400, bf16 with the f32 router,
-    random weights from a seed) built through ``build_model`` runs
+    random weights from a seed, drawn on the host in a thread of its own
+    beside phases 7-21 and moved to the card) built through
+    ``build_model`` runs
     ``forward`` at 1×4096 (DeepSeekMoE's 4K training context); the
     logits are finite and of the right shape, and the forward made
     exactly 28 flash launches, all on the tensor-core route, and none of
@@ -296,18 +298,34 @@ Phases, each of which raises (exit code 1) on failure:
     ``fused_seq``'s, zero collective bytes, 40 launches (80 in a step with
     remat), none in a forward under ``ops.plain()``; then one step split
     into its gradient and AdamW (phase 49).
-48. the dry run as users run it, in a subprocess: ``python -m
-    repro_torch.launch.dryrun --mesh single --cells
-    minicpm-2b@prefill_32k`` under each policy (256 fake ranks, meta
-    shards): exit 0; per-device argument bytes, FLOPs and collective bytes
-    by kind printed.
+    Its table stays ``Shard(0)`` on the size-1 ``model`` dim and takes
+    the masked lookup once a step (``core.dtensor.route_counts``).
+48. the dry run as users run it, in subprocesses started before phase 46:
+    ``python -m repro_torch.launch.dryrun --mesh single --cells
+    minicpm-2b@prefill_32k,deepseek-moe-16b@prefill_32k`` under each
+    policy (256 fake ranks, meta shards): exit 0, nothing computed
+    replicated; per-device argument bytes, FLOPs and collective bytes by
+    kind printed, deepseek's beside those of commit 6159077 (every rank
+    running the whole MoE FFN).
 49. time: the launcher's step (host clock, synchronised) beside the plain
     trainer's at the same shape, the difference being the launcher's
     overhead over the plain trainer; one step of each split into its
     gradient and its AdamW update, to say where that overhead lies.
-50. prints the ``kernels`` JSON line (the four kernels and the two
-    backward kernels), 51. the final ``{"ok": true, ...}`` line.  The full
-    record goes to ``build/chip_smoke.json``.
+50. the launcher on a MoE config: ``python -m repro_torch.launch.train
+    --arch granite-moe-1b-a400m --mesh 1x1`` at full width and depth (24
+    MoE layers, 32 experts, top-8, bf16), 4x1024, 4 steps, ``--ckpt-every
+    0``, under ``fused_seq`` and then ``layerwise_tp``: every state leaf a
+    DTensor, each step the expert-parallel MoE FFN once a layer and (under
+    ``layerwise_tp``) the masked lookup once, 24 flash launches on the
+    tensor-core route, zero collective bytes in step 0; a forward of the
+    final state under ``ops.plain()`` takes the same routes and launches
+    nothing; each step's loss and the final parameters against the plain
+    trainer from the same seed (bit-equal, or the loss within
+    LAUNCH_LOSS_RTOL, and the run prints the first step that differs).
+51. prints the ``kernels`` JSON line (the four kernels and the two
+    backward kernels), 52. the final ``{"ok": true, ...}`` line.  The full
+    record goes to ``build/chip_smoke.json``, and the summary line ends
+    with the script's total time.
 
     python3 chip_smoke.py --conv-times
 
@@ -326,6 +344,10 @@ device time of each of the op's kernels, and the sums over one prefill.
     python3 chip_smoke.py --mlstm-times
 
 does the same for the mLSTM scan at every shape of phase 17 (MLSTM_ATOL).
+
+    python3 chip_smoke.py --launch-paths
+
+runs phases 46-50 alone after the build, and prints the script's time.
 
     python3 chip_smoke.py --xlstm-prefill-times
 
@@ -661,6 +683,8 @@ def kernel_modules() -> dict:
 
 
 def zero_launches() -> None:
+    from repro_torch.core.dtensor import route_counts
+    route_counts.update(dict.fromkeys(route_counts, 0))
     for mod in kernel_modules().values():
         mod.launches = 0
         if hasattr(mod, "backward_launches"):
@@ -685,6 +709,17 @@ def launch_counts() -> dict[str, int]:
         if hasattr(mod, "backward_launches"):
             counts[f"{name}_bwd"] = mod.backward_launches
     return counts
+
+
+def check_routes(expect: dict[str, int], what: str) -> dict[str, int]:
+    """The sharded routes taken since ``zero_launches``
+    (``core.dtensor.route_counts``): exactly ``expect`` of each it names,
+    none of the others."""
+    from repro_torch.core.dtensor import route_counts
+    got = dict(route_counts)
+    want = {name: expect.get(name, 0) for name in got}
+    check(got == want, f"{what}: sharded routes {got}, want {want}")
+    return got
 
 
 def card() -> str:
@@ -1436,10 +1471,27 @@ def routing_report(cfg, run: list[dict], other: list[dict],
     return out
 
 
+def host_init(cfg) -> list:
+    """Starts drawing ``cfg``'s weights from SEED on the CPU, in a thread of
+    its own, while other phases run (the CPU generator draws one normal
+    after another, and releases the GIL): deepseek-moe-16b's 16.4 billion
+    took 156 s on the card's host.  They are the values ``model.init``
+    draws for the card (drawn on the CPU and cast there, then moved).
+    Returns a box that ``prefill_path(params=...)`` empties."""
+    import concurrent.futures
+
+    from repro_torch.models import build_model
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    box = [pool.submit(lambda: build_model(cfg, device="cpu").init(
+        seed=SEED).params)]
+    pool.shutdown(wait=False)
+    return box
+
+
 def prefill_path(cfg, seq: int, expect: dict[str, int],
                  limit: float | None = PREFILL_ATOL,
                  every_position: bool = False, prefix: int = 0,
-                 rows: int = 1) -> dict:
+                 rows: int = 1, params: list | None = None) -> dict:
     """``cfg`` at full width, random weights from SEED, one ``rows``×``seq``
     forward (after ``prefix`` random prefix embeddings; an encoder-decoder
     also encodes ``encoder_seq_len`` random frames per row) that launches
@@ -1448,14 +1500,21 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
     at ``every_position``, and top-1 equal wherever the plain margin
     exceeds ``limit``.  With ``limit`` None the comparison is printed
     (margins counted at PREFILL_ATOL) and not held.  For a config with
-    experts, the routing of both forwards is compared layer by layer."""
+    experts, the routing of both forwards is compared layer by layer.
+    ``params``, a box from ``host_init``, gives the weights drawn on the
+    host (moved to the card here) in place of ``model.init``."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.models.api import param_count
     model = build_model(cfg)
     check(model.device.type == "cuda", f"built on {model.device}")
     t0 = time.perf_counter()
-    net = model.init(seed=SEED)
+    if params is None:
+        net, drawn = model.init(seed=SEED), "init from seed"
+    else:
+        net = model.bind(params.pop().result())
+        drawn = "drawn on the host beside earlier phases, waited for and " \
+                "moved to the card from seed"
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count(net.params)
@@ -1468,8 +1527,8 @@ def prefill_path(cfg, seq: int, expect: dict[str, int],
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {cfg.param_dtype}: {n_params / 1e9:.3f} B "
           f"parameters ({n_params}), {n_bytes / 1e9:.3f} GB of weights, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; init "
-          f"from seed {SEED} in {init_s:.1f} s")
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+          f"{drawn} {SEED} in {init_s:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, seq),
                                      generator=g, device="cuda")}
@@ -2195,9 +2254,10 @@ def mlstm_times() -> None:
                      "kernel arithmetic", exact=in_f64(mlstm_ref))
 
 
-def decoder_lm_paths(smi: str) -> dict:
+def decoder_lm_paths(smi: str, moe_params: list | None = None) -> dict:
     """Phases 22-27: flash at the decoder-only LMs' heads, deepseek-moe-16b's
-    prefill, serve and timings, its f32 twin, and the other configs."""
+    prefill (its weights from ``moe_params``, a ``host_init`` box, if
+    given), serve and timings, its f32 twin, and the other configs."""
     from repro_torch.configs import get_config
     mcfg = get_config(MOE_CONFIG)
     pcfg, qcfg = get_config("phi3-mini-3.8b"), get_config("qwen3-32b")
@@ -2205,7 +2265,8 @@ def decoder_lm_paths(smi: str) -> dict:
     m_flash_rows = flash_check(mcfg, MOE_FLASH_SHAPES, SEED + 600)
     p_flash_rows = flash_check(pcfg, PHI3_FLASH_SHAPES, SEED + 650)
     q_flash_rows = flash_check(qcfg, QWEN3_FLASH_SHAPES, SEED + 700)
-    mlm = prefill_path(mcfg, MOE_PREFILL_S, m_expect, limit=None)
+    mlm = prefill_path(mcfg, MOE_PREFILL_S, m_expect, limit=None,
+                       params=moe_params)
     m_served = serve_path(mcfg, mlm, m_expect)
     print(f"[time] {mcfg.name}, {smi}:")
     m_times = lm_timings(mcfg, mlm, MOE_PREFILL_S)
@@ -3290,14 +3351,29 @@ LAUNCH_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_FAIL_AT = 4, 2, 3
 # a checkpoint, three of them).
 LAUNCH_CUT_LAYERS = 4
 LAUNCH_LOSS_RTOL = 1e-3   # only if the launcher's losses are not bit-equal
-DRYRUN_CELL = "minicpm-2b@prefill_32k"
+DRYRUN_CELLS = ("minicpm-2b@prefill_32k", "deepseek-moe-16b@prefill_32k")
 DRYRUN_POLICIES = ("fused_seq", "layerwise_tp")
+# deepseek-moe-16b@prefill_32k's per-device FLOPs and collective bytes on
+# the 16x16 mesh before the expert-parallel MoE FFN and the masked lookup,
+# when every rank ran the whole MoE FFN (and under layerwise_tp gathered
+# the whole embedding table): the dry run of commit 6159077 on torch
+# 2.13.0+cpu, the same command as phase 48's
+DRYRUN_PARENT = {
+    "fused_seq": {"flops": 5.326601e15, "all-gather": 145861115904,
+                  "total": 145861115904,
+                  "computed_replicated": ["moe_ffn"]},
+    "layerwise_tp": {"flops": 5.317765e15, "all-gather": 149432827904,
+                     "total": 187696414720,
+                     "computed_replicated": ["embed", "moe_ffn"]}}
+# Phase 50: the launcher on a MoE config at full width and depth
+MOE_LAUNCH_CONFIG = "granite-moe-1b-a400m"
 
 
-def launcher_args(policy: str, ckpt: Path, *extra: str):
+def launcher_args(policy: str, ckpt: Path, *extra: str,
+                  arch: str = LAUNCH_CONFIG):
     from repro_torch.launch import train as LT
     return LT.parser().parse_args([
-        "--arch", LAUNCH_CONFIG, "--mesh", "1x1", "--policy", policy,
+        "--arch", arch, "--mesh", "1x1", "--policy", policy,
         "--steps", str(LAUNCH_STEPS), "--global-batch", str(TRAIN_ROWS),
         "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--ckpt-dir",
         str(ckpt), *extra])
@@ -3365,12 +3441,16 @@ def plain_trainer(cfg, ts, expect: dict[str, int], init: list | None = None,
 
 
 def run_launcher(args, expect: dict[str, int], route: str, layers: int = 0,
-                 fail_at: int = -1) -> dict:
+                 fail_at: int = -1, routes: dict[str, int] | None = None,
+                 after=None) -> dict:
     """``launch.train.run(args, layers=layers)`` in this process: each
-    step's launches held to ``expect`` (on ``route``) and step 0's
-    collectives counted; a ``TransientError`` raised once at step
-    ``fail_at`` (-1: none); every state leaf must be a DTensor on the 1x1
-    mesh.  The final parameters go to the host and the state is freed."""
+    step's launches held to ``expect`` (on ``route``), its sharded routes
+    to ``routes`` (none if not given) and step 0's collectives counted; a
+    ``TransientError`` raised once at step ``fail_at`` (-1: none); every
+    state leaf must be a DTensor on the 1x1 mesh.  ``after(run)``, if
+    given, reads ``run``'s result (the state is still on the card) and
+    its return goes to the record's ``after``.  The final parameters go to
+    the host and the state is freed."""
     import shutil
 
     from repro_torch import tree
@@ -3380,6 +3460,7 @@ def run_launcher(args, expect: dict[str, int], route: str, layers: int = 0,
     from repro_torch.train.fault_tolerance import TransientError
     shutil.rmtree(args.ckpt_dir, ignore_errors=True)
     launches: list[int] = []
+    taken: list[dict] = []
     comm: dict = {}
     failed: list[int] = []
 
@@ -3396,12 +3477,14 @@ def run_launcher(args, expect: dict[str, int], route: str, layers: int = 0,
         torch.cuda.synchronize()
         launches.append(check_launches(
             expect, f"launcher step {step}", route)["flash_attention"])
+        taken.append(check_routes(routes or {}, f"launcher step {step}"))
         if counter is not None:
             comm.update(counter.costs().record())
 
     t0 = time.perf_counter()
     out = LT.run(args, step_context=counted, layers=layers)
     run_s = time.perf_counter() - t0
+    late = after(out) if after is not None else None
     state = out["state"]
     leaves = [x for k in ("params", "opt") for x in tree.leaves(state[k])
               if k == "params" or x.dim() > 0]
@@ -3419,9 +3502,9 @@ def run_launcher(args, expect: dict[str, int], route: str, layers: int = 0,
     return {"losses": [loss for _, loss, _ in history],
             "steps": [s for s, _, _ in history],
             "s": [secs for _, _, secs in history], "final": final,
-            "launches": launches, "collectives": comm,
+            "launches": launches, "routes": taken, "collectives": comm,
             "placements": placements, "restarts": report.restarts,
-            "run_s": run_s}
+            "run_s": run_s, "after": late}
 
 
 def held_against_plain(tag: str, got: dict, plain: dict) -> dict:
@@ -3438,7 +3521,7 @@ def held_against_plain(tag: str, got: dict, plain: dict) -> dict:
           f"{got['placements']}; launcher losses {got['losses']}; plain "
           f"trainer {plain['losses']}; bit-equal {bit_equal} (max rel "
           f"{rel:.3e}); final parameters bit-equal {same}; run "
-          f"{got['run_s']:.1f} s")
+          f"{got['run_s']:.1f} s; sharded routes a step {got['routes']}")
     check(bit_equal or rel <= LAUNCH_LOSS_RTOL,
           f"{tag}: launcher losses differ from the plain trainer's by "
           f"{rel:.3e}")
@@ -3507,9 +3590,11 @@ def policy_step_path(launcher: dict) -> dict:
     """Phase 47 (b): one ``layerwise_tp`` step from the same seed (phase
     46's initial parameters) on the same batch as the launcher's step 0 at
     full depth: its loss bit-equal to ``fused_seq``'s (a 1x1 mesh moves
-    nothing), 40 flash launches, zero collective bytes; then a step with
-    remat (80 launches), a step timed in two parts (``split_step``), and a
-    forward of the DTensor state under ``ops.plain()`` (none)."""
+    nothing), 40 flash launches, zero collective bytes, and one masked
+    lookup in the table, whose vocab spec stays ``Shard(0)`` on the
+    size-1 ``model`` dim; then a step with remat (80 launches, one
+    lookup), a step timed in two parts (``split_step``), and a forward of
+    the DTensor state under ``ops.plain()`` (no launch, one lookup)."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.core.policies import get_policy
@@ -3532,6 +3617,9 @@ def policy_step_path(launcher: dict) -> dict:
     params = tree.unflatten(like, [p.cuda() for p in launcher["init"]])
     launcher["init"].clear()
     state = LT.shard_state(policy, init_train_state(model, params, ts))
+    vocab = [str(p) for p in state["params"]["embed"].placements]
+    check(state["params"]["embed"].placements[1].is_shard(0),
+          f"layerwise_tp's table on the 1x1 mesh: {vocab}")
     counter = CommCounter()
     batch = LT.shard_batch(policy, batch_for_step(cfg, 0, TRAIN_ROWS,
                                                   TRAIN_SEQ))
@@ -3541,6 +3629,7 @@ def policy_step_path(launcher: dict) -> dict:
     loss = float(metrics["loss"])
     check_launches({"flash_attention": cfg.num_layers}, "layerwise_tp step",
                    route)
+    check_routes({"embed": 1}, "layerwise_tp step")
     comm = counter.costs().record()
     zero_launches()
     state, m_remat = make_train_step(model, dataclasses.replace(
@@ -3549,6 +3638,7 @@ def policy_step_path(launcher: dict) -> dict:
     remat_loss = float(m_remat["loss"])
     check_launches({"flash_attention": 2 * cfg.num_layers},
                    "layerwise_tp step with remat", route)
+    check_routes({"embed": 1}, "layerwise_tp step with remat")
     # the DTensor step split into its gradient and AdamW (phase 49)
     split = split_step(model, ts, state, LT.shard_batch(
         policy, batch_for_step(cfg, LAUNCH_STEPS, TRAIN_ROWS, TRAIN_SEQ)))
@@ -3558,11 +3648,13 @@ def policy_step_path(launcher: dict) -> dict:
         logits, _ = model.forward(model.bind(state["params"]), batch)
         finite = bool(torch.isfinite(logits.to_local()).all())
     check_launches({}, "a DTensor forward under ops.plain()")
+    check_routes({"embed": 1}, "a DTensor forward under ops.plain()")
     del state, logits
     torch.cuda.empty_cache()
     print(f"[launch] layerwise_tp on the same state and batch: loss {loss} "
           f"vs fused_seq's {launcher['full']['losses'][0]} (bit-equal "
           f"{loss == launcher['full']['losses'][0]}); collectives {comm}; "
+          f"the table's placements {vocab}, one masked lookup a step; "
           f"{cfg.num_layers} flash launches; a remat step (loss "
           f"{remat_loss:.4f}) {2 * cfg.num_layers}; a forward under "
           f"ops.plain() none, logits finite {finite}")
@@ -3571,55 +3663,202 @@ def policy_step_path(launcher: dict) -> dict:
     check(comm["total"] == 0, f"layerwise_tp collectives on 1x1: {comm}")
     check(math.isfinite(remat_loss) and finite, "a non-finite loss or logit")
     return {"loss": loss, "collectives": comm, "remat_loss": remat_loss,
-            "split": split}
+            "split": split, "table_placements": vocab}
 
 
-def dryrun_path(smi: str) -> dict:
-    """Phase 48 (c): ``python -m repro_torch.launch.dryrun --mesh single
-    --cells minicpm-2b@prefill_32k`` for each policy, as users run it, in
-    subprocesses run side by side (a fake group of 256 ranks, meta shards,
-    on the CPU): exit 0, one ``ok`` record; per-device argument bytes,
-    FLOPs and collective bytes by kind printed."""
+def start_dryruns() -> tuple[dict, float]:
+    """Phase 48's dry runs, started: one subprocess per policy."""
     import os
-    t0 = time.perf_counter()
     runs = {policy: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
-         "single", "--cells", DRYRUN_CELL, "--policy", policy, "--out",
-         str(ROOT / "build" / f"dryrun_{policy}.json")], cwd=ROOT,
+         "single", "--cells", ",".join(DRYRUN_CELLS), "--policy", policy,
+         "--out", str(ROOT / "build" / f"dryrun_{policy}.json")], cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for policy in DRYRUN_POLICIES}
+    return runs, time.perf_counter()
+
+
+def dryrun_path(started: tuple[dict, float]) -> dict:
+    """Phase 48 (c): ``python -m repro_torch.launch.dryrun --mesh single
+    --cells minicpm-2b@prefill_32k,deepseek-moe-16b@prefill_32k`` for each
+    policy, as users run it, in subprocesses run side by side (a fake group
+    of 256 ranks, meta shards, on the CPU): exit 0, an ``ok`` record per
+    cell with nothing computed replicated; per-device argument bytes, FLOPs
+    and collective bytes by kind printed, deepseek's beside DRYRUN_PARENT's
+    (every rank running the whole MoE FFN).  The subprocesses start with
+    ``start_dryruns``, before phase 46, and run beside it."""
+    runs, t0 = started
     out = {}
     for policy, proc in runs.items():
         stdout, stderr = proc.communicate(timeout=600)
         check(proc.returncode == 0, f"dry run {policy} exited "
               f"{proc.returncode}: {stdout[-2000:]} {stderr[-2000:]}")
-        (rec,) = json.loads((ROOT / "build" / f"dryrun_{policy}.json")
-                            .read_text())
-        check(rec["status"] == "ok", f"dry run {policy}: {rec}")
-        coll = {k: v for k, v in rec["collectives"].items() if v}
-        print(f"[dryrun] {DRYRUN_CELL} single_pod_16x16 (256 fake ranks) "
-              f"{policy}: exit 0; per device: argument "
-              f"{rec['bytes_per_device']['argument']} B, "
-              f"{rec['flops_per_device']:.4e} FLOPs, collectives {coll}")
-        out[policy] = rec
+        recs = json.loads((ROOT / "build" / f"dryrun_{policy}.json")
+                          .read_text())
+        check([r["cell"] for r in recs] == list(DRYRUN_CELLS),
+              f"dry run {policy}: {recs}")
+        for rec in recs:
+            check(rec["status"] == "ok" and not rec["computed_replicated"],
+                  f"dry run {policy}: {rec}")
+            coll = {k: v for k, v in rec["collectives"].items() if v}
+            parent = DRYRUN_PARENT[policy] \
+                if rec["cell"].startswith("deepseek") else None
+            print(f"[dryrun] {rec['cell']} single_pod_16x16 (256 fake ranks) "
+                  f"{policy}: exit 0, computed replicated none; per device: "
+                  f"argument {rec['bytes_per_device']['argument']} B, "
+                  f"{rec['flops_per_device']:.4e} FLOPs, collectives {coll}"
+                  + (f"; before the expert-parallel FFN (commit 6159077, "
+                     f"torch 2.13.0+cpu): "
+                     f"{parent['flops']:.4e} FLOPs, all-gather "
+                     f"{parent['all-gather']} B, total {parent['total']} B, "
+                     f"computed replicated {parent['computed_replicated']}"
+                     if parent else ""))
+            out[f"{rec['cell']}/{policy}"] = rec
+    ex = moe_exchange(DRYRUN_CELLS[1], 16, 16)
+    print(f"[exchange] {DRYRUN_CELLS[1]} on 16x16 under fused_seq's sequence "
+          f"shards, a device and MoE layer (from the shapes): the route's "
+          f"all-gather + reduce-scatter {ex['gather_reduce_scatter']} B; an "
+          f"all-to-all of the kept assignments there and back "
+          f"{ex['all_to_all_static']} B in static buffers, "
+          f"{ex['all_to_all_kept']} B sized by the data; slots computed "
+          f"{ex['padding']:.2f}x the assignments routed")
+    out["exchange"] = ex
     secs = time.perf_counter() - t0
-    print(f"[dryrun] both policies in {secs:.1f} s (side by side)")
+    print(f"[dryrun] both policies in {secs:.1f} s (side by side, beside "
+          f"phases 46-47)")
     return {**out, "s": secs}
 
 
+def moe_exchange(cell: str, data: int, model: int) -> dict:
+    """The MoE FFN's exchange a device and MoE layer under ``fused_seq``'s
+    sequence shards (the hints), from the shapes of ``cell`` on a
+    ``data`` x ``model`` mesh, in bytes of the activations' dtype: the
+    route's all-gather of the tokens over ``model`` and reduce-scatter of
+    the outputs (what ``launch/comm.py`` counts: output bytes), against an
+    all-to-all of the kept assignments there and back, in static buffers
+    (each expert's ``min(C, tokens of the rank)`` slots) and in buffers
+    sized by the data (the kept assignments alone); and the padding
+    factor, slots computed over assignments routed, on the rank's data
+    group."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cells import SHAPES
+    from repro_torch.models.moe import capacity_for
+    arch, shape = cell.split("@")
+    cfg, sh = get_config(arch), SHAPES[shape]
+    E, K, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+    word = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    rows = sh.global_batch // data
+    group, local = rows * sh.seq_len, rows * sh.seq_len // model
+    C = capacity_for(sh.global_batch * sh.seq_len, cfg)
+    return {"gather_reduce_scatter": (group + local) * d * word,
+            "all_to_all_static": 2 * E * min(C, local) * d * word,
+            "all_to_all_kept": 2 * local * K * d * word,
+            "padding": E // model * min(C, group) / (group * K / model)}
+
+
+def moe_launch_path(smi: str) -> dict:
+    """Phase 50: ``python -m repro_torch.launch.train --arch
+    granite-moe-1b-a400m --mesh 1x1`` in this process (within the one-rank
+    NCCL group) at full width and depth (24 MoE layers, 32 experts, top-8,
+    bf16), 4x1024, 4 steps, ``--ckpt-every 0``, under ``fused_seq`` and
+    then ``layerwise_tp``.  Each run: every state leaf a DTensor, each step
+    the expert-parallel MoE FFN once a layer (``core.dtensor.
+    route_counts``), the masked lookup once where the table is
+    vocab-sharded (``layerwise_tp``), one flash launch a layer on the
+    tensor-core route, zero collective bytes in step 0; a forward of the
+    final state under ``ops.plain()`` takes the same routes and launches
+    nothing; each step's loss and the final parameters against the plain
+    trainer from the same seed (bit-equal, or the loss within
+    LAUNCH_LOSS_RTOL and the run says so)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+    from repro_torch.models.api import dense_layers
+    from repro_torch.train.trainer import sharded
+    cfg = get_config(MOE_LAUNCH_CONFIG)
+    moe_layers = cfg.num_layers - dense_layers(cfg)
+    expect = {"flash_attention": cfg.num_layers}
+    route = flash_route(cfg)
+
+    def plain_forward(routes: dict):
+        def run(out: dict) -> dict:
+            state, model, policy = out["state"], out["model"], out["policy"]
+            batch = LT.shard_batch(policy, batch_for_step(
+                cfg, LAUNCH_STEPS, TRAIN_ROWS, TRAIN_SEQ))
+            zero_launches()
+            with torch.no_grad(), ops.plain(), sharded(
+                    tree.leaves(state["params"])):
+                logits, _ = model.forward(model.bind(state["params"]),
+                                          batch)
+                finite = bool(torch.isfinite(logits.to_local()).all())
+            torch.cuda.synchronize()
+            check_launches({}, f"{policy.name}: a DTensor forward under "
+                               f"ops.plain()")
+            taken = check_routes(routes, f"{policy.name}: a DTensor forward "
+                                         f"under ops.plain()")
+            check(finite, f"{policy.name}: non-finite logits under "
+                          f"ops.plain()")
+            return {"routes": taken, "finite": finite}
+        return run
+
+    out: dict = {}
+    plain = None
+    for policy in ("fused_seq", "layerwise_tp"):
+        args = launcher_args(policy, ROOT / "build" / "launch_ckpt",
+                             "--ckpt-every", "0", arch=MOE_LAUNCH_CONFIG)
+        print(f"[launch] python -m repro_torch.launch.train --arch "
+              f"{MOE_LAUNCH_CONFIG} --mesh 1x1 --policy {policy} --steps "
+              f"{LAUNCH_STEPS} --global-batch {TRAIN_ROWS} --seq {TRAIN_SEQ} "
+              f"--lr {TRAIN_LR} --ckpt-every 0, in this process, {smi}")
+        vocab_sharded = policy == "layerwise_tp"
+        routes = {"moe_ffn": moe_layers, "embed": int(vocab_sharded)}
+        got = run_launcher(args, expect, route, routes=routes,
+                           after=plain_forward(routes))
+        if plain is None:
+            plain = plain_trainer(cfg, LT.train_config(args), expect)
+        out[policy] = held_against_plain(
+            f"{cfg.name} {policy}, full width and depth, --ckpt-every 0",
+            got, plain)
+        if not out[policy]["bit_equal"]:
+            print(f"[launch] {cfg.name} {policy}: the losses differ from the "
+                  f"plain trainer's from step "
+                  f"{first_difference(got['losses'], plain['losses'])}")
+    steps = {p: statistics.median(r["s"][1:]) * 1e3 for p, r in out.items()}
+    plain_ms = statistics.median(plain["s"][1:]) * 1e3
+    print(f"[time] {cfg.name} train step {TRAIN_ROWS}x{TRAIN_SEQ} bf16, host "
+          f"clock around a synchronised step, median of steps 1-"
+          f"{LAUNCH_STEPS - 1}, {smi}: launcher (DTensor state, 1x1 mesh) "
+          + ", ".join(f"{p} {ms:.1f} ms" for p, ms in steps.items())
+          + f"; plain trainer {plain_ms:.1f} ms")
+    return {**out, "step_ms": steps, "plain_step_ms": plain_ms}
+
+
+def first_difference(a: list, b: list) -> int:
+    return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+
+
 def launch_paths(smi: str) -> dict:
-    """Phases 46-49: the launcher, the second policy and the dry run, then
-    the launcher's step time beside the plain trainer's."""
+    """Phases 46-50: the launcher, the second policy and the dry run, the
+    launcher on granite-moe-1b-a400m under both policies, then minicpm's
+    launcher step time beside the plain trainer's."""
     import torch.distributed as dist
+    started = start_dryruns()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
         launcher = launcher_path(smi)
         policies = policy_step_path(launcher)
+        dry = dryrun_path(started)
+        moe = moe_launch_path(smi)
     finally:
         dist.destroy_process_group()
-    dry = dryrun_path(smi)
+        for proc in started[0].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     # steps 1 onwards: step 0 pays first calls and the collective counter
     full = launcher["full"]
     launch_ms = statistics.median(full["s"][1:]) * 1e3
@@ -3640,7 +3879,8 @@ def launch_paths(smi: str) -> dict:
           f"{dsplit['grad_ms'] - psplit['grad_ms']:.1f} ms, AdamW "
           f"{dsplit['adamw_ms'] - psplit['adamw_ms']:.1f} ms")
     return {"launcher": launcher, "layerwise_tp": policies, "dryrun": dry,
-            "launcher_step_ms": launch_ms, "plain_step_ms": plain_ms}
+            "moe_launcher": moe, "launcher_step_ms": launch_ms,
+            "plain_step_ms": plain_ms}
 
 
 def training_paths(smi: str) -> dict:
@@ -3688,6 +3928,10 @@ def main() -> int:
         xlstm_prefill_times()
         return 0
     build_s, ptxas = build()
+    if "--launch-paths" in sys.argv[1:]:
+        launch_paths(smi)
+        print(f"[time] script {time.perf_counter() - T0:.0f} s")
+        return 0
     rows = kernel_check()
     model = model_path()
     fwd = timings(rows, model)
@@ -3696,6 +3940,8 @@ def main() -> int:
     del model["net"], model["x"]
 
     from repro_torch.configs import get_config
+    # deepseek-moe-16b's weights, drawn on the host beside phases 7-21
+    moe_params = host_init(get_config(MOE_CONFIG))
     cfg = get_config(LM_CONFIG)
     expect = {"flash_attention": cfg.num_layers}
     flash_rows = flash_check(cfg, FLASH_SHAPES, SEED + 200)
@@ -3794,7 +4040,7 @@ def main() -> int:
     del xlm["model"], xlm["net"], xlm["batch"]
     torch.cuda.empty_cache()
 
-    d = decoder_lm_paths(smi)
+    d = decoder_lm_paths(smi, moe_params)
     mcfg, pcfg, mlm, m_times = d["mcfg"], d["pcfg"], d["mlm"], d["m_times"]
     m_flash_rows, p_flash_rows = d["m_flash_rows"], d["p_flash_rows"]
     q_flash_rows, config_runs = d["q_flash_rows"], d["config_runs"]
@@ -3935,7 +4181,10 @@ def main() -> int:
                       f"{TRAIN_ROWS}x{TRAIN_SEQ} bf16, DTensor state",
             "launches": la["launcher"]["full"]["launches"],
             "cut_launches": la["launcher"]["cut"]["launches"],
-            "route": "local_map onto the local shards (kernels/ops.py)"},
+            "route": "local_map onto the local shards (kernels/ops.py)",
+            MOE_LAUNCH_CONFIG: {
+                p: la["moe_launcher"][p]["launches"]
+                for p in ("fused_seq", "layerwise_tp")}},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan_sm90.cu",
@@ -4049,7 +4298,11 @@ def main() -> int:
               for n, r, q in ((hcfg.name, HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ),
                               (xcfg.name, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ)))
           + f"; launcher step {la['launcher_step_ms']:.1f} ms (plain "
-          f"trainer {la['plain_step_ms']:.1f} ms)"
+          f"trainer {la['plain_step_ms']:.1f} ms); {MOE_LAUNCH_CONFIG} "
+          f"launcher step " + ", ".join(
+              f"{p} {ms:.1f} ms" for p, ms in
+              la["moe_launcher"]["step_ms"].items())
+          + f" (plain trainer {la['moe_launcher']['plain_step_ms']:.1f} ms)"
           + f"; script "
           f"{time.perf_counter() - T0:.0f} s")
     print(smi)

@@ -2,33 +2,45 @@
 plain call, on a plain tensor, so the unsharded numerics do not move.
 
 * ``settle(x)`` reduces a DTensor's pending partial sums (``Partial`` →
-  ``Replicate``).
-* ``whole(x)`` gathers a DTensor onto every rank (``Replicate`` on every
-  mesh dim).  The decoders look tokens up in a whole embedding table: a
-  lookup in a vocab-sharded one is a masked partial sum (``_MaskPartial``)
-  that DTensor reduces only once, and the residual stream reads it twice
-  (the norm's variance and its scale); nor does its gradient go back
-  from a plain partial sum to the masked one.  The gather's backward is a
-  reduce-scatter of the table's gradient onto its shards.
+  ``Replicate``); ``redistributed(x, placements)`` moves a DTensor to
+  ``placements`` unless it is there already.
+* ``embedding(ids, table)`` is ``F.embedding``.  On a table sharded by
+  vocab (``Shard(0)``) over mesh dims where the ids are replicated, each
+  rank looks up the ids of its own rows, puts zeros elsewhere, and the
+  result is reduced once over those dims: exact, since every sum is one
+  value and zeros.  It is settled at once, so the residual stream's two
+  readers (the norm's variance and its scale) see a plain ``Replicate``
+  placement; DTensor's own lookup leaves a masked partial sum
+  (``_MaskPartial``) that it reduces only once and whose gradient does not
+  go back from a plain partial sum.  The backward is the local
+  ``F.embedding`` backward of the local ids, with no communication: the
+  table's gradient is ``Partial`` over the mesh dims that shard the ids.
+  A vocab shard on a mesh dim that also shards the ids (ZeRO-3's
+  data-sharded table) is gathered there first, as that policy gathers
+  every weight at use.
+* ``shard_index(mesh, placements, dim)`` is this rank's index among the
+  shards of tensor dim ``dim`` and their count.
 * ``split_last(x, n, d)`` and ``merge_last(x)`` reshape the last dim into
   (n, d) heads and back.  DTensor cannot unflatten or flatten a dim whose
   shard splits a head (minicpm's 36 heads of 64 column-sharded 16 ways),
   so such a DTensor is first replicated on the mesh dims that shard it.
-* ``replicated_call(fn, *args)`` runs ``fn`` on the whole values of its
-  arguments' DTensor leaves, every rank the same work, and returns
-  replicated DTensors: exact for any function, at the price of gathering
-  its inputs.  The MoE FFN takes it: its dispatch scatters tokens to the
-  slots the routing picks, which no sharding rule of DTensor describes (a
-  scatter by local indices into a replicated buffer would leave every
-  rank a different buffer).
+* ``contiguous_grad(x)`` is ``x`` whose gradient is made contiguous.  A
+  local computation's gradient that leaves through ``to_local`` becomes a
+  DTensor whose global strides DTensor infers from the local layout; from
+  a transposed local gradient (the attention backward's dk of one head a
+  shard, deepseek-moe-16b's 16 heads 16 ways) it infers strides under
+  which a later ``reshape`` takes a view that the local tensor cannot.
 * ``local_pointwise(fn, x)`` runs an elementwise ``fn`` on each local
   shard (``local_map``), for ops to which DTensor gives no sharding rule
   in some PyTorch version (``log_sigmoid_backward``): an elementwise op is
   exact on any placement but a partial sum, which is settled first.
 
-``whole`` and ``replicated_call`` discard the policies' sharding of what
-they gather: within ``recording_gathers()`` each names what it gathered
-from a mesh dim larger than 1 (the dry run reports these as computed
+``route_counts`` counts the sharded routes taken (``note_route``): ``embed``
+for each masked vocab-sharded lookup, ``moe_ffn`` for each expert-parallel
+MoE FFN (``models/moe.py``).  Within ``recording_gathers()``,
+``note_computed_replicated`` names an op whose inputs a route replicated
+on a mesh dim larger than 1 that some input was sharded on, so that every
+rank of that dim repeats its work (the dry run reports these as computed
 replicated).
 """
 
@@ -36,18 +48,24 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Sequence
 
 import torch
+import torch.nn.functional as F
 
 _GATHERED: contextvars.ContextVar[set | None] = contextvars.ContextVar(
     "gathered", default=None)
 
+route_counts: dict[str, int] = {"embed": 0, "moe_ffn": 0}
+
+
+def note_route(name: str) -> None:
+    route_counts[name] += 1
+
 
 @contextlib.contextmanager
 def recording_gathers() -> Iterator[set]:
-    """Yields the set of names that ``whole`` and ``replicated_call`` add
-    to when they gather a DTensor sharded on a mesh dim larger than 1."""
+    """Yields the set of names that ``note_computed_replicated`` adds to."""
     seen: set = set()
     token = _GATHERED.set(seen)
     try:
@@ -56,13 +74,20 @@ def recording_gathers() -> Iterator[set]:
         _GATHERED.reset(token)
 
 
-def _note_gather(what: str, x) -> None:
+def note_computed_replicated(what: str, mesh, before: Sequence,
+                             after: Sequence) -> None:
+    """Adds ``what`` to ``recording_gathers``' set if on a mesh dim larger
+    than 1 some input was sharded (``before``: each input's placements)
+    and every input is replicated after the route's redistributions
+    (``after``)."""
     seen = _GATHERED.get()
-    if seen is None or not is_dtensor(x):
+    if seen is None:
         return
-    if any(not p.is_replicate() and x.device_mesh.size(i) > 1
-           for i, p in enumerate(x.placements)):
-        seen.add(what)
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1 and any(
+                not pl[i].is_replicate() for pl in before) and all(
+                pl[i].is_replicate() for pl in after):
+            seen.add(what)
 
 
 def is_dtensor(x) -> bool:
@@ -79,14 +104,79 @@ def settle(x: torch.Tensor) -> torch.Tensor:
                                       for p in x.placements])
 
 
-def whole(x: torch.Tensor, what: str = "tensor") -> torch.Tensor:
-    """``x`` replicated on every mesh dim (a plain tensor as it is);
-    ``what`` names it for ``recording_gathers``."""
-    if not is_dtensor(x) or all(p.is_replicate() for p in x.placements):
+def redistributed(x: torch.Tensor, placements: Sequence) -> torch.Tensor:
+    """The DTensor ``x`` on ``placements``."""
+    if list(x.placements) == list(placements):
         return x
-    _note_gather(what, x)
-    from torch.distributed.tensor import Replicate
-    return x.redistribute(placements=[Replicate()] * x.device_mesh.ndim)
+    return x.redistribute(placements=list(placements))
+
+
+def shard_index(mesh, placements: Sequence, dim: int) -> tuple[int, int]:
+    """(index, count) of this rank's shard of tensor dim ``dim`` under
+    ``placements``: the mesh dims that shard it split it in mesh-dim
+    order, the first one outermost, as DTensor applies them."""
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            index = index * mesh.size(i) + coord[i]
+            count *= mesh.size(i)
+    return index, count
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient is made contiguous in the backward."""
+    return _ContiguousGrad.apply(x) if x.requires_grad else x
+
+
+def embedding(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)``; a vocab-sharded DTensor table takes the
+    masked lookup (see the module's docstring)."""
+    if not is_dtensor(table):
+        return F.embedding(ids, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    if not is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    on_ids = [not p.is_replicate() for p in ids.placements]
+    table = redistributed(table, [
+        Replicate() if on_ids[i] and p.is_shard() else p
+        for i, p in enumerate(table.placements)])
+    vocab = [p.is_shard(0) for p in table.placements]
+    if not any(vocab):
+        return F.embedding(ids, table)
+    table = redistributed(table, [p if p.is_shard(0) else Replicate()
+                                  for p in table.placements])
+    note_route("embed")
+    index, count = shard_index(mesh, table.placements, 0)
+    V = table.shape[0]
+    if V % count:
+        raise ValueError(f"embedding: {V} rows do not split into {count} "
+                         f"equal vocab shards")
+    rows = V // count
+    local = contiguous_grad(table.to_local(grad_placements=[
+        Partial() if on_ids[i] else p
+        for i, p in enumerate(table.placements)]))
+    j = ids.to_local() - index * rows
+    inside = (j >= 0) & (j < rows)
+    e = F.embedding(j.clamp(0, rows - 1), local)
+    e = torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                      device=e.device))
+    out = DTensor.from_local(e, mesh, [
+        Partial() if vocab[i] else p for i, p in enumerate(ids.placements)],
+        run_check=False)
+    return settle(out)
 
 
 def _whole_heads(x: torch.Tensor, dim: int, heads: int) -> torch.Tensor:
@@ -135,23 +225,6 @@ def merge_last(x: torch.Tensor) -> torch.Tensor:
     if is_dtensor(x):
         return _HeadReshape.apply(x, shape, x.shape[-2], -2, -1)
     return x.reshape(shape)
-
-
-def replicated_call(fn: Callable, *args, what: str = "call"):
-    """``fn(*args)`` on whole, plain tensors; each tensor of its output a
-    DTensor replicated on the mesh of the arguments' DTensors.  ``what``
-    names the call for ``recording_gathers``."""
-    from torch.distributed.tensor import DTensor, Replicate
-
-    from repro_torch import tree
-    mesh = next(x.device_mesh for a in args for x in tree.leaves(a)
-                if is_dtensor(x))
-    rep = [Replicate()] * mesh.ndim
-    out = fn(*[tree.map(lambda x: whole(settle(x), what).to_local()
-                        if is_dtensor(x) else x, a) for a in args])
-    return tree.map(lambda t: DTensor.from_local(t, mesh, rep,
-                                                 run_check=False)
-                    if isinstance(t, torch.Tensor) else t, out)
 
 
 def local_pointwise(fn: Callable[[torch.Tensor], torch.Tensor],

@@ -50,7 +50,7 @@ from collections.abc import Iterator
 
 import torch
 
-from repro_torch.core.dtensor import is_dtensor
+from repro_torch.core.dtensor import contiguous_grad, is_dtensor
 from repro_torch.kernels.flash_attention import (
     FlashAttention, check_every_row_sees_a_key, flash_attention_kernel)
 from repro_torch.kernels.fused_conv import fused_conv_kernel
@@ -131,7 +131,8 @@ def _local_route(fn, args: tuple, modes, divisors=None,
                  meta_fn=None) -> torch.Tensor:
     """``fn`` (the op on plain tensors) on the local shards of ``args``,
     redistributed to ``exact_placements``; the output DTensor goes back to
-    the first input's placements (a partial sum's settled).  On meta
+    the first input's placements (a partial sum's settled).  The local
+    gradients leave contiguous (``core.dtensor.contiguous_grad``).  On meta
     shards ``meta_fn`` stands in, if given, else ``fn``'s plain version."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import local_map
@@ -144,6 +145,7 @@ def _local_route(fn, args: tuple, modes, divisors=None,
         placements=w) for a, w in zip(args, want))
 
     def local(*xs):
+        xs = tuple(contiguous_grad(x) for x in xs)
         if xs[0].device.type == "meta":    # the dry run's shards: shapes
             if meta_fn is not None:
                 return meta_fn(*xs)

@@ -22,24 +22,30 @@ runnable cell it
        cannot place fails here,
     3. records the per-device argument bytes (exact, from the local shard
        shapes), the per-device FLOPs and the collective bytes by kind
-       (``launch/comm.py``; the analogue of JAX's HLO analysis), what the
-       step gathered whole onto every rank in place of the policy's
-       sharding (``computed_replicated``: ``embed``, the embedding table
-       before the lookup; ``moe_ffn``, the MoE FFN, every rank computing
-       the whole batch's experts, so a MoE cell's FLOPs are not those of
-       JAX's expert-sharded layout), and the status: ``ok``, ``fail`` with
-       the error, or ``skip``.
+       (``launch/comm.py``; the analogue of JAX's HLO analysis), the ops
+       whose work a route repeated on every rank of a mesh dim that the
+       policy's specs shard (``computed_replicated``, from
+       ``core.dtensor.note_computed_replicated``: the expert-parallel MoE
+       FFN names ``moe_ffn`` where it must replicate both its tokens and
+       its experts on such a dim), and the status: ``ok``, ``fail`` with
+       the error, or ``skip``.  The embedding lookup never names itself:
+       a vocab-sharded table takes the masked lookup on the local rows,
+       and under ``fused_seq_zero3`` the data-sharded table is gathered at
+       use like every weight of that policy (its bytes count as
+       all-gather), while each rank looks up only its own tokens.
 
-An op whose result depends on the data (``.item()``, the MoE's per-expert
-counts) raises on meta tensors, so such a cell fails and is reported,
-never hidden.  The mesh is on the CPU and the kernels' DTensor route runs
-their plain versions on the meta shards: a dry run needs no card.  The fake
-process group lives in this process only; a caller that has one keeps it.
+An op whose result depends on the data (``.item()``) raises on meta
+tensors, so such a cell fails and is reported, never hidden; the MoE's
+buffers take static shapes (``models/moe.py``), so its FLOPs and
+collectives are counted.  The mesh is on the CPU and the kernels' DTensor
+route runs their plain versions on the meta shards: a dry run needs no
+card.  The fake process group lives in this process only; a caller that
+has one keeps it.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--cells a@s,b@s]
         [--mesh single|multi|both|DxM] [--policy fused_seq|layerwise_tp|
-        fused_seq_zero3] [--out results.json] [--smoke]
+        fused_seq_zero3] [--out results.json] [--smoke] [--layers N]
 
 Exit code 1 if any cell fails.
 """
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import time
 import traceback
@@ -110,9 +117,12 @@ def argument_bytes(*trees) -> int:
 
 def run_cell(cell: Cell, mesh, policy_name: str, *, remat: bool = True,
              hints: bool = False, loss_chunk: int = 0, micro: int = 0,
-             smoke: bool = False) -> dict:
-    """The record of one cell on one mesh (see the module's docstring)."""
+             smoke: bool = False, layers: int = 0) -> dict:
+    """The record of one cell on one mesh (see the module's docstring);
+    ``layers`` cuts the config to its first N layers (0: all)."""
     cfg = get_config(cell.arch, smoke=smoke)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg, device="meta")
     policy = get_policy(policy_name, mesh, cfg)
     params_shapes = model.init(0).params
@@ -224,6 +234,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="the configs' smoke reductions at the cells' "
                          "shapes")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut each config to its first N layers (0: all)")
     return ap
 
 
@@ -250,7 +262,8 @@ def main(argv: list[str] | None = None) -> None:
                     rec = run_cell(cell, mesh, args.policy,
                                    remat=not args.no_remat, hints=args.hints,
                                    loss_chunk=args.loss_chunk,
-                                   micro=args.micro, smoke=args.smoke)
+                                   micro=args.micro, smoke=args.smoke,
+                                   layers=args.layers)
                 rec["mesh_name"] = mesh_name
                 rec["policy"] = args.policy
                 results.append(rec)

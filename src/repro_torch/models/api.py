@@ -42,13 +42,12 @@ import math
 from typing import Any, Callable
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dtensor import whole
+from repro_torch.core.dtensor import embedding
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -172,8 +171,8 @@ def _embed(params: Params, cfg: ModelConfig,
     # F.embedding, not indexing: its CUDA backward sums each row's
     # gradients in a fixed order (indexing's accumulates atomically), so a
     # replayed train step gives the same bits; a vocab-sharded DTensor
-    # table is gathered first (``whole``), see ``core/dtensor.py``
-    x = F.embedding(tokens.long(), whole(params["embed"], "embed"))
+    # table takes the masked lookup (``core.dtensor.embedding``)
+    x = embedding(tokens.long(), params["embed"])
     if cfg.scale_embed_by_sqrt_dim:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x

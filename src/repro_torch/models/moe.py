@@ -23,6 +23,42 @@ ones all land in slot C, which is cut off.  No atomics, so two runs give
 the same bits.  The expert products are batched matrix products and the
 scatter and gather plain indexing: JAX computes them as einsums and
 ``.at[].add`` outside any Pallas kernel, so there is no kernel to port.
+
+A DTensor ``x`` takes the expert-parallel route, on local shards, with
+JAX's global semantics (the capacity from the global token count, slots
+in the global token order, the aux loss over all tokens), so it drops
+exactly what one process drops:
+
+* Placements.  The mesh dims that shard the experts (``Shard(0)`` of the
+  expert weights; ``model`` in every policy) are the expert dims: there
+  the tokens are gathered (``fused_seq``'s sequence shards; under
+  ``layerwise_tp`` they are replicated already), and each rank computes
+  only its experts, so the output is a partial sum that goes back to
+  ``x``'s placements (an all-gather, then a reduce-scatter: at
+  deepseek-moe-16b's 16×16 shapes this moves less than an all-to-all of
+  the kept assignments in static buffers).  On the other mesh dims a
+  batch or sequence shard of ``x`` stays, each rank routing its own
+  tokens; the weights are gathered there (``fused_seq_zero3``'s data
+  shards), and the router everywhere.
+* Slots.  Each rank counts its assignments per (row, expert); the counts
+  of every rank are gathered (a few KB), and an assignment's global
+  position is the count of the rows, and of the sequence shards of its
+  row, before its own, plus its position in its row.  Its slot in the
+  rank's buffer is its position among the rank's assignments: those come
+  in the global order, so it stays below ``min(C, tokens of the rank)``,
+  a static bound (top-k picks distinct experts), and the dry run on meta
+  shards counts the experts' FLOPs.
+* The aux loss.  f_e and p̄_e are sums over all tokens, partial where
+  the tokens are sharded, and on the expert dims each rank sums every
+  n-th token, so that the sums are partial there too and the gradient
+  reaches each token once; reduced once, then divided by the global
+  token count.
+* Gradients flow through the gathers and reductions by DTensor's rules;
+  the local gradients of the tokens and the router are partial on the
+  expert dims, those of the weights on the token dims.
+
+On one rank (a 1×1 mesh) with C at most the token count, every buffer
+has the plain path's shape and content.
 """
 
 from __future__ import annotations
@@ -33,7 +69,9 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.dtensor import is_dtensor, replicated_call, settle
+from repro_torch.core.dtensor import (contiguous_grad, is_dtensor,
+                                      note_computed_replicated, note_route,
+                                      redistributed, settle, shard_index)
 from repro_torch.models import layers as L
 from repro_torch.models.layers import _randn
 
@@ -78,18 +116,29 @@ class Route(NamedTuple):
     aux: torch.Tensor
 
 
+def _choose(p: Params, xt: torch.Tensor, cfg
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router's softmax in f32 and its top-k over ``xt`` (T, d):
+    (probs (T, E), gate_w (T, K) renormalised, sel (T, K))."""
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)      # (T, E)
+    gate_w, sel = torch.topk(probs, cfg.moe_top_k, dim=-1, sorted=True)
+    return probs, gate_w / gate_w.sum(dim=-1, keepdim=True), sel
+
+
+def _aux(f_e: torch.Tensor, p_e: torch.Tensor, cfg) -> torch.Tensor:
+    """The Switch load-balance loss E · Σ_e f_e · p̄_e, scaled."""
+    E = cfg.moe_num_experts
+    return E * (f_e * p_e).sum() * cfg.moe_aux_loss_coef
+
+
 def route(p: Params, xt: torch.Tensor, cfg) -> Route:
     """Routes ``xt`` (T, d): softmax and top-k in f32."""
     T = xt.shape[0]
     E, K = cfg.moe_num_experts, cfg.moe_top_k
     C = capacity_for(T, cfg)
-    probs = torch.softmax(xt.float() @ p["router"], dim=-1)      # (T, E)
-    gate_w, sel = torch.topk(probs, K, dim=-1, sorted=True)      # (T, K)
-    gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
-
-    # load-balance aux loss (Switch): E · Σ_e f_e · p̄_e
+    probs, gate_w, sel = _choose(p, xt, cfg)
     f_e = F.one_hot(sel, E).sum(dim=1).float().mean(dim=0)
-    aux = E * (f_e * probs.mean(dim=0)).sum() * cfg.moe_aux_loss_coef
+    aux = _aux(f_e, probs.mean(dim=0), cfg)
 
     # (E, TK): the count runs along the inner axis, where a scan is one
     # pass; along the outer axis of (TK, E) it took half a 1x4096
@@ -130,15 +179,107 @@ def combine(out_buf: torch.Tensor, r: Route) -> torch.Tensor:
     return (gathered.view(T, K, -1) * gates[..., None]).sum(dim=1)
 
 
+def _expert_parallel(p: Params, x: torch.Tensor, cfg
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` of a DTensor ``x`` on local shards (see the module's
+    docstring)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    note_route("moe_ffn")
+    x = settle(x)
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E, K = cfg.moe_num_experts, cfg.moe_top_k
+    rep, part = Replicate(), Partial()
+    w_in = p["w_gate"].placements
+    expert = [q.is_shard(0) for q in w_in]
+    token = [not expert[i] and (q.is_shard(0) or q.is_shard(1))
+             for i, q in enumerate(x.placements)]
+    xg = redistributed(x, [q if token[i] else rep
+                           for i, q in enumerate(x.placements)])
+    w_pl = [Shard(0) if e else rep for e in expert]
+    note_computed_replicated("moe_ffn", mesh, [x.placements, w_in],
+                             [xg.placements, w_pl])
+
+    def local(t, placements, grad):
+        return contiguous_grad(redistributed(t, placements).to_local(
+            grad_placements=grad))
+    xl = local(xg, xg.placements, [q if token[i] else (
+        part if expert[i] else rep) for i, q in enumerate(xg.placements)])
+    ws = {k: local(p[k], w_pl, [part if token[i] else q
+                                for i, q in enumerate(w_pl)])
+          for k in ("w_gate", "w_up", "w_down")}
+    sums = [part if token[i] or expert[i] else rep
+            for i in range(mesh.ndim)]
+    router = local(p["router"], [rep] * mesh.ndim, sums)
+
+    b, s, _ = xl.shape
+    T = b * s
+    row, rows = shard_index(mesh, xg.placements, 0)
+    seq, seqs = shard_index(mesh, xg.placements, 1)
+    if B % rows or S % seqs:
+        raise ValueError(f"moe_ffn: ({B}, {S}) tokens do not split evenly "
+                         f"into {rows} x {seqs} shards")
+    shard, shards = shard_index(mesh, w_pl, 0)
+    El = ws["w_gate"].shape[0]
+    e0 = shard * El
+    C = capacity_for(B * S, cfg)
+    Cl = min(C, T)
+    xt = xl.reshape(T, d)
+    probs, gate_w, sel = _choose({"router": router}, xt, cfg)
+
+    # each assignment's 1-based position among its row's, in the order of
+    # route(): sequence, then descending gate
+    sk = sel.reshape(b, s * K)
+    onehot = F.one_hot(sk, E).transpose(1, 2).contiguous()     # (b, E, sK)
+    count = onehot.cumsum(dim=2)
+    in_row = (count * onehot).sum(dim=1)                       # (b, sK)
+    per_row = count[:, :, -1]                                   # (b, E)
+    # every rank's per-row counts, in the global order (row, sequence
+    # shard): the assignments before this block's rows, exclusive
+    every = DTensor.from_local(per_row[:, None], mesh, xg.placements,
+                               run_check=False).full_tensor()
+    every = every.reshape(B * seqs, E)
+    earlier = (every.cumsum(dim=0) - every).view(B, seqs, E)[
+        row * b:(row + 1) * b, seq]                             # (b, E)
+    keep = in_row + earlier.gather(1, sk) <= C
+    # the slot: the position among this block's assignments, which come
+    # in the global order, so it is below min(C, T)
+    in_block = in_row + (per_row.cumsum(dim=0) - per_row).gather(1, sk)
+    mine = (keep & (sk >= e0) & (sk < e0 + El)).reshape(T * K)
+    e_idx = torch.where(mine, sk.reshape(T * K) - e0, 0)
+    s_idx = torch.where(mine, in_block.reshape(T * K) - 1, Cl)
+
+    token_of = torch.arange(T * K, device=xt.device) // K
+    buf = xt.new_zeros((El, Cl + 1, d))
+    buf[e_idx, s_idx] = xt[token_of]
+    out = experts(ws, buf[:, :Cl], cfg.mlp_activation)
+    gathered = out[e_idx, s_idx.clamp(max=Cl - 1)]
+    gates = torch.where(mine.view(T, K), gate_w, 0.0).to(out.dtype)
+    y = (gathered.view(T, K, d) * gates[..., None]).sum(dim=1)
+    y = DTensor.from_local(y.view(b, s, d), mesh, [
+        part if expert[i] else q for i, q in enumerate(xg.placements)],
+        run_check=False)
+    y = redistributed(y, x.placements)
+
+    # the aux loss's sums over all tokens: each rank of the expert dims
+    # takes every shards-th token of the block, so they are partial there
+    share = slice(shard, None, shards)
+    f_p = torch.stack((F.one_hot(sel[share], E).sum(dim=(0, 1)).float(),
+                       probs[share].sum(dim=0)))
+    f_p = settle(DTensor.from_local(f_p, mesh, sums, run_check=False)) \
+        / (B * S)
+    aux = _aux(f_p[0], f_p[1], cfg)
+    if "shared" in p:
+        y = y + L.mlp(p["shared"], x, cfg.mlp_activation)
+    return y, aux
+
+
 def moe_ffn(p: Params, x: torch.Tensor, cfg
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) → (out in ``x.dtype``, f32 aux loss).  A DTensor runs
-    whole on every rank (``core.dtensor.replicated_call``) and the output
-    goes back to x's placements."""
+    """x: (B, S, d) → (out in ``x.dtype``, f32 aux loss).  A DTensor takes
+    the expert-parallel route on its local shards."""
     if is_dtensor(x):
-        y, aux = replicated_call(lambda p_, x_: moe_ffn(p_, x_, cfg), p, x,
-                                 what="moe_ffn")
-        return y.redistribute(placements=settle(x).placements), aux
+        return _expert_parallel(p, x, cfg)
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     r = route(p, xt, cfg)

@@ -11,8 +11,11 @@ the same seed and config (the failure is raised by the caller's
 ``step_context``).  The dry run runs a dense cell on a fake 2×4
 mesh: it exits 0, reports per-device argument bytes equal to the sum of
 the local shard shapes that the policy's specs give, nonzero FLOPs, and
-the embedding table as computed replicated; a MoE cell's record names its
-FFN as computed replicated; a cell that raises makes it exit 1.  The new modules import no JAX.
+nothing computed replicated (the vocab-sharded table takes the masked
+lookup); a MoE cell's record, under either policy, names nothing either
+(the expert-parallel FFN); deepseek-moe-16b's train cell at 16-way model
+parallelism (one head of 128 a shard), cut to 2 layers, takes its step;
+a cell that raises makes it exit 1.  The new modules import no JAX.
 """
 
 import json
@@ -148,20 +151,36 @@ def test_dryrun_dense_cell_on_a_fake_mesh(tmp_path):
     assert rec["flops_per_device"] > 0
     assert rec["collectives"]["total"] > 0
     assert rec["hbm_bytes_per_device"].startswith("unavailable: ")
-    # the vocab-sharded table is gathered before the lookup
-    assert rec["computed_replicated"] == ["embed"]
+    # the vocab-sharded table takes the masked lookup, gathered nowhere
+    assert rec["computed_replicated"] == []
 
 
-def test_dryrun_marks_the_moe_ffn_as_computed_replicated(tmp_path):
-    """Every rank runs the whole MoE FFN on DTensors: the record says so,
-    beside its FLOPs, which are then not those of an expert-sharded
-    layout."""
+@pytest.mark.parametrize("policy", ["fused_seq", "layerwise_tp"])
+def test_dryrun_marks_the_moe_ffn_as_computed_replicated(tmp_path, policy):
+    """The MoE FFN runs expert-parallel on the local shards under both
+    policies, so the record marks nothing as computed replicated."""
     out_json = tmp_path / "dry.json"
     _run(DRYRUN, "--mesh", "2x4", "--cells", "deepseek-moe-16b@prefill_32k",
-         "--policy", "fused_seq", "--smoke", "--out", str(out_json))
+         "--policy", policy, "--smoke", "--out", str(out_json))
     (rec,) = json.loads(out_json.read_text())
     assert rec["status"] == "ok"
-    assert "moe_ffn" in rec["computed_replicated"]
+    assert rec["computed_replicated"] == []
+
+
+def test_dryrun_trains_deepseek_at_16_way_model_parallelism(tmp_path):
+    """deepseek-moe-16b's train cell under ``layerwise_tp`` on a fake 1×16
+    mesh, cut to its dense layer and one MoE layer: each shard holds one
+    K head of 128, whose gradient leaves the attention backward
+    transposed; the step must take its backward through the head reshape
+    and the projection (it raised in ``aten.view``)."""
+    out_json = tmp_path / "dry.json"
+    _run(DRYRUN, "--mesh", "1x16", "--cells", "deepseek-moe-16b@train_4k",
+         "--policy", "layerwise_tp", "--layers", "2", "--out",
+         str(out_json))
+    (rec,) = json.loads(out_json.read_text())
+    assert rec["status"] == "ok", rec
+    assert rec["flops_per_device"] > 0
+    assert rec["computed_replicated"] == []
 
 
 STUBBED = """

@@ -5,19 +5,26 @@ Four ranks on a 2×2 ``data``×``model`` mesh (``tests/gloo_ranks.py``, one
 intra-op thread a rank) take one float32 train step from the seed-0 state
 of qwen3-32b-smoke under each of the three policies with the policy's
 sharding hints on, and of zamba2-2.7b-smoke and xlstm-1.3b-smoke (the
-scans' DTensor route) and deepseek-moe-16b-smoke (the MoE FFN, run whole
-on every rank) under ``fused_seq``; each must match the unsharded
-step, with the f32 twins' bounds: the loss within 1e-5 relative, each
-gradient leaf within 1e-4·max|g|, each AdamW moment leaf (m and v, which
-are linear in g and g²) within 1e-4 of its max, each updated parameter
-within 2·lr + 1e-6.  A microbatched ``fused_seq`` step (a microbatch of
-2 rows, a multiple of the data size, split shard by shard) must match the
-unsharded microbatched step; a microbatch that does not split every
-rank's rows raises, as does one that does not split the batch.  The same
-ranks count the collectives of the qwen3 step under ``layerwise_tp`` and
-``fused_seq`` (``launch/comm.py``), held as JAX's
-``test_policies_lower_both_meshes`` holds its HLO counts, and printed
-beside JAX's (a subprocess with 4 host devices).
+scans' DTensor route), deepseek-moe-16b-smoke under ``fused_seq`` and
+``layerwise_tp`` and granite-moe-1b-a400m-smoke under ``fused_seq`` (the
+expert-parallel MoE FFN, and under ``layerwise_tp`` the masked lookup in
+the vocab-sharded table); each must match the unsharded step, with the f32
+twins' bounds: the loss within 1e-5 relative, each gradient leaf within
+1e-4·max|g|, each AdamW moment leaf (m and v, which are linear in g and
+g²) within 1e-4 of its max, each updated parameter within 2·lr + 1e-6.
+The MoE cases hold the global slot positions only where the unsharded
+step drops assignments, so that step must drop some; each rank must have
+taken the expert-parallel route once per MoE layer and the masked lookup
+once per step where the table is vocab-sharded.  The masked lookup alone,
+on a 1×4 mesh (the table in 4 vocab shards), must give the unsharded
+``F.embedding``'s values and table gradient bit for bit.  A microbatched
+``fused_seq`` step (a microbatch of 2 rows, a multiple of the data size,
+split shard by shard) must match the unsharded microbatched step; a
+microbatch that does not split every rank's rows raises, as does one that
+does not split the batch.  The same ranks count the collectives of the
+qwen3 step under ``layerwise_tp`` and ``fused_seq`` (``launch/comm.py``),
+held as JAX's ``test_policies_lower_both_meshes`` holds its HLO counts,
+and printed beside JAX's (a subprocess with 4 host devices).
 
 Elastic re-meshing, as ``tests/test_elastic.py`` but against unsharded
 results (that JAX test fails on the reference): the 2×2 ``layerwise_tp``
@@ -51,7 +58,9 @@ LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 UPDATE_ATOL = 2 * LR + 1e-6
 CASES = [("qwen3-32b", "layerwise_tp"), ("qwen3-32b", "fused_seq"),
          ("qwen3-32b", "fused_seq_zero3"), ("zamba2-2.7b", "fused_seq"),
-         ("xlstm-1.3b", "fused_seq"), ("deepseek-moe-16b", "fused_seq")]
+         ("xlstm-1.3b", "fused_seq"), ("deepseek-moe-16b", "fused_seq"),
+         ("deepseek-moe-16b", "layerwise_tp"),
+         ("granite-moe-1b-a400m", "fused_seq")]
 COUNTED = ("layerwise_tp", "fused_seq")
 # a microbatched step: 2 rows a microbatch, one from each data shard
 MICRO_CASE, MICRO = ("qwen3-32b", "fused_seq"), 2
@@ -110,6 +119,7 @@ def _sharded_ranks(group, tmp: str) -> dict:
     """Rank body: every case on the 2×2 mesh; the elastic save."""
     from repro_torch.checkpoint.ckpt import save_checkpoint
     from repro_torch.core import hints as H
+    from repro_torch.core.dtensor import route_counts
     from repro_torch.core.policies import get_policy
     from repro_torch.data.pipeline import batch_for_step
     from repro_torch.launch.comm import CommCounter
@@ -129,8 +139,10 @@ def _sharded_ranks(group, tmp: str) -> dict:
         counted = arch == "qwen3-32b" and pol in COUNTED and not micro
         counter = CommCounter() if counted else None
         key = f"{arch}/{pol}" + (f"/micro{micro}" if micro else "")
+        route_counts.update(dict.fromkeys(route_counts, 0))
         with H.sharding_hints(H.hints_for(policy)):
             out["cases"][key] = _step(model, ts, state, batch, counter)
+        out["cases"][key]["routes"] = dict(route_counts)
         if counter is not None:
             c = counter.costs()
             out["bytes"][pol] = {"all-gather": c.collective_bytes[
@@ -141,12 +153,49 @@ def _sharded_ranks(group, tmp: str) -> dict:
             save_checkpoint(f"{tmp}/elastic_plain", 1,
                             tree.map(_full, state))
     out["micro_refused"] = _refused_microbatch(mesh)
+    out["lookup"] = _lookup(make_mesh((1, 4), ("data", "model"),
+                                      device_type="cpu"))
     from repro_torch.launch import train as LT
     run = LT.run(LT.parser().parse_args(LAUNCH_ARGS + [
         "--ckpt-dir", f"{tmp}/launch"]), step_context=_fail_once())
     out["launch"] = {"history": run["history"],
                      "restarts": run["report"].restarts}
     return out
+
+
+LOOKUP_VOCAB, LOOKUP_DIM = 64, 8
+
+
+def _lookup_inputs():
+    """A table, ids (with repeats, in every vocab shard) and the weights
+    of the loss (out · w).sum(), from one seed."""
+    g = torch.Generator().manual_seed(7)
+    table = torch.randn(LOOKUP_VOCAB, LOOKUP_DIM, generator=g)
+    ids = torch.randint(0, LOOKUP_VOCAB, (BATCH, SEQ), generator=g)
+    w = torch.randn(BATCH, SEQ, LOOKUP_DIM, generator=g)
+    return table, ids, w
+
+
+def _lookup(mesh) -> dict:
+    """The masked lookup on ``mesh``: the table in vocab shards over
+    ``model``, the ids batch-sharded as ``layerwise_tp`` places tokens;
+    the output and the table's gradient, gathered whole."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.core.dtensor import embedding, route_counts
+    table, ids, w = _lookup_inputs()
+    table = distribute_tensor(table, mesh, [Replicate(), Shard(0)])
+    table.requires_grad_(True)
+    ids = distribute_tensor(ids, mesh, [Shard(0), Replicate()])
+    before = route_counts["embed"]
+    out = embedding(ids, table)
+    routes = route_counts["embed"] - before
+    placements = [p.is_shard(0) for p in out.placements], \
+        [p.is_replicate() for p in out.placements]
+    whole = out.full_tensor()
+    (whole * w).sum().backward()
+    return {"out": whole.detach(), "grad": table.grad.full_tensor(),
+            "placements": placements, "routes": routes}
 
 
 def _fail_once():
@@ -251,11 +300,47 @@ def _hold(got: dict, want: dict) -> None:
 
 
 @pytest.mark.parametrize("arch,policy", CASES)
-def test_sharded_step_matches_one_process(runs, arch, policy):
+def test_sharded_step_matches_one_process(runs, arch, policy, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.api import dense_layers
     torch.set_num_threads(1)
     ranks = [r["cases"][f"{arch}/{policy}"] for r in runs["four"]]
     assert len({r["loss"] for r in ranks}) == 1      # every rank agrees
+    dropped, route = [], MOE.route
+
+    def counted(p, xt, cfg):
+        r = route(p, xt, cfg)
+        dropped.append(int((~r.keep).sum()))
+        return r
+    monkeypatch.setattr(MOE, "route", counted)
     _hold(ranks[0], _unsharded(arch))
+    cfg = get_config(arch, smoke=True)
+    moe_layers = cfg.num_layers - dense_layers(cfg) if cfg.moe_num_experts \
+        else 0
+    # the global slot positions decide something only where one process
+    # drops assignments
+    assert len(dropped) == moe_layers and (not moe_layers or any(dropped))
+    vocab_sharded = policy == "layerwise_tp" and cfg.vocab_size % 2 == 0
+    for r in ranks:
+        assert r["routes"] == {"moe_ffn": moe_layers,
+                               "embed": int(vocab_sharded)}
+
+
+def test_masked_lookup_matches_unsharded_embedding(runs):
+    """The vocab-sharded lookup on 4 ranks: values and the table's gradient
+    bit-equal to the unsharded ``F.embedding``'s, the output replicated
+    over ``model`` (settled at once), one masked lookup a rank."""
+    import torch.nn.functional as F
+    table, ids, w = _lookup_inputs()
+    table.requires_grad_(True)
+    want = F.embedding(ids, table)
+    (want * w).sum().backward()
+    for r in (r["lookup"] for r in runs["four"]):
+        assert r["routes"] == 1
+        assert r["placements"] == ([True, False], [False, True])
+        assert torch.equal(r["out"], want.detach())
+        assert torch.equal(r["grad"], table.grad)
 
 
 def test_sharded_microbatched_step_matches_one_process(runs):
