@@ -9,8 +9,9 @@ Phases, each of which raises (exit code 1) on failure:
    time and ptxas's report, per head dim the bf16 flash kernel's registers,
    spills and dynamic shared memory, the same per tile width (64, 128)
    for the fused-conv kernel, per chunk (64, 128) for the SSD scan's
-   three kernels, the mLSTM scan's four and each backward kernel's four,
-   none of which may spill.
+   three kernels, the mLSTM scan's four and each scan backward kernel's
+   four, and per head dim the flash backward's three on each route (D_i,
+   dK and dV, dQ), none of which may spill.
 3. kernel check: the fused-conv kernel (the tensor-core kernel of
    ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
    split K over a cluster) against its plain PyTorch version on the card,
@@ -134,8 +135,9 @@ Phases, each of which raises (exit code 1) on failure:
     ``ops.plain()`` is printed, not held (see the note under MLSTM_ATOL).
 19. xLSTM serve: ``run_lockstep`` decodes 32 tokens for 4 prompts of 64;
     the first tokens against the forward's argmax are printed.
-20. f32: the prefill of phase 18 again in f32 at full width and depth,
-    held to TWIN_ATOL at every position; then the f32 twin: phases 18 and
+20. f32: the prefill of phase 18 again in f32 at full width cut to 24
+    layers (18 mlstm_scan launches; XLSTM_F32_LAYERS), held to TWIN_ATOL
+    at every position; then the f32 twin: phases 18 and
     19 for xlstm-1.3b at full width cut to one unit (4 layers: 3
     mlstm_scan launches), held to TWIN_ATOL at every position and in the
     engine.  These carry xLSTM's correctness.
@@ -222,18 +224,25 @@ Phases, each of which raises (exit code 1) on failure:
     as the shape's, which computes the same function (no softcap).
 34. flash gradient: dq, dk and dv through ``ops.flash_attention`` on a
     tensor that needs a gradient (the kernel inside the ``FlashAttention``
-    autograd function, whose backward is the plain f32 gradient) against
-    autograd of the plain attention in f32 on the same values, at
-    minicpm-2b's 4x1024 with 36 heads of 64 (bf16 and f32), qwen3's GQA
-    64/8 at D=128 and gemma2's D=256 with window and softcap 50; each
+    autograd function, whose backward launches the backward kernels:
+    ``csrc/flash_attention_bwd_sm90.cu`` for bf16, ``csrc/
+    flash_attention_bwd.cu`` for f32) against autograd of the plain
+    attention in f32 on the same values, in bf16 and in f32, at
+    minicpm-2b's 4x1024 with 36 heads of 64, qwen3's GQA 64/8 at D=128,
+    gemma2's D=256 with window and softcap 50, zamba2's D=80 at 4x1024
+    and a whisper-like non-causal cross shape (S=448, T=1500, D=64); each
     element within 1e-5·max|ref| (f32) or half a bf16 ulp + 2e-5 (bf16);
-    the forward moves only its dtype's route, the backward launches none.
+    each shape twice, the two gradients bit-equal, two forward and two
+    backward launches, each on its dtype's route.  From here on every
+    check of a path's launches also holds the calls of the plain flash
+    gradient (``ref.attention_ref_grad``, counted as
+    ``plain_flash_backward``) at 0: no train step on the card reaches it.
 35. training: minicpm-2b at full width and depth (40 layers, d 2304, 36
     heads of 64, d_ff 5760, vocab 122753, tied embeddings, bf16, random
     weights from a seed) takes 3 steps of ``make_train_step`` at 4x1024
     (``batch_for_step``), AdamW lr 3e-4 under WSD, and one with remat:
-    exactly 40 flash launches a step on the tensor-core route (80 with
-    remat), finite loss and grad_norm, every leaf changed or its last
+    exactly 40 flash and 40 flash backward launches a step on the
+    tensor-core routes (80 forward with remat), finite loss and grad_norm, every leaf changed or its last
     update under half a bf16 ulp of every weight (the norms' 1.0 weights
     keep their bits at lr 3e-4), every leaf's gradient nonzero and finite;
     the peak device memory is printed.
@@ -241,17 +250,21 @@ Phases, each of which raises (exit code 1) on failure:
     gradient and one step through the kernel path and under
     ``ops.plain()`` from the same state: loss within 1e-5 relative, every
     gradient leaf within 1e-4·max|g_plain|, the new parameters within 2·lr
-    + 1e-6, every leaf changed.  This carries the training path's
-    correctness.
+    + 1e-6, every leaf changed; 2 flash and 2 flash backward launches on
+    the CUDA-core routes.  This carries the training path's correctness.
 37. restart: ``examples/train_lm_torch.py``'s default run (30 steps, a
     checkpoint every 10) uninterrupted and with a ``TransientError`` at
     step 12: per-step losses (the replayed step too) and the final state
-    bit-equal, the loss falls.
+    bit-equal, the loss falls; a flash and a flash backward launch a layer
+    a step (f32).
 38. timings (printed, not held): the step, tokens/s, the share of 6·N·
     tokens at 989 TFLOP/s, forward, backward and optimizer apart; a
-    profiled step (flash's share, the attention backward's device time,
-    the idle share); the attention at one layer's shape against
-    ``scaled_dot_product_attention`` forward + backward with ``is_causal``.
+    profiled step (flash's forward and backward kernels' shares of device
+    time, the idle share); the attention at
+    one layer's shape: the backward kernels alone against their bound and
+    the plain f32 backward they replaced, and forward + backward against
+    ``scaled_dot_product_attention``'s with ``is_causal`` (and its backward
+    alone); the f32 backward kernels at the f32 twin's layer shape.
 39. the SSD scan's backward kernel (``csrc/mamba_scan_bwd_sm90.cu``, under
     the ``MambaScan`` autograd function of ``ops.mamba_scan``) against
     autograd of the plain recurrence in f32 on the card, at zamba2's 4x1024
@@ -269,19 +282,21 @@ Phases, each of which raises (exit code 1) on failure:
     training shape; no PyTorch call computes either gradient.
 41. training: zamba2-2.7b at full width and depth (54 layers, bf16) takes 3
     steps at 4x1024 and one more, every one with remat (the plain step
-    runs out of the card's 80 GB): exactly 90 mamba_scan, 45 backward and
-    18 flash launches a step; loss, gradients and updates as phase 35.
+    runs out of the card's 80 GB): exactly 90 mamba_scan, 45 backward, 18
+    flash and 9 flash backward launches a step; loss, gradients and
+    updates as phase 35.
 42. f32 twin: zamba2-2.7b at full width cut to one unit (6 layers) at
     2x1024 against ``ops.plain()``, as phase 36.
 43. timings of phase 41's step as in phase 38 (every part with remat),
-    the profiled step's shares of the scan's forward and backward
-    kernels, flash and the plain attention backward.
-44. training: xlstm-1.3b at full width and depth (48 layers, bf16) takes 3
-    steps at 4x512 and one with remat: exactly 36 mlstm_scan and 36
+    the profiled step's shares of the scan's and flash's forward and
+    backward kernels.
+44. training: xlstm-1.3b at full width and depth (48 layers, bf16) takes
+    one step at 4x512 and one with remat (XLSTM_TRAIN_STEPS; each ~10 s of
+    the sLSTM's host loop): exactly 36 mlstm_scan and 36
     backward launches a step (72 forward with remat); then the f32 twin of
     one unit (4 layers) at 1x512 against ``ops.plain()``, as phase 36.
-45. timings of phase 44's step as in phase 43; the profiled step is one
-    unit's at full width (a step of all 48 layers records ~10^6 profiler
+45. timings of phase 44's step as in phase 43, one repeat of each; the
+    profiled step is one unit's at full width (a step of all 48 layers records ~10^6 profiler
     events).
 46. the launcher: ``python -m repro_torch.launch.train --arch minicpm-2b
     --mesh 1x1 --policy fused_seq`` (``launch.train.run`` in this process,
@@ -290,13 +305,14 @@ Phases, each of which raises (exit code 1) on failure:
     (the machine's disk takes no two 27 GB states: LAUNCH_CUT_LAYERS), then
     at full width cut to 4 layers with a checkpoint every 2 and a
     ``TransientError`` at step 3, restored from step 2's checkpoint; each
-    step exactly one flash launch a layer through the kernels' DTensor
-    route, zero collective bytes (``launch/comm.py``), and each step's loss
+    step exactly one flash and one flash backward launch a layer through
+    the kernels' DTensor route, zero collective bytes (``launch/comm.py``), and each step's loss
     and the final parameters bit-equal to the plain-tensor trainer's from
     the same seed on the same batches.
 47. ``layerwise_tp`` on the same state and batch: the loss bit-equal to
-    ``fused_seq``'s, zero collective bytes, 40 launches (80 in a step with
-    remat), none in a forward under ``ops.plain()``; then one step split
+    ``fused_seq``'s, zero collective bytes, 40 flash and 40 backward
+    launches (80 forward in a step with remat), none in a forward under
+    ``ops.plain()``; then one step split
     into its gradient and AdamW (phase 49).
     Its table stays ``Shard(0)`` on the size-1 ``model`` dim and takes
     the masked lookup once a step (``core.dtensor.route_counts``).
@@ -316,14 +332,15 @@ Phases, each of which raises (exit code 1) on failure:
     MoE layers, 32 experts, top-8, bf16), 4x1024, 4 steps, ``--ckpt-every
     0``, under ``fused_seq`` and then ``layerwise_tp``: every state leaf a
     DTensor, each step the expert-parallel MoE FFN once a layer and (under
-    ``layerwise_tp``) the masked lookup once, 24 flash launches on the
-    tensor-core route, zero collective bytes in step 0; a forward of the
+    ``layerwise_tp``) the masked lookup once, 24 flash and 24 flash
+    backward launches on the tensor-core routes, zero collective bytes in
+    step 0; a forward of the
     final state under ``ops.plain()`` takes the same routes and launches
     nothing; each step's loss and the final parameters against the plain
     trainer from the same seed (bit-equal, or the loss within
     LAUNCH_LOSS_RTOL, and the run prints the first step that differs).
-51. prints the ``kernels`` JSON line (the four kernels and the two
-    backward kernels), 52. the final ``{"ok": true, ...}`` line.  The full
+51. prints the ``kernels`` JSON line (the four kernels, the flash
+    backward on each route and the scans' two backward kernels), 52. the final ``{"ok": true, ...}`` line.  The full
     record goes to ``build/chip_smoke.json``, and the summary line ends
     with the script's total time.
 
@@ -522,6 +539,10 @@ XLSTM_CONFIG = "xlstm-1.3b"
 # 2048 is the context length at which the xLSTM paper trained its 1.3B
 # models (arXiv:2405.04517, section 4.3).
 XLSTM_PREFILL_S = 2048
+# Phase 20's f32 prefill: full width, half the depth (6 of 12 units).  Its
+# plain forward, the sLSTM's host loop over 2048 steps a layer, took 40 s at
+# full depth on a slower host; the one-unit twin holds the same path too.
+XLSTM_F32_LAYERS = 24
 # The mLSTM kernel vs its plain version, both f32 on the card, element by
 # element: |kernel − plain| ≤ MLSTM_ATOL, the 1e-4 of tests/test_kernels.py.
 # Inputs are drawn as that file draws them (q, k, v ·0.4, i_pre N(0, 1),
@@ -685,6 +706,7 @@ def kernel_modules() -> dict:
 def zero_launches() -> None:
     from repro_torch.core.dtensor import route_counts
     route_counts.update(dict.fromkeys(route_counts, 0))
+    PLAIN_FLASH_GRAD_CALLS[0] = 0
     for mod in kernel_modules().values():
         mod.launches = 0
         if hasattr(mod, "backward_launches"):
@@ -701,14 +723,47 @@ def flash_route(cfg) -> str:
 
 
 def launch_counts() -> dict[str, int]:
-    """Each kernel's launches, the scans' backward kernels as
-    ``<scan>_bwd``."""
+    """Each kernel's launches, the backward kernels as ``<op>_bwd``, and
+    the calls of the plain flash gradient as ``plain_flash_backward``
+    (``count_plain_flash_backward``)."""
     counts = {}
     for name, mod in kernel_modules().items():
         counts[name] = mod.launches
         if hasattr(mod, "backward_launches"):
             counts[f"{name}_bwd"] = mod.backward_launches
+    counts["plain_flash_backward"] = PLAIN_FLASH_GRAD_CALLS[0]
     return counts
+
+
+# Calls of ref.attention_ref_grad since zero_launches, once
+# count_plain_flash_backward has wrapped it.
+PLAIN_FLASH_GRAD_CALLS = [0]
+
+
+def count_plain_flash_backward() -> None:
+    """Wraps ``ref.attention_ref_grad``, the plain gradient that
+    ``FlashAttention``'s backward takes for CPU tensors, in a counter that
+    ``launch_counts`` reports as ``plain_flash_backward``; every
+    ``check_launches`` holds it at 0 unless told otherwise, so each train
+    step, gradient and launcher step checked shows that no step on the card
+    reached the plain gradient.  The unwrapped function stays reachable as
+    ``.plain`` (phase 38's yardstick)."""
+    from repro_torch.kernels import ref
+    grad = ref.attention_ref_grad
+    if hasattr(grad, "plain"):
+        return
+
+    def counted(*args, **kw):
+        PLAIN_FLASH_GRAD_CALLS[0] += 1
+        return grad(*args, **kw)
+    counted.plain = grad
+    ref.attention_ref_grad = counted
+
+
+def train_expect(flash: int, **others: int) -> dict[str, int]:
+    """A train step's (or gradient's) launches: ``flash`` flash forwards
+    and as many backward launches, and ``others``."""
+    return {"flash_attention": flash, "flash_attention_bwd": flash, **others}
 
 
 def check_routes(expect: dict[str, int], what: str) -> dict[str, int]:
@@ -835,6 +890,25 @@ def build() -> tuple[float, dict]:
               and all(row.get("spill_bytes") == 0 for row in report.values()),
               f"{lib_name} ptxas report: {report}")
         backward[lib_name] = report
+    # The flash backward's kernels: D_i, dK and dV, dQ, per head dim on
+    # each route (f32 in flash_attention_bwd.cu): registers, spills (none
+    # allowed) and, for the tensor-core route, dynamic shared memory.
+    flash_bwd = ptxas_report(log, r"(flash_bwd_(?:f32_)?(?:dkdv|dq|dot_do_o)"
+                                  r"_kernel)(?:ILi(\d+)E)?",
+                             lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""))
+    for key, row in sorted(flash_bwd.items()):
+        which = 2 if "dkdv" in key else 3 if "_dq_" in key else 0
+        if which and "_f32_" not in key:
+            row["dynamic_smem_bytes"] = lib.flash_attention_bwd_sm90_smem_bytes(
+                which, int(key[key.index("<") + 1:-1]))
+        print(f"[build] {key}: {row.get('registers')} registers, "
+              f"{row.get('spill_bytes')} B spilled"
+              + (f", {row['dynamic_smem_bytes']:,} B dynamic shared memory"
+                 if "dynamic_smem_bytes" in row else ""))
+    check(len(flash_bwd) == 2 + 2 * 2 * 7
+          and all(row.get("spill_bytes") == 0 for row in flash_bwd.values()),
+          f"flash backward ptxas report: {flash_bwd}")
+    backward["flash_attention_bwd"] = flash_bwd
     return secs, {"flash_attention_sm90": sm90, "flash_attention_f32": f32,
                   "fused_conv_sm90": conv,
                   "mamba_scan_sm90": scan, "mlstm_scan_sm90": mlstm,
@@ -1407,13 +1481,17 @@ def margin_agree(top: torch.Tensor, ref_top: torch.Tensor,
 def check_launches(expect: dict[str, int], what: str,
                    route: str | None = None) -> dict[str, int]:
     """The counts since ``zero_launches``: exactly ``expect`` of each kernel
-    it names, none of the others, and every flash launch on ``route``."""
+    it names, none of the others, every flash launch on ``route`` and every
+    flash backward launch on that route's backward."""
     got = launch_counts()
     want = {name: expect.get(name, 0) for name in got}
     check(got == want, f"{what}: kernel launches {got}, want {want}")
-    routes = dict(kernel_modules()["flash_attention"].launches_by_kernel)
-    want_routes = {r: want["flash_attention"] if r == route else 0
-                   for r in routes}
+    FA = kernel_modules()["flash_attention"]
+    routes = dict(FA.launches_by_kernel)
+    want_routes = dict.fromkeys(routes, 0)
+    if route is not None:
+        want_routes[route] = want["flash_attention"]
+        want_routes[FA.BACKWARD_ROUTE[route]] = want["flash_attention_bwd"]
     check(routes == want_routes, f"{what}: flash launches by route {routes}, "
           f"want {want_routes}")
     return got
@@ -1828,13 +1906,11 @@ def lm_timings(cfg, lm: dict, seq: int, profile_lm: dict | None = None
     return out
 
 
-# The profiler ranges annotated_moe puts around the MoE's four steps.
+# The profiler ranges annotated_moe puts around the MoE's four steps;
+# their device-side copies are not kernels.
 MOE_RANGES = {"route": "moe_route", "dispatch": "moe_dispatch",
               "experts": "moe_experts", "combine": "moe_combine"}
-# ... and annotated_attention_backward around the flash gradient; their
-# device-side copies are not kernels.
-FLASH_BACKWARD_RANGE = "flash_attention_backward"
-ANNOTATIONS = {*MOE_RANGES.values(), FLASH_BACKWARD_RANGE}
+ANNOTATIONS = set(MOE_RANGES.values())
 
 
 @contextlib.contextmanager
@@ -2436,6 +2512,11 @@ def whisper_paths(smi: str) -> dict:
 # --- minicpm-2b training (phases 34-38) --------------------------------------
 
 TRAIN_CONFIG = "minicpm-2b"
+# What the names of flash's device kernels contain: the forward's
+# (flash_attention_sm90_kernel, flash_attention_fwd_kernel) and the
+# backward's three (flash_bwd_*, both routes).
+FLASH_MARKS = {"flash forward": ("flash_attention",),
+               "flash backward": ("flash_bwd_",)}
 TRAIN_ROWS, TRAIN_SEQ = 4, 1024
 TRAIN_STEPS = 3           # through make_train_step; then one more with remat
 TRAIN_LR = 3e-4
@@ -2449,17 +2530,15 @@ GRAD_F32_RTOL = 1e-5      # flash gradient, f32: of max|ref|
 # A bf16 weight keeps its bits when its update is under half an ulp below
 # it: 2^-9 of |p| (the spacing below a power of two is 2^-8 of it).
 BF16_HALF_ULP = 2.0**-9
-# The flash gradient against autograd of the plain attention in f32:
-# name, B, H, KV, S, T, D, causal, window, softcap, dtype.
+# The flash gradient against autograd of the plain attention in f32, each
+# shape in bf16 (the tensor-core backward) and in f32 (the CUDA-core one):
+# name, B, H, KV, S, T, D, causal, window, softcap.
 GRAD_SHAPES = [
-    ("minicpm_4x1024_bf16", 4, 36, 36, 1024, 1024, 64, True, 0, 0.0,
-     torch.bfloat16),
-    ("minicpm_4x1024_f32", 4, 36, 36, 1024, 1024, 64, True, 0, 0.0,
-     torch.float32),
-    ("qwen3_gqa64to8_S512_bf16", 1, 64, 8, 512, 512, 128, True, 0, 0.0,
-     torch.bfloat16),
-    ("gemma2_D256_win128_cap50_bf16", 1, 8, 4, 512, 512, 256, True, 128,
-     50.0, torch.bfloat16),
+    ("minicpm_4x1024", 4, 36, 36, 1024, 1024, 64, True, 0, 0.0),
+    ("qwen3_gqa64to8_S512", 1, 64, 8, 512, 512, 128, True, 0, 0.0),
+    ("gemma2_D256_win128_cap50", 1, 8, 4, 512, 512, 256, True, 128, 50.0),
+    ("zamba2_D80_4x1024", 4, 32, 32, 1024, 1024, 80, True, 0, 0.0),
+    ("whisper_cross_S448_T1500", 4, 20, 20, 448, 1500, 64, False, 0, 0.0),
 ]
 # examples/train_lm_torch.py's default run, and where the failure goes.
 RESTART_STEPS, RESTART_FAIL_AT = 30, 12
@@ -2467,56 +2546,69 @@ RESTART_STEPS, RESTART_FAIL_AT = 30, 12
 
 def flash_grad_check(seed: int) -> list[dict]:
     """Phase 34: dq, dk and dv through ``ops.flash_attention`` (the kernel
-    inside the ``FlashAttention`` autograd function) against autograd of the
-    plain attention in f32 on the same values; the forward moves only its
-    dtype's route and the backward launches nothing."""
-    from repro_torch.kernels import flash_attention as FA
+    inside the ``FlashAttention`` autograd function, whose backward launches
+    the backward kernel of the dtype's route) against autograd of the plain
+    attention in f32 on the same values, at every shape of GRAD_SHAPES in
+    bf16 and in f32.  Each shape runs twice: the two gradients bit-equal,
+    two forward and two backward launches, each on its dtype's route, and
+    no call of the plain gradient."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import BACKWARD_ROUTE
     print(f"[grad] limits, per element against autograd of the plain "
           f"attention in f32 on the same values: f32 |got - ref| <= "
           f"{GRAD_F32_RTOL}*max|ref|; bf16 |got - ref| <= "
           f"{FLASH_RTOL[torch.bfloat16]}*|ref| + {FLASH_ATOL} (half a bf16 "
           f"ulp)")
     rows = []
-    for i, (name, B, H, KV, S, T, D, causal, window, softcap,
-            dtype) in enumerate(GRAD_SHAPES):
-        g = torch.Generator(device="cuda").manual_seed(seed + i)
-        q, k, v = (torch.randn(B, n, heads, D, generator=g, device="cuda")
-                   .to(dtype) for n, heads in ((S, H), (T, KV), (T, KV)))
-        do = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
-        kw = dict(causal=causal, window=window, softcap=softcap)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        route = "wgmma_bf16" if dtype == torch.bfloat16 else "simt_f32"
-        before = dict(FA.launches_by_kernel)
-        out = ops.flash_attention(*leaves, **kw)
-        out.backward(do)
-        torch.cuda.synchronize()
-        moved = {r: n - before[r] for r, n in FA.launches_by_kernel.items()}
-        check(moved == {r: int(r == route) for r in moved},
-              f"{name}: flash launches by route moved {moved}, want one "
-              f"{route} (forward) and none in the backward")
-        refs = [t.float().requires_grad_() for t in (q, k, v)]
-        with ops.plain():
-            ops.flash_attention(*refs, **kw).backward(do.float())
-        errs, used = [], 0.0
-        for t, r in zip(leaves, refs):
-            check(t.grad.dtype == dtype and t.grad.shape == r.grad.shape,
-                  f"{name}: gradient {t.grad.dtype} {tuple(t.grad.shape)}")
-            err = (t.grad.float() - r.grad).abs()
-            errs.append(err.max().item())
-            lim = (GRAD_F32_RTOL * r.grad.abs().max() if dtype ==
-                   torch.float32 else FLASH_RTOL[dtype] * r.grad.abs()
-                   + FLASH_ATOL)
-            used = max(used, (err / lim).max().item())
-        print(f"[grad] {name:30s} {route}: max_abs_err dq {errs[0]:.3e} dk "
-              f"{errs[1]:.3e} dv {errs[2]:.3e}; limit used {used:.3f}")
-        check(used <= 1.0, f"{name}: flash gradient vs plain exceeds its "
-              f"limit {used:.3f}-fold")
-        rows.append({"name": name, "route": route, "B": B, "H": H, "KV": KV,
-                     "S": S, "T": T, "D": D, "causal": causal,
-                     "window": window, "softcap": softcap,
-                     "max_abs_err": max(errs), "limit_used": used})
-        del q, k, v, do, leaves, refs, out
+    for i, (name, B, H, KV, S, T, D, causal, window,
+            softcap) in enumerate(GRAD_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            g = torch.Generator(device="cuda").manual_seed(seed + i)
+            q, k, v = (torch.randn(B, n, heads, D, generator=g,
+                                   device="cuda").to(dtype)
+                       for n, heads in ((S, H), (T, KV), (T, KV)))
+            do = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            route = "wgmma_bf16" if dtype == torch.bfloat16 else "simt_f32"
+            zero_launches()
+            runs = []
+            for _ in range(2):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                ops.flash_attention(*leaves, **kw).backward(do)
+                runs.append([t.grad for t in leaves])
+            torch.cuda.synchronize()
+            check_launches(train_expect(2), f"{tag}: two forwards and "
+                           f"backwards", route)
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            check(same, f"{tag}: two backward launches differ")
+            refs = [t.float().requires_grad_() for t in (q, k, v)]
+            with ops.plain():
+                ops.flash_attention(*refs, **kw).backward(do.float())
+            errs, used = [], 0.0
+            for t, r in zip(runs[0], refs):
+                check(t.dtype == dtype and t.shape == r.grad.shape
+                      and t.is_contiguous(),
+                      f"{tag}: gradient {t.dtype} {tuple(t.shape)}")
+                err = (t.float() - r.grad).abs()
+                errs.append(err.max().item())
+                lim = (GRAD_F32_RTOL * r.grad.abs().max() if dtype ==
+                       torch.float32 else FLASH_RTOL[dtype] * r.grad.abs()
+                       + FLASH_ATOL)
+                used = max(used, (err / lim).max().item())
+            print(f"[grad] {tag:33s} {route} + {BACKWARD_ROUTE[route]}: "
+                  f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+                  f"{errs[2]:.3e}; limit used {used:.3f}; two backward "
+                  f"launches bit-equal {same}")
+            check(used <= 1.0, f"{tag}: flash gradient vs plain exceeds its "
+                  f"limit {used:.3f}-fold")
+            rows.append({"name": tag, "route": route,
+                         "backward_route": BACKWARD_ROUTE[route], "B": B,
+                         "H": H, "KV": KV, "S": S, "T": T, "D": D,
+                         "causal": causal, "window": window,
+                         "softcap": softcap, "max_abs_err": max(errs),
+                         "limit_used": used, "bit_equal": same})
+            del q, k, v, do, leaves, refs, runs
     torch.cuda.empty_cache()
     return rows
 
@@ -2556,9 +2648,9 @@ def step_launches(expect: dict[str, int], remat: bool) -> dict[str, int]:
 
 
 def train_path(smi: str, cfg, rows: int, seq: int, expect: dict[str, int],
-               remat: bool = False) -> dict:
+               remat: bool = False, n_steps: int = TRAIN_STEPS) -> dict:
     """Phases 35, 41 and 44: ``cfg`` at full width and depth in bf16 takes
-    TRAIN_STEPS steps of ``make_train_step`` at ``rows`` x ``seq`` and one
+    ``n_steps`` steps of ``make_train_step`` at ``rows`` x ``seq`` and one
     more with remat (with ``remat``, for a config whose plain step does not
     fit on the card, every step and the gradient take it): each step
     exactly ``expect`` launches of each kernel (``step_launches``), flash on
@@ -2594,13 +2686,13 @@ def train_path(smi: str, cfg, rows: int, seq: int, expect: dict[str, int],
              "card's memory" if remat else ""))
     torch.cuda.reset_peak_memory_stats()
     steps = []
-    for s in range(TRAIN_STEPS + 1):
-        step_remat = ts.remat or s == TRAIN_STEPS
+    for s in range(n_steps + 1):
+        step_remat = ts.remat or s == n_steps
         step_fn = make_train_step(model, dataclasses.replace(
             ts, remat=step_remat))
         batch = batch_for_step(cfg, s, rows, seq)
         torch.cuda.synchronize()
-        if s == TRAIN_STEPS:
+        if s == n_steps:
             plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.reset_peak_memory_stats()
         zero_launches()
@@ -2624,7 +2716,7 @@ def train_path(smi: str, cfg, rows: int, seq: int, expect: dict[str, int],
         steps.append(row)
     remat_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[train] peak device memory (torch.cuda.max_memory_allocated): "
-          f"{plain_peak_gb:.2f} GB over steps 0-{TRAIN_STEPS - 1}"
+          f"{plain_peak_gb:.2f} GB over steps 0-{n_steps - 1}"
           f"{' (remat)' if ts.remat else ''}, {remat_peak_gb:.2f} GB in the "
           f"remat step")
     moved, kept = 0, []
@@ -2673,33 +2765,15 @@ def leaf_names(params: dict, prefix: str = ""):
             yield prefix + k
 
 
-@contextlib.contextmanager
-def annotated_attention_backward():
-    """Wraps the flash gradient (``ref.attention_ref_grad``, which
-    ``FlashAttention.backward`` calls) in a profiler range."""
-    from torch.profiler import record_function
-
-    from repro_torch.kernels import ref
-    grad = ref.attention_ref_grad
-
-    def annotated(*args, **kw):
-        with record_function(FLASH_BACKWARD_RANGE):
-            return grad(*args, **kw)
-    ref.attention_ref_grad = annotated
-    try:
-        yield
-    finally:
-        ref.attention_ref_grad = grad
-
-
 def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
-                  profile_tp: dict | None = None) -> dict:
+                  profile_tp: dict | None = None, repeats: int = 2) -> dict:
     """Phases 38, 43 and 45, printed and not held: the step's time,
     tokens/s and its share of the 6·N·tokens FLOPs at 989 TFLOP/s;
-    forward, backward and optimizer apart; one step under torch.profiler
-    (the top kernels, the share of device time of each kernel named by
-    ``marks`` (label -> substrings of device kernel names), the attention
-    backward's, the idle share), of ``profile_tp``'s model where given."""
+    forward, backward and optimizer apart (each the mean of ``repeats``);
+    one step under torch.profiler (the top kernels, the share of device
+    time of each kernel named by ``marks`` (label -> substrings of device
+    kernel names), the idle share), of ``profile_tp``'s model where
+    given."""
     from repro_torch import tree
     from repro_torch.optim.adamw import adamw_update
     from repro_torch.optim.schedule import make_schedule
@@ -2714,7 +2788,7 @@ def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
     step_fn = make_train_step(model, ts)
     tokens = tp["rows"] * tp["seq"]
     secs = []
-    for _ in range(2):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = step_fn(state, batch)
@@ -2732,7 +2806,7 @@ def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
     schedule = make_schedule(cfg.lr_schedule, warmup=ts.schedule_warmup,
                              total=ts.schedule_total_steps)
     parts = {"forward": [], "backward": [], "optimizer": []}
-    for _ in range(2):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = loss_fn(state["params"])
@@ -2758,11 +2832,11 @@ def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
     opt_bound_ms = 22 * tp["params"] / PEAK_BYTES * 1e3
     print(f"[time] {cfg.name} train step {tp['rows']}x{tp['seq']}, {smi}: "
           f"{step_ms:.1f} ms (host clock around a synchronised step, mean of "
-          f"2), {tokens / step_ms * 1e3:.0f} tokens/s; 6*N*tokens = "
+          f"{repeats}), {tokens / step_ms * 1e3:.0f} tokens/s; 6*N*tokens = "
           f"{model_flops:.3e} FLOP, {mfu:.4f} of {PEAK_BF16_OPS / 1e12:.0f} "
           f"TFLOP/s; forward {parts_ms['forward']:.1f} ms, backward "
           f"{parts_ms['backward']:.1f} ms, optimizer "
-          f"{parts_ms['optimizer']:.1f} ms (mean of 2 each; its bound "
+          f"{parts_ms['optimizer']:.1f} ms (mean of {repeats} each; its bound "
           f"{opt_bound_ms:.1f} ms, 22 bytes a parameter); with remat "
           f"{remat_ms:.1f} ms (one step, after its first call)"
           + (" (every step here takes remat)" if ts.remat else ""))
@@ -2777,9 +2851,8 @@ def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
 
 def profile_step(tp: dict, marks: dict[str, tuple[str, ...]]) -> dict | None:
     """One train step of ``tp``'s model under torch.profiler: the top
-    kernels, the idle share, each of ``marks``' share of device time and
-    the attention backward's (the plain f32 gradient of flash's autograd
-    function, by its profiler range)."""
+    kernels, the idle share and each of ``marks``' share of device time
+    (flash's backward kernels among them, by name)."""
     from torch.profiler import ProfilerActivity, record_function
 
     from repro_torch.train.trainer import make_train_step
@@ -2789,7 +2862,7 @@ def profile_step(tp: dict, marks: dict[str, tuple[str, ...]]) -> dict | None:
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
-        with record_function("train_step"), annotated_attention_backward():
+        with record_function("train_step"):
             state, _ = step_fn(state, batch)
             torch.cuda.synchronize()
     tp["state"] = state
@@ -2807,17 +2880,6 @@ def profile_step(tp: dict, marks: dict[str, tuple[str, ...]]) -> dict | None:
         us = sum(k["us"] for k in prof_["all_kernels"]
                  if any(n in k["name"] for n in names))
         shares[label] = {"us": us, "share_of_busy": us / busy}
-    bwd_us = 0.0
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
-            continue
-        q = e
-        while q is not None and q.name != FLASH_BACKWARD_RANGE:
-            q = q.cpu_parent
-        if q is not None:
-            bwd_us += sum(k.duration for k in e.kernels)
-    shares["attention backward (plain, f32)"] = {
-        "us": bwd_us, "share_of_busy": bwd_us / busy}
     prof_["shares"] = shares
     del prof_["all_kernels"], events, prof
     print(f"[profile] train step, of {busy / 1e3:.1f} ms device busy: "
@@ -2829,12 +2891,16 @@ def profile_step(tp: dict, marks: dict[str, tuple[str, ...]]) -> dict | None:
 
 def attention_timings(tp: dict, smi: str) -> dict:
     """Phase 38's yardstick: the attention at one layer's shape of ``tp``'s
-    model: the kernel, the autograd function's forward and backward, the
-    backward alone, the plain version and SDPA's forward and backward with
-    ``is_causal`` (a yardstick the port never calls; the same function, as
-    minicpm has no softcap)."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import attention_ref_grad
+    model: the forward kernel, the autograd function's forward and
+    backward, the backward kernels alone against their bound, the plain
+    backward (``ref.attention_ref_grad``, timed as the yardstick it
+    replaced), the plain forward and backward, and SDPA's forward +
+    backward and backward alone with ``is_causal`` (a yardstick the port
+    never calls; the same function, as minicpm has no softcap)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    plain_grad = getattr(ref.attention_ref_grad, "plain",
+                         ref.attention_ref_grad)
     cfg = tp["cfg"]
     rows, seq = tp["rows"], tp["seq"]
     H, D = cfg.num_heads, cfg.resolved_head_dim
@@ -2847,6 +2913,8 @@ def attention_timings(tp: dict, smi: str) -> dict:
     q4, k4, v4 = (t.transpose(1, 2).detach().clone().requires_grad_()
                   for t in (q, k, v))
     do4 = do.transpose(1, 2).contiguous()
+    out3, lse, lo = FA.flash_attention_kernel(q3, k3, v3, stats=True)
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
 
     def fwd_bwd():
         ops.flash_attention(*leaves).backward(do)
@@ -2858,30 +2926,93 @@ def attention_timings(tp: dict, smi: str) -> dict:
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: ops.flash_attention(q, k, v), iters=10)
     att = {"forward_ms": fwd_ms,
-           "fwd_bwd_ms": cuda_ms(fwd_bwd, iters=5, warmup=1),
-           "backward_ms": cuda_ms(lambda: attention_ref_grad(
-               q3, k3, v3, do3, causal=True), iters=5, warmup=1),
+           "fwd_bwd_ms": cuda_ms(fwd_bwd, iters=10),
+           "backward_kernel_ms": cuda_ms(
+               lambda: FA.flash_attention_backward_kernel(
+                   q3, k3, v3, out3, lse, do3, out_lo=lo), iters=20),
+           "backward_ms": cuda_ms(lambda: plain_grad(
+               q3, k3, v3, do3, causal=True), iters=3, warmup=1),
            "plain_fwd_bwd_ms": cuda_ms(plain_fwd_bwd, iters=3, warmup=1),
            "library_fwd_bwd_ms": cuda_ms(
                lambda: F.scaled_dot_product_attention(
-                   q4, k4, v4, is_causal=True).backward(do4), iters=10)}
+                   q4, k4, v4, is_causal=True).backward(do4), iters=10),
+           "library_backward_ms": cuda_ms(
+               lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                           retain_graph=True), iters=10)}
     bh = rows * H
     pairs = flash_pairs(seq, seq, True, 0)
     # forward 2 products (4·D per visible pair), backward 5 (S again, dP,
     # dV, dQ, dK: 10·D); q, k, v, dO read, O, dQ, dK, dV written, bf16
     att.update(roofline(14 * D * bh * pairs, 2 * D * bh * seq * 8,
                         PEAK_BF16_OPS))
+    # the backward alone: 10·D a pair; q, k, v, O, dO and the f32 lse read,
+    # dq, dk, dv written
+    bwd = roofline(10 * D * bh * pairs, 16 * D * bh * seq + 4 * bh * seq,
+                   PEAK_BF16_OPS)
+    att.update({"backward_bound_ms": bwd["bound_ms"],
+                "backward_bound_by": bwd["bound_by"],
+                "backward_ops": bwd["ops"], "backward_bytes": bwd["bytes"],
+                # as built: S and dP twice, P and dS as hi + lo (20·D)
+                "backward_built_ops_ms": 2 * bwd["ops_ms"]})
     print(f"[time] attention at one layer's shape ({rows}x{seq}, "
           f"{H} heads of {D}, causal, bf16), {smi}: flash forward kernel "
           f"{att['forward_ms']:.4f} ms; forward + backward through the "
-          f"autograd function {att['fwd_bwd_ms']:.4f} ms, of which the plain "
-          f"f32 backward alone {att['backward_ms']:.4f}; plain forward + "
-          f"backward {att['plain_fwd_bwd_ms']:.4f}; SDPA forward + backward "
-          f"(is_causal) {att['library_fwd_bwd_ms']:.4f}; bound "
+          f"autograd function {att['fwd_bwd_ms']:.4f} ms; the backward "
+          f"kernels alone {att['backward_kernel_ms']:.4f} ms (bound "
+          f"{att['backward_bound_ms']:.4f}, {att['backward_bound_by']}, 10*D "
+          f"a pair; {att['backward_built_ops_ms']:.4f} at the 20*D it does; "
+          f"{att['backward_ops'] / att['backward_kernel_ms'] / 1e9:.1f} "
+          f"TFLOP/s of the 10*D); the plain f32 backward it replaced "
+          f"{att['backward_ms']:.4f}; plain forward + backward "
+          f"{att['plain_fwd_bwd_ms']:.4f}; SDPA forward + backward "
+          f"(is_causal) {att['library_fwd_bwd_ms']:.4f}, its backward alone "
+          f"{att['library_backward_ms']:.4f}; forward + backward bound "
           f"{att['bound_ms']:.4f} ({att['bound_by']}); x{cfg.num_layers} per "
           f"step: {att['fwd_bwd_ms'] * cfg.num_layers:.1f} ms against SDPA's "
           f"{att['library_fwd_bwd_ms'] * cfg.num_layers:.1f}")
-    del q, k, v, do, leaves, q3, k3, v3, do3, q4, k4, v4, do4
+    del q, k, v, do, leaves, q3, k3, v3, do3, q4, k4, v4, do4, out3, out4
+    return att
+
+
+def f32_backward_timings(smi: str) -> dict:
+    """The CUDA-core backward at the minicpm-2b f32 twin's layer shape
+    (4x1024, 36 heads of 64, causal): the backward kernels against their
+    bound (10·D a pair at 67 TFLOP/s) and the plain backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    plain_grad = getattr(ref.attention_ref_grad, "plain",
+                         ref.attention_ref_grad)
+    cfg = get_config(TRAIN_CONFIG)
+    H, D = cfg.num_heads, cfg.resolved_head_dim
+    bh, seq = TRAIN_ROWS * H, TRAIN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(SEED + 960)
+    q, k, v, do = (torch.randn(bh, seq, D, generator=g, device="cuda")
+                   for _ in range(4))
+    out, lse, _ = FA.flash_attention_kernel(q, k, v, stats=True)
+    q4, k4, v4 = (t.view(TRAIN_ROWS, H, seq, D).clone().requires_grad_()
+                  for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(TRAIN_ROWS, H, seq, D)
+    pairs = flash_pairs(seq, seq, True, 0)
+    bwd = roofline(10 * D * bh * pairs, 32 * D * bh * seq + 4 * bh * seq,
+                   PEAK_F32_OPS)
+    att = {"ms": cuda_ms(lambda: FA.flash_attention_backward_kernel(
+               q, k, v, out, lse, do), iters=10),
+           "plain_ms": cuda_ms(lambda: plain_grad(q, k, v, do, causal=True),
+                               iters=3, warmup=1),
+           "library_ms": cuda_ms(lambda: torch.autograd.grad(
+               out4, (q4, k4, v4), do4, retain_graph=True), iters=10),
+           "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+           "ops": bwd["ops"]}
+    print(f"[time] the f32 backward kernels at one {cfg.name} f32 twin "
+          f"layer ({TRAIN_ROWS}x{seq}, {H} heads of {D}, causal), {smi}: "
+          f"{att['ms']:.4f} ms (bound {att['bound_ms']:.4f}, "
+          f"{att['bound_by']}, 10*D a pair at 67 TFLOP/s; "
+          f"{att['ops'] / att['ms'] / 1e9:.1f} TFLOP/s); the plain f32 "
+          f"backward {att['plain_ms']:.4f}; SDPA's backward alone in f32 "
+          f"(is_causal, TF32 off) {att['library_ms']:.4f}")
+    del q, k, v, do, out, lse, q4, k4, v4, out4, do4
     return att
 
 
@@ -2929,7 +3060,7 @@ def train_twin_path(name: str, layers: int, rows: int, seq: int,
     zero_launches()
     kern, mk = step_fn(kern, batch)
     torch.cuda.synchronize()
-    check_launches(expect, f"{cfg.name} train step", route)
+    launches = check_launches(expect, f"{cfg.name} train step", route)
     with ops.plain():
         plain, mp = step_fn(plain, batch)
     lr = float(mk["lr"])
@@ -2954,7 +3085,7 @@ def train_twin_path(name: str, layers: int, rows: int, seq: int,
     torch.cuda.empty_cache()
     return {"loss_rel_err": loss_rel, "grad_limit_used": grad_used,
             "param_max_abs_err": param_err, "lr": lr,
-            "leaves_changed": changed}
+            "leaves_changed": changed, "launches": launches}
 
 
 def restart_path() -> dict:
@@ -2994,7 +3125,7 @@ def restart_path() -> dict:
             torch.cuda.synchronize()
             runs[name]["s"] = time.perf_counter() - t0
             runs[name]["launches"] = check_launches(
-                {"flash_attention": layers * len(runs[name]["history"])},
+                train_expect(layers * len(runs[name]["history"])),
                 f"train_lm_torch {name}", "simt_f32")
     clean, again = runs["clean"], runs["restarted"]
     by_step: dict[int, list[float]] = {}
@@ -3029,6 +3160,10 @@ def restart_path() -> dict:
 
 HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ = 4, 1024
 XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ = 4, 512
+# xlstm-1.3b's steps before the remat step, and its timings' repeats: each
+# step is ~10 s of the sLSTM's host loop (PERF.md §5), so one of each keeps
+# the script within its limit on a slower host.
+XLSTM_TRAIN_STEPS = 1
 HYBRID_TWIN_LAYERS = 6     # one unit: five Mamba2 layers and an attention
 XLSTM_TWIN_LAYERS = 4      # one unit: three mLSTM layers and an sLSTM
 # The twins' rows: under ops.plain() autograd keeps every step's state of
@@ -3256,7 +3391,8 @@ HYBRID_MARKS = {"mamba_scan forward": ("mamba_scan_chunk_state",
                                        "mamba_scan_state_pass",
                                        "mamba_scan_chunk_output"),
                 "mamba_scan backward": ("mamba_bwd_",),
-                "flash forward": ("flash_attention",)}
+                "flash forward": ("flash_attention",),
+                "flash backward": ("flash_bwd_",)}
 XLSTM_MARKS = {"mlstm_scan forward": DEVICE_KERNELS["mlstm_scan"],
                "mlstm_scan backward": ("mlstm_bwd_",)}
 
@@ -3296,8 +3432,8 @@ def recurrent_training_paths(smi: str) -> dict:
                      output=ML.mlstm_scan_kernel)
 
     units, k = hybrid_units(hcfg)
-    h_expect = {"flash_attention": units, "mamba_scan": units * k,
-                "mamba_scan_bwd": units * k}
+    h_expect = train_expect(units, mamba_scan=units * k,
+                            mamba_scan_bwd=units * k)
     htp = train_path(smi, hcfg, HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ,
                      h_expect, remat=True)
     h_times = train_timings(htp, smi, HYBRID_MARKS)
@@ -3309,13 +3445,14 @@ def recurrent_training_paths(smi: str) -> dict:
         hcfg, num_layers=HYBRID_TWIN_LAYERS))
     h_twin = train_twin_path(HYBRID_CONFIG, HYBRID_TWIN_LAYERS,
                              HYBRID_TWIN_ROWS, HYBRID_TRAIN_SEQ,
-                             {"flash_attention": t_units,
-                              "mamba_scan": t_units * t_k,
-                              "mamba_scan_bwd": t_units * t_k})
+                             train_expect(t_units, mamba_scan=t_units * t_k,
+                                          mamba_scan_bwd=t_units * t_k))
+    phase_time("39-43")
 
     units, k = xlstm_units(xcfg)
     x_expect = {"mlstm_scan": units * k, "mlstm_scan_bwd": units * k}
-    xtp = train_path(smi, xcfg, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ, x_expect)
+    xtp = train_path(smi, xcfg, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ, x_expect,
+                     n_steps=XLSTM_TRAIN_STEPS)
     # The profile takes one unit at full width: a step of all twelve
     # records ~10^6 events, minutes for the profiler to read.
     ucfg = dataclasses.replace(xcfg, name=f"{xcfg.name}-one-unit",
@@ -3323,7 +3460,8 @@ def recurrent_training_paths(smi: str) -> dict:
     umodel, uts = train_setup(ucfg)
     utp = {"cfg": ucfg, "model": umodel, "ts": uts, "batch": xtp["batch"],
            "state": init_train_state(umodel, umodel.init(seed=SEED), uts)}
-    x_times = train_timings(xtp, smi, XLSTM_MARKS, profile_tp=utp)
+    x_times = train_timings(xtp, smi, XLSTM_MARKS, profile_tp=utp,
+                            repeats=XLSTM_TRAIN_STEPS)
     x_record = {**xtp["record"], "launches_per_step": x_expect,
                 "timings": x_times}
     del xtp, utp, umodel
@@ -3334,6 +3472,7 @@ def recurrent_training_paths(smi: str) -> dict:
                              XLSTM_TWIN_ROWS, XLSTM_TRAIN_SEQ,
                              {"mlstm_scan": t_units * t_k,
                               "mlstm_scan_bwd": t_units * t_k})
+    phase_time("44-45")
     return {"scan_grad_rows": scan_rows, "mlstm_grad_rows": mlstm_rows,
             hcfg.name: h_record, f"{hcfg.name}_f32_twin": h_twin,
             xcfg.name: x_record, f"{xcfg.name}_f32_twin": x_twin}
@@ -3558,7 +3697,7 @@ def launcher_path(smi: str) -> dict:
           f"{LAUNCH_STEPS} --global-batch {TRAIN_ROWS} --seq {TRAIN_SEQ} "
           f"--lr {TRAIN_LR}, in this process (one-rank NCCL group), {smi}")
     args = launcher_args("fused_seq", ckpt, "--ckpt-every", "0")
-    expect = {"flash_attention": cfg.num_layers}
+    expect = train_expect(cfg.num_layers)
     full = run_launcher(args, expect, flash_route(cfg))
     init: list = []
     plain = plain_trainer(cfg, LT.train_config(args), expect, init,
@@ -3569,7 +3708,7 @@ def launcher_path(smi: str) -> dict:
                              str(LAUNCH_CKPT_EVERY))
     ccfg = dc.replace(cfg, name=f"{cfg.name}-{LAUNCH_CUT_LAYERS}-layers",
                       num_layers=LAUNCH_CUT_LAYERS)
-    cut = run_launcher(cut_args, {"flash_attention": LAUNCH_CUT_LAYERS},
+    cut = run_launcher(cut_args, train_expect(LAUNCH_CUT_LAYERS),
                        flash_route(cfg), layers=LAUNCH_CUT_LAYERS,
                        fail_at=LAUNCH_FAIL_AT)
     check(cut["restarts"] == 1 and cut["steps"] == list(
@@ -3579,7 +3718,7 @@ def launcher_path(smi: str) -> dict:
         f"at step {LAUNCH_FAIL_AT} (replayed from step "
         f"{LAUNCH_FAIL_AT - 1}'s checkpoint)", cut,
         plain_trainer(ccfg, LT.train_config(cut_args),
-                      {"flash_attention": LAUNCH_CUT_LAYERS}))
+                      train_expect(LAUNCH_CUT_LAYERS)))
     check(cut["bit_equal"] and cut["final_params_bit_equal"],
           "the restarted launcher run is not bit-equal to the plain run")
     return {"full": full, "cut": cut, "init": init,
@@ -3627,7 +3766,7 @@ def policy_step_path(launcher: dict) -> dict:
     with counter:
         state, metrics = make_train_step(model, ts)(state, batch)
     loss = float(metrics["loss"])
-    check_launches({"flash_attention": cfg.num_layers}, "layerwise_tp step",
+    check_launches(train_expect(cfg.num_layers), "layerwise_tp step",
                    route)
     check_routes({"embed": 1}, "layerwise_tp step")
     comm = counter.costs().record()
@@ -3636,7 +3775,7 @@ def policy_step_path(launcher: dict) -> dict:
         ts, remat=True))(state, LT.shard_batch(
             policy, batch_for_step(cfg, 1, TRAIN_ROWS, TRAIN_SEQ)))
     remat_loss = float(m_remat["loss"])
-    check_launches({"flash_attention": 2 * cfg.num_layers},
+    check_launches(step_launches(train_expect(cfg.num_layers), True),
                    "layerwise_tp step with remat", route)
     check_routes({"embed": 1}, "layerwise_tp step with remat")
     # the DTensor step split into its gradient and AdamW (phase 49)
@@ -3780,7 +3919,7 @@ def moe_launch_path(smi: str) -> dict:
     from repro_torch.train.trainer import sharded
     cfg = get_config(MOE_LAUNCH_CONFIG)
     moe_layers = cfg.num_layers - dense_layers(cfg)
-    expect = {"flash_attention": cfg.num_layers}
+    expect = train_expect(cfg.num_layers)
     route = flash_route(cfg)
 
     def plain_forward(routes: dict):
@@ -3889,23 +4028,37 @@ def training_paths(smi: str) -> dict:
     scans' backward kernels and the hybrid and xLSTM training paths."""
     from repro_torch.configs import get_config
     grad_rows = flash_grad_check(SEED + 900)
+    phase_time("34")
     cfg = get_config(TRAIN_CONFIG)
     tp = train_path(smi, cfg, TRAIN_ROWS, TRAIN_SEQ,
-                    {"flash_attention": cfg.num_layers})
-    times = train_timings(tp, smi, {"flash forward": ("flash_attention",)})
+                    train_expect(cfg.num_layers))
+    times = train_timings(tp, smi, FLASH_MARKS)
     times["attention"] = attention_timings(tp, smi)
+    times["f32_backward"] = f32_backward_timings(smi)
+    phase_time("35, 38")
     record = {**tp["record"], "timings": times}
     del tp
     torch.cuda.empty_cache()
     twin = train_twin_path(TRAIN_CONFIG, TRAIN_TWIN_LAYERS, TRAIN_ROWS,
-                           TRAIN_SEQ, {"flash_attention": TRAIN_TWIN_LAYERS})
+                           TRAIN_SEQ, train_expect(TRAIN_TWIN_LAYERS))
     restart = restart_path()
+    phase_time("36-37")
     recurrent = recurrent_training_paths(smi)
     return {"grad_rows": grad_rows, "train": record, "twin": twin,
             "restart": restart, **recurrent}
 
 
 T0 = time.perf_counter()
+_MARK = [0.0]
+
+
+def phase_time(phases: str) -> None:
+    """Prints the seconds ``phases`` took (since the last mark) and the
+    script's time so far: the budget of the 1200 s limit, by phase."""
+    now = time.perf_counter() - T0
+    print(f"[time] phases {phases}: {now - _MARK[0]:.1f} s (script at "
+          f"{now:.0f} s)")
+    _MARK[0] = now
 
 
 def main() -> int:
@@ -3928,6 +4081,8 @@ def main() -> int:
         xlstm_prefill_times()
         return 0
     build_s, ptxas = build()
+    count_plain_flash_backward()
+    phase_time("1-2")
     if "--launch-paths" in sys.argv[1:]:
         launch_paths(smi)
         print(f"[time] script {time.perf_counter() - T0:.0f} s")
@@ -3937,6 +4092,7 @@ def main() -> int:
     fwd = timings(rows, model)
     fwd.update(profile(model))
     halo = halo_path(model, smi)
+    phase_time("3-6")
     del model["net"], model["x"]
 
     from repro_torch.configs import get_config
@@ -3950,6 +4106,7 @@ def main() -> int:
     served = serve_path(cfg, lm, expect)
     flash_timings(flash_rows, cfg, FLASH_SHAPES, SEED + 200)
     lm_times = lm_timings(cfg, lm, PREFILL_S)
+    phase_time("7-10")
     del lm["model"], lm["net"], lm["batch"]
     torch.cuda.empty_cache()
 
@@ -3986,6 +4143,7 @@ def main() -> int:
                        "the SSD scan")
     flash_timings(h_flash_rows, hcfg, HYBRID_FLASH_SHAPES, SEED + 300)
     h_times = lm_timings(hcfg, hlm, HYBRID_PREFILL_S)
+    phase_time("11-16")
     del hlm["model"], hlm["net"], hlm["batch"]
     torch.cuda.empty_cache()
 
@@ -4004,10 +4162,14 @@ def main() -> int:
         exact=in_f64(mlstm_ref))
     xlm = prefill_path(xcfg, XLSTM_PREFILL_S, x_expect, limit=None)
     x_served = serve_path(xcfg, xlm, x_expect, limit=None)
-    # The same prefill in f32 at full depth, held at every position.
+    # The same prefill in f32 at full width cut to XLSTM_F32_LAYERS, held
+    # at every position.
     x32cfg = dataclasses.replace(xcfg, name=f"{xcfg.name}-f32",
+                                 num_layers=XLSTM_F32_LAYERS,
                                  dtype="float32", param_dtype="float32")
-    x32 = lm_record(prefill_path(x32cfg, XLSTM_PREFILL_S, x_expect,
+    x32_units, x32_per_unit = xlstm_units(x32cfg)
+    x32 = lm_record(prefill_path(x32cfg, XLSTM_PREFILL_S,
+                                 {"mlstm_scan": x32_units * x32_per_unit},
                                  limit=TWIN_ATOL, every_position=True))
     torch.cuda.empty_cache()
     # The f32 twin: full width, one unit, held at every position.
@@ -4040,16 +4202,20 @@ def main() -> int:
     del xlm["model"], xlm["net"], xlm["batch"]
     torch.cuda.empty_cache()
 
+    phase_time("17-21")
     d = decoder_lm_paths(smi, moe_params)
+    phase_time("22-27")
     mcfg, pcfg, mlm, m_times = d["mcfg"], d["pcfg"], d["mlm"], d["m_times"]
     m_flash_rows, p_flash_rows = d["m_flash_rows"], d["p_flash_rows"]
     q_flash_rows, config_runs = d["q_flash_rows"], d["config_runs"]
     w = whisper_paths(smi)
+    phase_time("28-33")
     wcfg, wlm, w_times = w["wcfg"], w["wlm"], w["w_times"]
     w_flash_rows = w["w_flash_rows"]
     tr = training_paths(smi)
     tt = tr["train"]["timings"]
     la = launch_paths(smi)
+    phase_time("46-50")
 
     check(sum(r["per_forward"] for r in rows) == CONVS_PER_FORWARD,
           "CONV_SHAPES do not add up to one forward")
@@ -4088,6 +4254,12 @@ def main() -> int:
                 "bound_ms": n * r["bound_ms"], "bound_by": r["bound_by"],
                 "bound_f32_ms": n * r["bound_f32_ms"], "library_ms": None}
 
+    def layer_totals(times: dict, keys: dict[str, str], n: int) -> dict:
+        """One layer's times (``keys``: the line's name -> the record's)
+        times the ``n`` launches of a train step."""
+        return {k: n * times[src] for k, src in keys.items()}
+
+    train_layers = get_config(TRAIN_CONFIG).num_layers
     h_flash = totals(h_flash_rows)
     m_flash, p_flash = totals(m_flash_rows), totals(p_flash_rows)
     w_flash = totals(w_flash_rows)
@@ -4165,12 +4337,12 @@ def main() -> int:
             "gradient_limit_used": max(r["limit_used"]
                                        for r in tr["grad_rows"]),
             **{k: tt["attention"][k] for k in (
-                "forward_ms", "fwd_bwd_ms", "backward_ms",
-                "plain_fwd_bwd_ms", "library_fwd_bwd_ms", "bound_ms",
-                "bound_by")},
-            "backward_is": "the plain f32 gradient of attention_scores "
-                           "(ref.attention_ref_grad), recomputed from q, "
-                           "k, v",
+                "forward_ms", "fwd_bwd_ms", "backward_kernel_ms",
+                "backward_ms", "plain_fwd_bwd_ms", "library_fwd_bwd_ms",
+                "bound_ms", "bound_by")},
+            "backward_is": "the backward kernels (flash_attention_bwd, "
+                           "next entry); backward_ms is the plain f32 "
+                           "gradient they replaced (ref.attention_ref_grad)",
             "library_is": "F.scaled_dot_product_attention forward + "
                           "backward, is_causal (the same function)",
             "times_are": "one layer's attention (CUDA events); x"
@@ -4185,6 +4357,56 @@ def main() -> int:
             MOE_LAUNCH_CONFIG: {
                 p: la["moe_launcher"][p]["launches"]
                 for p in ("fused_seq", "layerwise_tp")}},
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "replaces_is": "the gradient jax.grad takes of attention_scores "
+                       "(src/repro/models/layers.py:114); the Pallas kernel "
+                       "has no backward",
+        "launches": tr["train"]["steps"][0]["launches"][
+            "flash_attention_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in tr["grad_rows"]
+                           if r["route"] == "wgmma_bf16"),
+        "limit_used": max(r["limit_used"] for r in tr["grad_rows"]
+                          if r["route"] == "wgmma_bf16"),
+        **layer_totals(tt["attention"], {
+            "ms": "backward_kernel_ms", "plain_ms": "backward_ms",
+            "bound_ms": "backward_bound_ms",
+            "library_ms": "library_backward_ms"}, train_layers),
+        "bound_by": tt["attention"]["backward_bound_by"],
+        "bound_is": "10*D operations a visible pair (five products) at 989 "
+                    "TFLOP/s; the kernels do 20*D (S and dP twice, P and dS "
+                    "as hi + lo bf16)",
+        "library_is": "the backward of F.scaled_dot_product_attention, "
+                      "is_causal (torch.autograd.grad on its graph)",
+        "launches_by_route": "every bf16 backward on bwd_tc_bf16, every "
+                             "f32 one on bwd_simt_f32, held per path",
+        "times_are": f"one layer's backward (CUDA events) x{train_layers}: "
+                     f"the launches of one {TRAIN_CONFIG} "
+                     f"{TRAIN_ROWS}x{TRAIN_SEQ} bf16 train step",
+    }, {
+        "name": "flash_attention_bwd_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "replaces_is": "as flash_attention_bwd, for f32 inputs",
+        "launches": tr["twin"]["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in tr["grad_rows"]
+                           if r["route"] == "simt_f32"),
+        "limit_used": max(r["limit_used"] for r in tr["grad_rows"]
+                          if r["route"] == "simt_f32"),
+        **layer_totals(tt["f32_backward"], {
+            "ms": "ms", "plain_ms": "plain_ms", "bound_ms": "bound_ms",
+            "library_ms": "library_ms"}, TRAIN_TWIN_LAYERS),
+        "bound_by": tt["f32_backward"]["bound_by"],
+        "bound_is": "10*D operations a visible pair at 67 TFLOP/s (f32 on "
+                    "the CUDA cores)",
+        "library_is": "the backward of F.scaled_dot_product_attention in "
+                      "f32, is_causal, TF32 off",
+        "times_are": f"one layer's backward (CUDA events) "
+                     f"x{TRAIN_TWIN_LAYERS}: the launches of one step of "
+                     f"the {TRAIN_CONFIG} f32 twin ({TRAIN_TWIN_LAYERS} "
+                     f"layers, {TRAIN_ROWS}x{TRAIN_SEQ})",
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan_sm90.cu",
@@ -4265,6 +4487,7 @@ def main() -> int:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    by_name = {k["name"]: k for k in kernels["kernels"]}
     print(f"[summary] forward {fwd['forward_ms']:.3f} ms; median request "
           f"{statistics.median(model['request_latency_ms']):.3f} ms; "
           f"fused_conv {kernels['kernels'][0]['ms']:.3f} ms per forward; "
@@ -4273,12 +4496,12 @@ def main() -> int:
           f"step {lm_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
           f"{hcfg.name} prefill 1x{HYBRID_PREFILL_S} "
           f"{h_times['prefill_ms']:.2f} ms with mamba_scan "
-          f"{kernels['kernels'][2]['ms']:.2f} ms and flash_attention "
+          f"{by_name['mamba_scan']['ms']:.2f} ms and flash_attention "
           f"{h_flash['ms']:.2f} ms; decode step "
           f"{h_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
           f"{xcfg.name} prefill 1x{XLSTM_PREFILL_S} "
           f"{x_times['prefill_ms']:.2f} ms with mlstm_scan "
-          f"{kernels['kernels'][3]['ms']:.2f} ms; decode step "
+          f"{by_name['mlstm_scan']['ms']:.2f} ms; decode step "
           f"{x_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
           f"{mcfg.name} prefill 1x{MOE_PREFILL_S} "
           f"{m_times['prefill_ms']:.2f} ms with flash_attention "
@@ -4290,7 +4513,8 @@ def main() -> int:
           f"{w_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
           f"{TRAIN_CONFIG} train step {TRAIN_ROWS}x{TRAIN_SEQ} "
           f"{tt['step_ms']:.1f} ms ({tt['tokens_per_s']:.0f} tokens/s, "
-          f"{tt['mfu']:.3f} of peak by 6*N*tokens); "
+          f"{tt['mfu']:.3f} of peak by 6*N*tokens; the flash backward "
+          f"{by_name['flash_attention_bwd']['ms']:.1f} ms of it); "
           + "; ".join(
               f"{n} train step {r}x{q} {tr[n]['timings']['step_ms']:.1f} ms "
               f"({tr[n]['timings']['tokens_per_s']:.0f} tokens/s, "

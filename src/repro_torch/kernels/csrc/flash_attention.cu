@@ -36,6 +36,9 @@
 //     is wholly masked takes exp(0) garbage that the first visible key's
 //     alpha = exp(-1e30 - m) = 0 wipes; keys past T (the ragged edge) are
 //     -inf and add nothing at all.  The final divide is by max(l, 1e-30).
+// Where the caller passes a pointer, the epilogue also writes each row's
+// log-sum-exp of its logits (m + ln l) for the backward in
+// flash_attention_bwd.cu; o is computed the same way either way.
 // Shared memory is 4 * (2*68*D + 64*D + 64*68) bytes: 222,208 at D = 256,
 // so one block per SM; 81,408 at zamba2's D = 80 and 94,208 at phi3's
 // D = 96, two.  What it leaves on
@@ -64,6 +67,7 @@ struct FlashArgs {
   const float* k;
   const float* v;
   float* o;
+  float* lse;   // null, or the rows' log-sum-exp for the backward
   int S, T, group, causal, window;
   float scale, softcap;
 };
@@ -234,6 +238,8 @@ flash_attention_fwd_kernel(const FlashArgs a) {
     const int qi = q0 + ty * RQ + i;
     if (qi >= a.S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(size_t)bh * a.S + qi] = m[i] + logf(denom);
 #pragma unroll
     for (int mm = 0; mm < NCH; ++mm)
 #pragma unroll
@@ -261,15 +267,19 @@ int launch(const FlashArgs& a, int BH, cudaStream_t stream) {
 // Launches on `stream` and returns the CUDA error (0 on success).  q, k, v
 // and o are contiguous float32; the caller checks shapes, BH % BKV == 0, D
 // in {16, 32, 64, 80, 96, 128, 256}, BH <= 65535 and every index below 2**31.
+// lse, where not null, gets each row's log-sum-exp of its logits ((BH, S),
+// for the backward in flash_attention_bwd.cu); o is the same either way.
 extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* o, int BH, int BKV,
-                                   int S, int T, int D, int causal,
-                                   int window, float softcap, void* stream) {
+                                   const float* v, float* o, float* lse,
+                                   int BH, int BKV, int S, int T, int D,
+                                   int causal, int window, float softcap,
+                                   void* stream) {
   FlashArgs a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.S = S;
   a.T = T;
   a.group = BH / BKV;

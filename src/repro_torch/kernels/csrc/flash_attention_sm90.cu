@@ -68,6 +68,14 @@
 // max(l, 1e-30), rounded once to bf16 and stored from registers; rows past
 // S are never written.  A row that sees no key at all would get 0 where
 // JAX gives the mean of v, so the wrapper refuses such windows.
+// For the backward (flash_attention_bwd_sm90.cu) the epilogue also writes,
+// where the caller passes the pointers, each row's log-sum-exp of its
+// logits x (lse = max x + ln l, f32) and O's lo part, lo = bf16(o -
+// bf16(o)): D_i = rowsum(dO * O) then takes O to 2^-17, not the bf16 O's
+// 2^-9, which would move every dS by up to 2^-9 of sum|dO||O|, about the
+// gradient's whole half-ulp limit.  lo costs 2 bytes an element where an
+// f32 copy of O would cost 4.  O itself is computed and rounded as without
+// them, so the inference path's output keeps its bits.
 //
 // Shared memory: Q 128*D*2 bytes, STAGES * 2 * BK*D*2 of K and V: 192 KB
 // at D = 256 (BK = 64, 2 stages), 141 KB at D = 80 and 169 KB at D = 96
@@ -340,6 +348,8 @@ struct Maps {   // 3-d tensor maps over (head, row, D), one per chunk width
 struct Args {
   Maps maps;
   __nv_bfloat16* o;
+  __nv_bfloat16* o_lo;   // null, or o's lo part for the backward
+  float* lse;            // null, or the rows' log-sum-exp for the backward
   int S, T, group, causal, window, q_tiles;
   float scale, softcap;
 };
@@ -620,7 +630,9 @@ flash_attention_sm90_kernel(const __grid_constant__ Args a) {
     if (wg == 0) named_sync(SCHED_BAR);   // the other's last arrive
 
     // l is this thread's share of its rows' sums; the quad holds the rest.
-    __nv_bfloat16* out = a.o + static_cast<size_t>(bh) * a.S * D;
+    const size_t head = static_cast<size_t>(bh) * a.S;
+    // The log-sum-exp of the rows' logits x: m is in units of x / unit.
+    const float unit = a.softcap > 0.f ? 1.f : a.scale;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -628,12 +640,21 @@ flash_attention_sm90_kernel(const __grid_constant__ Args a) {
       const float denom = fmaxf(l[h], 1e-30f);
       const int row = sm.row0 + 8 * h;
       if (row < a.S) {
+        const size_t at = (head + row) * D + sm.col0;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + static_cast<size_t>(row) * D + 8 * j + sm.col0) =
-              __floats2bfloat162_rn(o[4 * j + 2 * h] / denom,
-                                    o[4 * j + 2 * h + 1] / denom);
+        for (int j = 0; j < D / 8; ++j) {
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(
+              o[4 * j + 2 * h] / denom, o[4 * j + 2 * h + 1] / denom);
+          *reinterpret_cast<__nv_bfloat162*>(a.o + at + 8 * j) = hi;
+          if (a.o_lo != nullptr) {
+            const float2 hf = __bfloat1622float2(hi);
+            *reinterpret_cast<__nv_bfloat162*>(a.o_lo + at + 8 * j) =
+                __floats2bfloat162_rn(o[4 * j + 2 * h] / denom - hf.x,
+                                      o[4 * j + 2 * h + 1] / denom - hf.y);
+          }
+        }
+        if (a.lse != nullptr && sm.col0 == 0)
+          a.lse[head + row] = m[h] * unit + logf(denom);
       }
     }
   }
@@ -688,6 +709,8 @@ struct Call {   // one launch's operands, as the wrapper passes them
   const void* k;
   const void* v;
   void* o;
+  void* o_lo;
+  float* lse;
   int BH, BKV, S, T, causal, window;
   float softcap;
   cudaStream_t stream;
@@ -711,6 +734,8 @@ int launch(const Call& c) {
          encode(fn, &m.v_tail, c.v, c.BKV, c.T, D, C::TAIL, C::BK);
   if (!ok) return ERR_TENSOR_MAP;
   a.o = static_cast<__nv_bfloat16*>(c.o);
+  a.o_lo = static_cast<__nv_bfloat16*>(c.o_lo);
+  a.lse = c.lse;
   a.S = c.S;
   a.T = c.T;
   a.group = c.BH / c.BKV;
@@ -733,13 +758,15 @@ int launch(const Call& c) {
 // Launches on `stream` and returns 0 or an error code for
 // flash_attention_sm90_error_string.  q, k, v and o are contiguous bf16,
 // 16-byte aligned; the caller checks shapes, BH % BKV == 0, D in {16, 32,
-// 64, 80, 128, 256}, S <= 65535 * 128 and every index below 2**31.
+// 64, 80, 96, 128, 256}, S <= 65535 * 128 and every index below 2**31.
+// For the backward, o_lo (bf16, o's shape) and lse (f32, (BH, S)) are
+// written where not null; o is the same either way.
 extern "C" int flash_attention_sm90_bf16(const void* q, const void* k,
-                                         const void* v, void* o, int BH,
-                                         int BKV, int S, int T, int D,
-                                         int causal, int window,
+                                         const void* v, void* o, void* o_lo,
+                                         float* lse, int BH, int BKV, int S,
+                                         int T, int D, int causal, int window,
                                          float softcap, void* stream) {
-  const Call c{q, k, v, o, BH, BKV, S, T, causal, window, softcap,
+  const Call c{q, k, v, o, o_lo, lse, BH, BKV, S, T, causal, window, softcap,
                static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 16: return launch<16>(c);

@@ -1,6 +1,6 @@
 """Wrapper of the hand-written Hopper flash-attention kernels, the port of
 the Pallas ``repro.kernels.flash_attention.flash_attention_kernel``
-(``src/repro/kernels/flash_attention.py:84``).
+(``src/repro/kernels/flash_attention.py:84``), and of their backward.
 
 The wrapper routes by dtype; neither route falls back on the other:
 
@@ -16,16 +16,22 @@ The wrapper routes by dtype; neither route falls back on the other:
 
 It takes CUDA tensors only and raises on anything the kernels do not take;
 ``kernels.ops.flash_attention`` sends CPU tensors to the plain version.
-``launches`` counts the launches of both, ``launches_by_kernel`` each
-route's, so a run can show that its path went through the kernel it
-expects.  The Pallas ``block_q``/``block_k`` knobs have no counterpart: the
-kernels fix their own tiles and mask ragged S and T.
+``launches`` counts the forward's launches, ``backward_launches`` the
+backward's, ``launches_by_kernel`` each route's, so a run can show that
+its path went through the kernels it expects.  The Pallas
+``block_q``/``block_k`` knobs have no counterpart: the kernels fix their
+own tiles and mask ragged S and T.
 
 ``FlashAttention`` gives the kernel's output a gradient.  The JAX package
 trains through the einsum ``attention_scores`` and never through its
-Pallas kernel, which has no backward; so the backward here is the gradient
-of that arithmetic (``ref.attention_ref_grad``), recomputed in f32 from
-the saved q, k and v.  A hand-written backward kernel is a later step.
+Pallas kernel, which has no backward; the backward here is the gradient of
+that arithmetic, computed by hand-written kernels of the same two routes
+from the forward's saved q, k, v, O and per-row log-sum-exp:
+``csrc/flash_attention_bwd_sm90.cu`` (bf16, ``mma.sync`` on the tensor
+cores, P and dS as hi + lo bf16) and ``csrc/flash_attention_bwd.cu`` (f32,
+CUDA cores), each three launches (D_i = rowsum(dO∘O); dK and dV per key
+tile; dQ per query tile), deterministic.  ``ref.attention_ref_grad`` stays
+the plain version: the CPU's, and the yardstick the card is held to.
 """
 
 from __future__ import annotations
@@ -38,14 +44,19 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 launches = 0
-launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0}
+backward_launches = 0
+launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0, "bwd_tc_bf16": 0,
+                      "bwd_simt_f32": 0}
+# the backward's route beside each forward route
+BACKWARD_ROUTE = {"wgmma_bf16": "bwd_tc_bf16", "simt_f32": "bwd_simt_f32"}
 
 # the head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _INDEX_LIMIT = 2**31                 # the kernel indexes with 32-bit ints
 _GRID_Y_LIMIT = 65535                # grid rows: f32 one per query head,
 _BF16_Q_TILE = 128                   # bf16 one per 128-query tile
-_TMA_ALIGN = 16                      # bytes, TMA's base-address alignment
+_BWD_ROWS = 64                       # backward: one grid row per 64 rows
+_TMA_ALIGN = 16                      # bytes, TMA's and cp.async's alignment
 
 
 def check_every_row_sees_a_key(S: int, T: int, window: int) -> None:
@@ -64,23 +75,24 @@ def check_every_row_sees_a_key(S: int, T: int, window: int) -> None:
                          f"key")
 
 
-def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool = True, window: int = 0,
-                           softcap: float = 0.0) -> torch.Tensor:
-    """q: (BH, S, D); k/v: (BKV, T, D) with BH = BKV·group, all float32 or
-    all bfloat16, contiguous, on one CUDA device.  Returns (BH, S, D) in
-    the input dtype."""
-    global launches
+def _check(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int, softcap: float,
+           more: dict[str, torch.Tensor] | None = None,
+           aligned: bool = False) -> tuple[int, int, int, int, int]:
+    """Raises on operands the kernels do not take: q (BH, S, D), k and v
+    (BKV, T, D), and ``more`` of q's dtype and shape, all 16-byte aligned
+    in bf16 (TMA, cp.async) or where ``aligned`` (the f32 backward's float4
+    loads); returns BH, BKV, S, T, D."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_kernel runs on CUDA tensors, q is "
-                         f"on {q.device}")
+        raise ValueError(f"{op} runs on CUDA tensors, q is on {q.device}")
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"flash_attention: q, k and v must be 3-d, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     BH, S, D = q.shape
     BKV, T, _ = k.shape
-    for name, t in (("k", k), ("v", v)):
+    operands = {"q": q, "k": k, "v": v, **(more or {})}
+    for name, t in operands.items():
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on "
                              f"{q.device}")
@@ -93,6 +105,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(v.shape) != (BKV, T, D) or k.shape[2] != D:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must both be (BKV, T, {D})")
+    for name, t in (more or {}).items():
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} {tuple(t.shape)} must "
+                             f"be q's {tuple(q.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D}, the kernel is "
                          f"built for {HEAD_DIMS}")
@@ -107,52 +123,160 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{softcap} must be >= 0")
     check_every_row_sees_a_key(S, T, window)
     bf16 = q.dtype == torch.bfloat16
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in operands.items():
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
         if t.numel() >= _INDEX_LIMIT:
             raise ValueError(f"flash_attention: {name} has {t.numel()} "
                              f"elements, the kernel indexes below "
                              f"{_INDEX_LIMIT}")
-        if bf16 and t.data_ptr() % _TMA_ALIGN:
+        if (bf16 or aligned) and t.data_ptr() % _TMA_ALIGN:
             raise ValueError(f"flash_attention: {name} must be "
-                             f"{_TMA_ALIGN}-byte aligned for TMA")
-    out = torch.empty_like(q)
+                             f"{_TMA_ALIGN}-byte aligned for TMA and 16-byte "
+                             f"loads")
+    return BH, BKV, S, T, D
 
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True, window: int = 0,
+                           softcap: float = 0.0, stats: bool = False):
+    """q: (BH, S, D); k/v: (BKV, T, D) with BH = BKV·group, all float32 or
+    all bfloat16, contiguous, on one CUDA device.  Returns (BH, S, D) in
+    the input dtype; with ``stats``, (out, lse, out_lo) for the backward:
+    each row's log-sum-exp of its logits, f32 (BH, S), and, in bf16, O's lo
+    part bf16(o - bf16(o)) (None in f32).  ``out`` has the same bits
+    either way."""
+    global launches
+    BH, BKV, S, T, D = _check("flash_attention_kernel", q, k, v, window,
+                              softcap)
+    bf16 = q.dtype == torch.bfloat16
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, S), dtype=torch.float32,
+                      device=q.device) if stats else None
+    out_lo = torch.empty_like(q) if stats and bf16 else None
+
+    def ptr(t: torch.Tensor | None):
+        return None if t is None else t.data_ptr()
     lib = _build.library()
     route = "wgmma_bf16" if bf16 else "simt_f32"
-    fn, error_string = ((lib.flash_attention_sm90_bf16,
-                         lib.flash_attention_sm90_error_string) if bf16 else
-                        (lib.flash_attention_f32,
-                         lib.flash_attention_error_string))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 BH, BKV, S, T, D, int(causal), int(window), float(softcap),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        if bf16:
+            err = lib.flash_attention_sm90_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ptr(out_lo), ptr(lse), BH, BKV, S, T, D, int(causal),
+                int(window), float(softcap), stream)
+        else:
+            err = lib.flash_attention_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ptr(lse), BH, BKV, S, T, D, int(causal), int(window),
+                float(softcap), stream)
     if err:
+        error_string = (lib.flash_attention_sm90_error_string if bf16 else
+                        lib.flash_attention_error_string)
         raise RuntimeError(f"flash_attention {route} kernel launch failed: "
                            f"{error_string(err).decode()}")
     launches += 1
     launches_by_kernel[route] += 1
-    return out
+    return (out, lse, out_lo) if stats else out
+
+
+def flash_attention_backward_kernel(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, dout: torch.Tensor, *,
+        out_lo: torch.Tensor | None = None, causal: bool = True,
+        window: int = 0, softcap: float = 0.0
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention_kernel`` for the output gradient
+    ``dout``, from its inputs, its output and the ``lse`` (and, in bf16,
+    ``out_lo``) it returned with ``stats``: contiguous dq (BH, S, D) and
+    dk, dv (BKV, T, D) in the inputs' dtype, dk and dv summed over each KV
+    head's query group.  Three launches of the dtype's backward kernel
+    (f32 D_i scratch from ``torch.empty``), counted once."""
+    global backward_launches
+    bf16 = q.dtype == torch.bfloat16
+    more = {"out": out, "dout": dout}
+    if bf16:
+        if out_lo is None:
+            raise ValueError("flash_attention backward: bf16 needs out_lo, "
+                             "O's lo part from the forward's stats")
+        more["out_lo"] = out_lo
+    BH, BKV, S, T, D = _check("flash_attention_backward_kernel", q, k, v,
+                              window, softcap, more, aligned=True)
+    if -(-max(S, T) // _BWD_ROWS) > _GRID_Y_LIMIT:
+        raise ValueError(f"flash_attention backward: S {S} or T {T} too "
+                         f"large for the grid")
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (BH, S) or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention backward: lse must be contiguous "
+                         f"float32 ({BH}, {S}) on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    di = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        if bf16:
+            err = lib.flash_attention_bwd_sm90_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                out_lo.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
+                BH, BKV, S, T, D, int(causal), int(window), float(softcap),
+                stream)
+        else:
+            err = lib.flash_attention_bwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), di.data_ptr(), BH, BKV, S, T,
+                D, int(causal), int(window), float(softcap), stream)
+    route = BACKWARD_ROUTE["wgmma_bf16" if bf16 else "simt_f32"]
+    if err:
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: "
+                           f"{lib.flash_attention_error_string(err).decode()}")
+    backward_launches += 1
+    launches_by_kernel[route] += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor | None, dout: torch.Tensor, *,
+                             out_lo: torch.Tensor | None = None,
+                             causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
+    """``FlashAttention``'s default backward: the kernels for CUDA tensors,
+    the plain ``ref.attention_ref_grad`` (recomputed from q, k and v) for
+    CPU tensors, where no kernel runs."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return ref.attention_ref_grad(q, k, v, dout, **kw)
+    return flash_attention_backward_kernel(q, k, v, out, lse, dout,
+                                           out_lo=out_lo, **kw)
 
 
 class FlashAttention(torch.autograd.Function):
     """``forward`` runs ``forward_fn`` (the kernel on the model path; the
-    tests inject the plain version) on q (BH, S, D) and k, v (BKV, T, D)
-    and saves the inputs; ``backward`` returns ``ref.attention_ref_grad``
-    of them: dq, dk and dv in the inputs' dtypes."""
+    tests inject the plain version) with ``stats=True`` on q (BH, S, D) and
+    k, v (BKV, T, D), and saves q, k, v, the output and its statistics;
+    ``backward`` runs ``backward_fn`` (``flash_attention_backward`` if not
+    given; the tests inject emulations) on them: dq, dk and dv in the
+    inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, window: int, softcap: float,
-                forward_fn: Callable[..., torch.Tensor]) -> torch.Tensor:
-        ctx.save_for_backward(q, k, v)
+                forward_fn: Callable[..., tuple],
+                backward_fn: Callable[..., tuple] | None = None
+                ) -> torch.Tensor:
         ctx.kw = dict(causal=causal, window=window, softcap=softcap)
-        return forward_fn(q, k, v, **ctx.kw)
+        out, lse, out_lo = forward_fn(q, k, v, **ctx.kw, stats=True)
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
+        ctx.backward_fn = backward_fn or flash_attention_backward
+        return out
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = ref.attention_ref_grad(q, k, v, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, out, lse, out_lo = ctx.saved_tensors
+        dq, dk, dv = ctx.backward_fn(q, k, v, out, lse, dout.contiguous(),
+                                     out_lo=out_lo, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

@@ -14,10 +14,11 @@ sequence for the TPU's sequential grid; their results do not depend on it
 
 Training: on a CUDA tensor that needs a gradient (grad mode on, an input
 requiring grad, outside ``plain()``), each op with a backward launches its
-kernel through its autograd function: ``flash_attention`` through
-``FlashAttention``, whose backward is the gradient of the plain
-arithmetic; ``mamba_scan`` and ``mlstm_scan`` through ``MambaScan`` and
-``MLSTMScan``, whose backwards are hand-written kernels of their own.
+kernel through its autograd function, whose backward is a hand-written
+kernel of its own: ``flash_attention`` through ``FlashAttention`` (the
+forward saves each row's log-sum-exp for the backward kernels of its
+dtype's route), ``mamba_scan`` and ``mlstm_scan`` through ``MambaScan``
+and ``MLSTMScan``.
 ``fused_conv`` has no backward yet and raises, rather than return an
 output whose gradient silently stops.  A CPU tensor, or any tensor inside
 ``plain()``, takes the plain version, which autograd differentiates.

@@ -46,10 +46,13 @@ def _visible(S: int, T: int, causal: bool, window: int,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  softcap: float = 0.0) -> torch.Tensor:
+                  softcap: float = 0.0, stats: bool = False):
     """q: (BH, S, D); k/v: (BKV, T, D), BH = BKV·group — the flash kernel's
     layout.  f32 inside, masked logits -1e30, returned in ``q.dtype``.  The
-    causal mask is top-left: query i sees keys ≤ i, also when S ≠ T."""
+    causal mask is top-left: query i sees keys ≤ i, also when S ≠ T.  With
+    ``stats`` it returns (out, lse, None), as the kernel does: lse is each
+    row's log-sum-exp of its masked logits, f32 (BH, S); the plain version
+    keeps no lo part of O."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
     group = BH // BKV
@@ -61,7 +64,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = _visible(S, T, causal, window, q.device)
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("hst,htd->hsd", p, vf).to(q.dtype)
+    out = torch.einsum("hst,htd->hsd", p, vf).to(q.dtype)
+    if stats:
+        return out, torch.logsumexp(s, dim=-1), None
+    return out
 
 
 def attention_ref_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,8 +78,9 @@ def attention_ref_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attention_scores``) with respect to q, k and v, for the output
     gradient ``dout`` (BH, S, D): recomputed in f32 from the inputs, dk and
     dv summed over each KV head's query group, returned in the inputs'
-    dtypes.  The probabilities are recomputed, not saved: the flash kernel
-    keeps none."""
+    dtypes.  The probabilities are recomputed from q, k and v; the
+    backward kernels recompute them from the forward's saved log-sum-exp,
+    this plain version from the logits themselves."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
     G = BH // BKV

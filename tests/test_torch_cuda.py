@@ -17,9 +17,10 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_conv as fc
 from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import mlstm_scan as ML
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import (attention_ref, fused_conv_ref,
-                                     mamba_scan_ref, mlstm_ref)
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ref import (attention_ref, attention_ref_grad,
+                                     fused_conv_ref, mamba_scan_ref,
+                                     mlstm_ref)
 from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
@@ -596,9 +597,11 @@ def test_windowed_halo_matches_whole_attention(cuda):
 
 def _grad_check(dev, dtype, B, H, KV, S, T, D, causal, window, softcap):
     """dq, dk, dv through ``ops.flash_attention`` (the kernel inside the
-    autograd function) against autograd of the plain attention in f32 on
-    the same values: within 1e-5·max|ref| in f32, half a bf16 ulp of |ref|
-    plus 2e-5 in bf16.  The forward moves only its dtype's route."""
+    autograd function, whose backward launches the backward kernel)
+    against autograd of the plain attention in f32 on the same values:
+    within 1e-5·max|ref| in f32, half a bf16 ulp of |ref| plus 2e-5 in
+    bf16.  One forward and one backward launch, each on its dtype's
+    route, and no call of the plain gradient."""
     g = torch.Generator(device=dev).manual_seed(S * 31 + D)
     q, k, v = (torch.randn(B, n, H_, D, generator=g, device=dev).to(dtype)
                for n, H_ in ((S, H), (T, KV), (T, KV)))
@@ -606,12 +609,15 @@ def _grad_check(dev, dtype, B, H, KV, S, T, D, causal, window, softcap):
     kw = dict(causal=causal, window=window, softcap=softcap)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     route = "wgmma_bf16" if dtype == torch.bfloat16 else "simt_f32"
+    routes = (route, FA.BACKWARD_ROUTE[route])
     before = dict(FA.launches_by_kernel)
+    bwd_before = FA.backward_launches
     out = ops.flash_attention(*leaves, **kw)
     out.backward(do)
     torch.cuda.synchronize()
     moved = {r: n - before[r] for r, n in FA.launches_by_kernel.items()}
-    assert moved == {r: int(r == route) for r in moved}
+    assert moved == {r: int(r in routes) for r in moved}
+    assert FA.backward_launches == bwd_before + 1
     refs = [t.float().clone().requires_grad_() for t in (q, k, v)]
     with ops.plain():
         ref_out = ops.flash_attention(*refs, **kw)
@@ -632,10 +638,112 @@ def _grad_check(dev, dtype, B, H, KV, S, T, D, causal, window, softcap):
     (1, 64, 8, 512, 512, 128, True, 0, 0.0),     # qwen3's GQA 64/8
     (1, 8, 4, 512, 512, 256, True, 128, 50.0),   # gemma2's D, window, cap
     (2, 4, 4, 100, 300, 64, False, 0, 0.0),      # cross, ragged tiles
+    (2, 32, 32, 1024, 1024, 80, True, 0, 0.0),   # zamba2's D
+    (1, 20, 20, 448, 1500, 64, False, 0, 0.0),   # whisper's cross shape
 ])
 def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
                                       window, softcap):
     _grad_check(cuda, dtype, B, H, KV, S, T, D, causal, window, softcap)
+
+
+# The backward kernels alone, at every head dim: launch (b) walks 64-key
+# tiles, (c) 64-query tiles, so 150 and 77 are multiples of neither.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", FA.HEAD_DIMS)
+@pytest.mark.parametrize("BH,BKV,S,T,causal,window,softcap", [
+    (4, 2, 150, 150, True, 0, 0.0),      # causal, GQA 2:1, ragged
+    (4, 1, 150, 150, True, 37, 30.0),    # window and softcap, GQA 4:1
+    (2, 2, 77, 150, False, 0, 0.0),      # cross, S < T, ragged
+    (2, 2, 150, 77, True, 0, 0.0),       # causal, S > T: keys past S seen
+])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, D, BH, BKV, S, T,
+                                             causal, window, softcap):
+    """dq, dk, dv from the forward's saved statistics against
+    ``attention_ref_grad`` in f32 on the same values (the limits of
+    ``_grad_check``); two launches give the same bits; one backward launch
+    each on the dtype's backward route."""
+    q, k, v = _qkv(cuda, BH, BKV, S, T, D, dtype)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(D), device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse, lo = FA.flash_attention_kernel(q, k, v, **kw, stats=True)
+    assert torch.equal(out, FA.flash_attention_kernel(q, k, v, **kw))
+    route = FA.BACKWARD_ROUTE[_route(dtype)]
+    before = dict(FA.launches_by_kernel)
+    runs = [FA.flash_attention_backward_kernel(q, k, v, out, lse, do,
+                                               out_lo=lo, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in FA.launches_by_kernel.items()} == \
+        {r: 2 * int(r == route) for r in before}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    refs = attention_ref_grad(q.float(), k.float(), v.float(), do.float(),
+                              **kw)
+    for got, want in zip(runs[0], refs):
+        assert got.dtype == dtype and got.is_contiguous()
+        err = (got.float() - want).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-5 * want.abs().max().item()
+        else:
+            assert bool((err <= 2.0 ** -8 * want.abs() + 2e-5).all()), \
+                err.max().item()
+
+
+def test_flash_backward_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = _qkv(cuda, 4, 2, 40, 40, 32, torch.bfloat16)
+    out, lse, lo = FA.flash_attention_kernel(q, k, v, stats=True)
+    bwd = FA.flash_attention_backward_kernel
+    with pytest.raises(ValueError, match="out_lo"):
+        bwd(q, k, v, out, lse, out)
+    with pytest.raises(ValueError, match="lse"):
+        bwd(q, k, v, out, lse[:, :8].contiguous(), out, out_lo=lo)
+    with pytest.raises(ValueError, match="lse"):
+        bwd(q, k, v, out, lse.double(), out, out_lo=lo)
+    with pytest.raises(TypeError):
+        bwd(q, k, v, out, lse, out.float(), out_lo=lo)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q, k, v, out, lse, out.transpose(0, 1).contiguous()
+            .transpose(0, 1), out_lo=lo)
+    with pytest.raises(ValueError, match="CUDA"):
+        bwd(q.cpu(), k, v, out, lse, out, out_lo=lo)
+    with pytest.raises(ValueError, match="must be q's"):
+        bwd(q, k, v, out[:, :8].contiguous(), lse, out, out_lo=lo)
+    # the f32 backward reads 16 bytes at a time: its bases too are aligned
+    qf, kf, vf = _qkv(cuda, 4, 2, 40, 40, 32, torch.float32)
+    outf, lsef, _ = FA.flash_attention_kernel(qf, kf, vf, stats=True)
+    shifted = torch.empty(qf.numel() + 1, device=cuda)[1:]
+    shifted = shifted.view(qf.shape).copy_(qf)
+    with pytest.raises(ValueError, match="aligned"):
+        bwd(shifted, kf, vf, outf, lsef, outf)
+
+
+def test_train_step_reaches_no_plain_flash_gradient(cuda, monkeypatch):
+    """A train step of minicpm-2b-smoke in bf16 on the card: one flash
+    backward launch a layer on the tensor-core route, and no call of the
+    plain gradient ``ref.attention_ref_grad``."""
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import (TrainStepConfig, init_train_state,
+                                           make_train_step)
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return attention_ref_grad(*args, **kw)
+    monkeypatch.setattr(ref, "attention_ref_grad", counted)
+    cfg = dataclasses.replace(get_config("minicpm-2b-smoke"),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3), schedule_warmup=1)
+    model = build_model(cfg, device=cuda)
+    state = init_train_state(model, model.init(0), ts)
+    before = (FA.backward_launches, FA.launches_by_kernel["bwd_tc_bf16"])
+    _, metrics = make_train_step(model, ts)(state, batch_for_step(
+        cfg, 0, 2, 64, device=cuda))
+    torch.cuda.synchronize()
+    assert calls == []
+    assert (FA.backward_launches, FA.launches_by_kernel["bwd_tc_bf16"]) == \
+        (before[0] + cfg.num_layers, before[1] + cfg.num_layers)
+    assert torch.isfinite(torch.as_tensor(metrics["loss"])).all()
 
 
 def test_kernels_without_a_backward_refuse_a_gradient(cuda):
@@ -762,17 +870,17 @@ def _train_launches(cfg) -> dict[str, int]:
 
 
 def _launch_counts() -> dict[str, int]:
-    return {"flash": FA.launches, "mamba": MS.launches,
-            "mamba_bwd": MS.backward_launches, "mlstm": ML.launches,
-            "mlstm_bwd": ML.backward_launches}
+    return {"flash": FA.launches, "flash_bwd": FA.backward_launches,
+            "mamba": MS.launches, "mamba_bwd": MS.backward_launches,
+            "mlstm": ML.launches, "mlstm_bwd": ML.backward_launches}
 
 
 @pytest.mark.parametrize("name", ["minicpm-2b-smoke", "gemma2-2b-smoke",
                                   "zamba2-2.7b-smoke", "xlstm-1.3b-smoke"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, name):
     """One train step of a smoke config on the card (flash through its
-    autograd function, one launch an attention block; each scan through its
-    own, one forward and one backward launch a layer) and on the CPU from
+    autograd function and each scan through its own, one forward and one
+    backward launch an attention block or scan layer) and on the CPU from
     the same state: loss within 1e-5 relative, gradients within 1e-4·max
     per leaf, parameters within 2·lr + 1e-6."""
     from repro_torch import tree
@@ -792,7 +900,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, name):
     _, _, g_gpu = make_grad_fn(gpu_model, ts)(gpu_state["params"], batch)
     torch.cuda.synchronize()
     want = _train_launches(cfg)
-    want.update(mamba_bwd=want["mamba"], mlstm_bwd=want["mlstm"])
+    want.update(flash_bwd=want["flash"], mamba_bwd=want["mamba"],
+                mlstm_bwd=want["mlstm"])
     assert {k: n - before[k] for k, n in _launch_counts().items()} == want
     for a, b in zip(tree.leaves(g_cpu), tree.leaves(g_gpu)):
         assert b.norm().item() > 0

@@ -1,0 +1,398 @@
+"""The flash-attention backward kernels' arithmetic on the CPU.
+
+``csrc/flash_attention_bwd_sm90.cu`` (bf16, tensor cores) and
+``csrc/flash_attention_bwd.cu`` (f32, CUDA cores) run only on the card;
+this file emulates them in torch, step by step as they walk their tiles:
+the forward kernel's online softmax over its key tiles, which saves each
+row's log-sum-exp (and, in bf16, O's lo part); D_i = rowsum(dO∘O) from the
+f32-accurate O; launch (b), per 64-key tile of a KV head, walking the
+group's query heads and their visible query tiles (``backward_tiles``'s
+BQ) and accumulating dK and dV; launch (c), per 64-query tile, walking the
+visible key tiles (BKC) and accumulating dQ; in bf16 P and dS split into
+hi + lo bf16, each product summed in f32 sixteen rows at a time, hi then
+lo, as ``mma.sync`` takes them.  The emulation is held against
+``jax.grad`` of the JAX package's ``attention_scores`` (the arithmetic JAX
+trains through) at causal, windowed, softcapped, GQA, non-causal cross
+and ragged shapes and at every head dim:
+
+* f32: each element within 1e-5·max|ref|;
+* bf16: bf16 gradients, each within half a bf16 ulp (2^-8 relative) plus
+  2e-5 of the gradient in f32 of the same bf16 values.
+
+The emulated log-sum-exp is held against ``torch.logsumexp`` of the masked,
+softcapped logits, and ``FlashAttention`` runs with the emulation injected
+as its ``backward_fn``.  Inputs come from a numpy seed.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as JL
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.ref import (NEG_INF, _visible, attention_ref,
+                                     attention_ref_grad)
+
+F32_RTOL = 1e-5
+BF16_RTOL, BF16_ATOL = 2.0**-8, 2e-5
+LOG2E = 1.4426950408889634
+ROWS = 64          # keys a block of launch (b) owns, queries one of (c)
+
+
+def forward_key_tile(D: int, dtype: torch.dtype) -> int:
+    """Keys a step of the forward kernel's online softmax at head dim D
+    (``csrc/flash_attention_sm90.cu``'s ``Tiles<D>::BK``,
+    ``csrc/flash_attention.cu``'s ``BK``)."""
+    if dtype == torch.bfloat16:
+        return 64 if D in (128, 256) else 128
+    return 64
+
+
+def backward_tiles(D: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(BQ, BKC) of the backward kernels at head dim D: launch (b) walks
+    the queries BQ at a time, launch (c) the keys BKC at a time (the
+    sources' ``BwdTiles`` and ``F32Tiles``)."""
+    if dtype == torch.bfloat16:
+        return (64 if D <= 96 else 32), (64 if D <= 128 else 32)
+    return (32, 32) if D == 256 else (64, 64)
+
+# name, B, H, KV, S, T, D, causal, window, softcap: the shapes of
+# tests/test_torch_flash_grad.py, then ragged S and T (not multiples of any
+# tile), a cross shape past one key block, and one case a head dim.
+SHAPES = [
+    ("causal", 2, 4, 4, 24, 24, 16, True, 0, 0.0),
+    ("window", 1, 4, 4, 40, 40, 16, True, 8, 0.0),
+    ("softcap", 2, 2, 2, 17, 17, 32, True, 0, 50.0),
+    ("window_softcap", 1, 4, 2, 33, 33, 16, True, 6, 30.0),
+    ("gqa_4to1", 2, 8, 2, 20, 20, 16, True, 0, 0.0),
+    ("cross_noncausal", 2, 4, 4, 9, 30, 16, False, 0, 0.0),
+    ("ragged_causal", 1, 2, 2, 77, 77, 32, True, 0, 0.0),
+    ("ragged_window_gqa", 1, 4, 2, 150, 150, 16, True, 37, 0.0),
+    ("cross_ragged_long", 1, 2, 2, 70, 150, 16, False, 0, 0.0),
+    ("causal_cross_s_lt_t", 1, 2, 1, 70, 150, 32, True, 0, 0.0),
+    ("noncausal_s_gt_t", 1, 2, 2, 90, 33, 16, False, 0, 0.0),
+] + [(f"d{d}", 1, 2, 1, 40, 40, d, True, 0, 0.0)
+     for d in FA.HEAD_DIMS]
+
+
+def _inputs(shape, seed):
+    _, B, H, KV, S, T, D, *_ = shape
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, T, KV, D)).astype(np.float32)
+    v = rng.normal(size=(B, T, KV, D)).astype(np.float32)
+    do = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    return q, k, v, do
+
+
+def _flat(x: np.ndarray, dtype=torch.float32) -> torch.Tensor:
+    """(B, S, H, D) → the kernel's (B·H, S, D)."""
+    B, S, H, D = x.shape
+    return torch.from_numpy(x).permute(0, 2, 1, 3).reshape(B * H, S, D) \
+        .contiguous().to(dtype)
+
+
+def _unflat(x: torch.Tensor, B: int) -> np.ndarray:
+    BH, S, D = x.shape
+    return x.reshape(B, BH // B, S, D).permute(0, 2, 1, 3).float().numpy()
+
+
+def _jax_grads(shape, q, k, v, do):
+    _, B, H, KV, S, T, D, causal, window, softcap = shape
+    mask = _visible(S, T, causal, window, "cpu").numpy()
+
+    def f(q_, k_, v_):
+        o = JL.attention_scores(q_, k_, v_, jnp.asarray(mask[None]), softcap)
+        return jnp.sum(o * do)
+    return [np.asarray(g) for g in
+            jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))]
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """hi = bf16(x), lo = bf16(x - hi), both back in f32."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _rows(x: torch.Tensor, r0: int, n: int) -> torch.Tensor:
+    """Rows [r0, r0 + n) of x (rows, D) as f32, rows past the end zeros."""
+    out = torch.zeros(n, x.shape[1])
+    got = x[r0:r0 + n].float()
+    out[:got.shape[0]] = got
+    return out
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor,
+             split: bool) -> torch.Tensor:
+    """acc + a @ b as the kernels sum it: in bf16 a (f32) as hi + lo, over
+    the contraction sixteen at a time, hi then lo; in f32 at once."""
+    if not split:
+        return acc + a @ b
+    hi, lo = _split(a)
+    for c in range(0, a.shape[1], 16):
+        acc = acc + hi[:, c:c + 16] @ b[c:c + 16]
+        acc = acc + lo[:, c:c + 16] @ b[c:c + 16]
+    return acc
+
+
+def _logits(s: torch.Tensor, scale: float, softcap: float):
+    """The logit x of raw scores s and dx/ds, through softcap and scale."""
+    if softcap:
+        t = torch.tanh(s * (scale / softcap))
+        return softcap * t, (1 - t * t) * scale
+    return s * scale, torch.full_like(s, scale)
+
+
+def emulate_forward(q, k, v, *, causal, window, softcap):
+    """The forward kernel's online softmax over its key tiles, per query
+    head: returns O in f32, its lse (BH, S) and, in bf16, O as the kernel
+    rounds it (hi) and its lo part."""
+    BH, S, D = q.shape
+    BKV, T, _ = k.shape
+    G = BH // BKV
+    bf16 = q.dtype == torch.bfloat16
+    BK = forward_key_tile(D, q.dtype)
+    scale = 1 / math.sqrt(D)
+    mask = _visible(S, T, causal, window, "cpu")
+    o = torch.zeros(BH, S, D)
+    lse = torch.zeros(BH, S)
+    for bh in range(BH):
+        qf, kf, vf = q[bh].float(), k[bh // G].float(), v[bh // G].float()
+        m = torch.full((S,), NEG_INF)
+        l, acc = torch.zeros(S), torch.zeros(S, D)
+        for kb in range(0, T, BK):
+            s = qf @ kf[kb:kb + BK].T
+            x, _ = _logits(s, scale, softcap)
+            x = torch.where(mask[:, kb:kb + BK], x, NEG_INF)
+            mx = torch.maximum(m, x.max(dim=1).values)
+            p = torch.exp(x - mx[:, None])
+            alpha = torch.exp(m - mx)
+            l = l * alpha + p.sum(dim=1)
+            acc = _product(p, vf[kb:kb + BK], acc * alpha[:, None], bf16)
+            m = mx
+        o[bh] = acc / l[:, None]
+        lse[bh] = m + torch.log(l)
+    if bf16:
+        hi, lo = o.bfloat16(), (o - o.bfloat16().float()).bfloat16()
+        return o, lse, hi, lo
+    return o, lse, o, None
+
+
+def emulate_backward(q, k, v, out, lse, dout, *, out_lo=None, causal=True,
+                     window=0, softcap=0.0, rounded=True):
+    """dq, dk, dv as the backward kernels compute them, from the forward's
+    out (in bf16 with out_lo) and lse: launch (a)'s D_i, (b)'s walk per
+    64-key tile and KV head, (c)'s per 64-query tile and query head.  In
+    the inputs' dtype, or the f32 accumulators where not ``rounded``."""
+    BH, S, D = q.shape
+    BKV, T, _ = k.shape
+    G = BH // BKV
+    bf16 = q.dtype == torch.bfloat16
+    BQ, BKC = backward_tiles(D, q.dtype)
+    scale = 1 / math.sqrt(D)
+    o = out.float() + (out_lo.float() if bf16 else 0)
+    di = (dout.float() * o).sum(dim=-1)                       # (a)
+    mask = _visible(S, T, causal, window, "cpu")
+
+    def grad_tile(s, dp, rows, cols, lse_t, di_t, by_row):
+        """P and dS of a tile of raw scores, masked where not visible;
+        ``by_row``: lse and D_i index the rows (c) or the columns (b)."""
+        x, dx = _logits(s, scale, softcap)
+        lse_b = lse_t[:, None] if by_row else lse_t[None, :]
+        di_b = di_t[:, None] if by_row else di_t[None, :]
+        p = torch.exp2(x * LOG2E - lse_b * LOG2E)
+        vis = torch.zeros(s.shape, dtype=torch.bool)
+        r, c = (rows, cols) if by_row else (cols, rows)
+        r_ok, c_ok = r[r < S], c[c < T]
+        sub = mask[r_ok[:, None], c_ok[None, :]]
+        if by_row:
+            vis[:len(r_ok), :len(c_ok)] = sub
+        else:
+            vis[:len(c_ok), :len(r_ok)] = sub.T
+        p = torch.where(vis, p, 0.0)
+        return p, p * (dp - di_b) * dx
+
+    dk = torch.zeros(BKV, T, D)
+    dv = torch.zeros(BKV, T, D)
+    for kvh in range(BKV):                                     # (b)
+        for k0 in range(0, T, ROWS):
+            q_lo = k0 if causal else 0
+            q_hi = min(S, k0 + ROWS - 1 + window) if window else S
+            q_lo = q_lo // BQ * BQ
+            kt, vt = _rows(k[kvh], k0, ROWS), _rows(v[kvh], k0, ROWS)
+            acc_k, acc_v = torch.zeros(ROWS, D), torch.zeros(ROWS, D)
+            for g in range(G):
+                bh = kvh * G + g
+                for q0 in range(q_lo, q_hi, BQ):
+                    qt, ot = _rows(q[bh], q0, BQ), _rows(dout[bh], q0, BQ)
+                    lse_t = _rows(lse[bh][:, None], q0, BQ)[:, 0]
+                    di_t = _rows(di[bh][:, None], q0, BQ)[:, 0]
+                    p, ds = grad_tile(kt @ qt.T, vt @ ot.T,
+                                      torch.arange(k0, k0 + ROWS),
+                                      torch.arange(q0, q0 + BQ), lse_t, di_t,
+                                      by_row=False)
+                    acc_v = _product(p, ot, acc_v, bf16)
+                    acc_k = _product(ds, qt, acc_k, bf16)
+            n = min(ROWS, T - k0)
+            dk[kvh, k0:k0 + n], dv[kvh, k0:k0 + n] = acc_k[:n], acc_v[:n]
+    dq = torch.zeros(BH, S, D)
+    for bh in range(BH):                                       # (c)
+        for q0 in range(0, S, ROWS):
+            k_lo = max(0, q0 - window + 1) // BKC * BKC if window else 0
+            k_hi = min(T, q0 + ROWS) if causal else T
+            qt, ot = _rows(q[bh], q0, ROWS), _rows(dout[bh], q0, ROWS)
+            lse_t = _rows(lse[bh][:, None], q0, ROWS)[:, 0]
+            di_t = _rows(di[bh][:, None], q0, ROWS)[:, 0]
+            acc = torch.zeros(ROWS, D)
+            for kb in range(k_lo, k_hi, BKC):
+                kt, vt = (_rows(x[bh // G], kb, BKC) for x in (k, v))
+                _, ds = grad_tile(qt @ kt.T, ot @ vt.T,
+                                  torch.arange(q0, q0 + ROWS),
+                                  torch.arange(kb, kb + BKC), lse_t, di_t,
+                                  by_row=True)
+                acc = _product(ds, kt, acc, bf16)
+            n = min(ROWS, S - q0)
+            dq[bh, q0:q0 + n] = acc[:n]
+    dt = q.dtype if rounded else torch.float32
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _case(shape, dtype, seed):
+    """Inputs in ``dtype`` (the kernel's layout), the emulated forward and
+    backward, and the numpy inputs rounded to ``dtype`` for JAX."""
+    q, k, v, do = (_flat(a).to(dtype) for a in _inputs(shape, seed))
+    _, B, *_, causal, window, softcap = shape
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o32, lse, out, out_lo = emulate_forward(q, k, v, **kw)
+    grads = emulate_backward(q, k, v, out, lse, do, out_lo=out_lo, **kw)
+    as_np = [_unflat(t, B) for t in (q, k, v, do)]
+    return (q, k, v, do), (o32, lse, out, out_lo), grads, as_np, kw
+
+
+@pytest.fixture
+def one_thread():
+    """The emulation walks hundreds of small tiles, which gain nothing from
+    intra-op threads and, beside other test processes, lose much to them:
+    run the test on one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _held(got: torch.Tensor, ref: np.ndarray, B: int, dtype,
+          what: str) -> None:
+    g = _unflat(got, B)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(g, ref, rtol=0,
+                                   atol=F32_RTOL * np.abs(ref).max(),
+                                   err_msg=what)
+    else:
+        assert got.dtype == torch.bfloat16
+        err = np.abs(g - ref)
+        worst = (err / (BF16_RTOL * np.abs(ref) + BF16_ATOL)).max()
+        assert worst <= 1.0, f"{what}: {worst:.3f} of the limit"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+def test_emulated_backward_matches_jax_grad(shape, dtype, one_thread):
+    """The backward kernels' arithmetic against ``jax.grad`` of
+    ``attention_scores`` on the same (in bf16: the same rounded) values."""
+    B = shape[1]
+    _, _, grads, (q, k, v, do), _ = _case(shape, dtype, seed=11)
+    for name, got, want in zip("qkv", grads, _jax_grads(shape, q, k, v, do)):
+        assert got.dtype == dtype
+        _held(got, want, B, dtype, f"d{name}")
+
+
+@pytest.mark.parametrize("shape", SHAPES[:6] + SHAPES[7:9],
+                         ids=[s[0] for s in SHAPES[:6] + SHAPES[7:9]])
+def test_emulated_lse_matches_logsumexp(shape, one_thread):
+    """The forward's saved log-sum-exp, from its online softmax over key
+    tiles, against ``torch.logsumexp`` of the masked, softcapped logits;
+    its O against the plain forward."""
+    (q, k, v, _), (o32, lse, _, _), _, _, kw = _case(shape, torch.float32, 5)
+    D = q.shape[-1]
+    G = q.shape[0] // k.shape[0]
+    s = torch.einsum("hsd,htd->hst", q, k.repeat_interleave(G, 0))
+    x, _ = _logits(s, 1 / math.sqrt(D), kw["softcap"])
+    mask = _visible(q.shape[1], k.shape[1], kw["causal"], kw["window"],
+                    "cpu")
+    want = torch.logsumexp(torch.where(mask, x, NEG_INF), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=0, atol=4e-6)
+    ref_out, ref_lse, _ = attention_ref(q, k, v, **kw, stats=True)
+    torch.testing.assert_close(ref_lse, want, rtol=0, atol=4e-6)
+    torch.testing.assert_close(o32, ref_out, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [SHAPES[2], SHAPES[7]],
+                         ids=[SHAPES[2][0], SHAPES[7][0]])
+def test_bf16_d_i_needs_the_lo_part(shape, one_thread):
+    """D_i from O's hi + lo: dq's f32 accumulator lies within 1e-5 of
+    max|dq| of the f32 gradient.  From the bf16 O alone the same arithmetic
+    moves dS by up to 2^-9 of Σ|dO||O|, and the accumulator lies many
+    times farther (before the one rounding to bf16 that both share)."""
+    (q, k, v, do), (_, lse, out, out_lo), _, _, kw = _case(
+        shape, torch.bfloat16, 3)
+    ref = attention_ref_grad(*(t.float() for t in (q, k, v, do)), **kw)
+    with_lo, no_lo = (emulate_backward(q, k, v, out, lse, do, out_lo=lo,
+                                       rounded=False, **kw)[0]
+                      for lo in (out_lo, torch.zeros_like(out_lo)))
+    d_with = (with_lo - ref[0]).abs().max().item()
+    d_without = (no_lo - ref[0]).abs().max().item()
+    assert d_with <= F32_RTOL * ref[0].abs().max().item()
+    assert d_without >= 20 * d_with
+
+
+def test_function_runs_the_injected_backward(one_thread):
+    """``FlashAttention`` saves the forward's output and statistics and
+    hands them to the injected ``backward_fn``: with the forward's
+    emulation and the backward's, its gradients are the emulation's, in
+    the inputs' dtype; without one, on the CPU, the plain gradient."""
+    shape = SHAPES[3]
+    q, k, v, do = (_flat(a).bfloat16() for a in _inputs(shape, 7))
+    _, B, *_, causal, window, softcap = shape
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    seen = []
+
+    def forward_fn(q_, k_, v_, *, stats, **kw_):
+        assert stats
+        _, lse, out, out_lo = emulate_forward(q_, k_, v_, **kw_)
+        return out, lse, out_lo
+
+    def backward_fn(*args, **kw_):
+        seen.append(kw_)
+        return emulate_backward(*args, **kw_)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = FA.FlashAttention.apply(*leaves, causal, window, softcap,
+                                  forward_fn, backward_fn)
+    out.backward(do)
+    assert len(seen) == 1 and seen[0]["out_lo"] is not None
+    _, lse, ref_out, out_lo = emulate_forward(q, k, v, **kw)
+    want = emulate_backward(q, k, v, ref_out, lse, do, out_lo=out_lo, **kw)
+    assert torch.equal(out.detach(), ref_out)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == torch.bfloat16 and torch.equal(t.grad, w)
+    plain = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    FA.FlashAttention.apply(*plain, causal, window, softcap,
+                            attention_ref).backward(do.float())
+    want = attention_ref_grad(*(t.float() for t in (q, k, v, do)), **kw)
+    for t, w in zip(plain, want):
+        assert torch.equal(t.grad, w)
+
+
+def test_backward_kernel_refuses_cpu_tensors():
+    """The kernel wrapper takes CUDA tensors only; the CPU has the plain
+    version through ``flash_attention_backward``."""
+    q = torch.zeros(2, 8, 16)
+    lse = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_backward_kernel(q, q, q, q, lse, q)
+    got = FA.flash_attention_backward(q, q, q, q, lse, q)
+    assert all(g.shape == q.shape for g in got)
