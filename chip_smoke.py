@@ -10,8 +10,10 @@ Phases, each of which raises (exit code 1) on failure:
    spills and dynamic shared memory, the same per tile width (64, 128)
    for the fused-conv kernel, per chunk (64, 128) for the SSD scan's
    three kernels, the mLSTM scan's four and each scan backward kernel's
-   four, and per head dim the flash backward's three on each route (D_i,
-   dK and dV, dQ), none of which may spill.
+   four, and per head dim the flash backward's kernels on each route
+   (bf16: the wgmma kernel and its prep launch at D <= 128, mma.sync's D_i,
+   dK and dV, dQ at D = 256; f32: D_i, dK and dV, dQ), none of which may
+   spill.
 3. kernel check: the fused-conv kernel (the tensor-core kernel of
    ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
    split K over a cluster) against its plain PyTorch version on the card,
@@ -225,15 +227,17 @@ Phases, each of which raises (exit code 1) on failure:
 34. flash gradient: dq, dk and dv through ``ops.flash_attention`` on a
     tensor that needs a gradient (the kernel inside the ``FlashAttention``
     autograd function, whose backward launches the backward kernels:
-    ``csrc/flash_attention_bwd_sm90.cu`` for bf16, ``csrc/
-    flash_attention_bwd.cu`` for f32) against autograd of the plain
+    ``csrc/flash_attention_bwd_sm90.cu`` for bf16 (``csrc/
+    flash_attention_bwd_mma.cu`` at D=256), ``csrc/flash_attention_bwd.cu``
+    for f32) against autograd of the plain
     attention in f32 on the same values, in bf16 and in f32, at
     minicpm-2b's 4x1024 with 36 heads of 64, qwen3's GQA 64/8 at D=128,
     gemma2's D=256 with window and softcap 50, zamba2's D=80 at 4x1024
     and a whisper-like non-causal cross shape (S=448, T=1500, D=64); each
     element within 1e-5·max|ref| (f32) or half a bf16 ulp + 2e-5 (bf16);
     each shape twice, the two gradients bit-equal, two forward and two
-    backward launches, each on its dtype's route.  From here on every
+    backward launches, each on its dtype's (and head dim's) route.  From
+    here on every
     check of a path's launches also holds the calls of the plain flash
     gradient (``ref.attention_ref_grad``, counted as
     ``plain_flash_backward``) at 0: no train step on the card reaches it.
@@ -361,6 +365,13 @@ device time of each of the op's kernels, and the sums over one prefill.
     python3 chip_smoke.py --mlstm-times
 
 does the same for the mLSTM scan at every shape of phase 17 (MLSTM_ATOL).
+
+    python3 chip_smoke.py --flash-bwd-times
+
+times the bf16 flash backward kernels alone at every shape of phase 34
+(minicpm-2b's layer first, zamba2-2.7b's D=80 fourth) beside their bound
+and SDPA's backward, through whatever ``src/repro_torch`` lies beside this
+file, the same way.
 
     python3 chip_smoke.py --launch-paths
 
@@ -890,22 +901,33 @@ def build() -> tuple[float, dict]:
               and all(row.get("spill_bytes") == 0 for row in report.values()),
               f"{lib_name} ptxas report: {report}")
         backward[lib_name] = report
-    # The flash backward's kernels: D_i, dK and dV, dQ, per head dim on
-    # each route (f32 in flash_attention_bwd.cu): registers, spills (none
-    # allowed) and, for the tensor-core route, dynamic shared memory.
-    flash_bwd = ptxas_report(log, r"(flash_bwd_(?:f32_)?(?:dkdv|dq|dot_do_o)"
-                                  r"_kernel)(?:ILi(\d+)E)?",
+    # The flash backward's kernels, per head dim on each route: bf16 through
+    # wgmma (flash_attention_bwd_sm90.cu: the prep launch, the main kernel
+    # at D <= 128, the dq conversion), bf16 through mma.sync at D = 256
+    # (flash_attention_bwd_mma.cu: D_i, dK and dV, dQ), f32
+    # (flash_attention_bwd.cu: the same three at every D): registers,
+    # spills (none allowed) and, for the tensor-core routes, dynamic shared
+    # memory.
+    flash_bwd = ptxas_report(log, r"(flash_bwd_(?:f32_)?(?:sm90|prep|dkdv|"
+                                  r"dq_convert|dq|dot_do_o)_kernel)"
+                                  r"(?:ILi(\d+)E)?",
                              lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""))
     for key, row in sorted(flash_bwd.items()):
-        which = 2 if "dkdv" in key else 3 if "_dq_" in key else 0
-        if which and "_f32_" not in key:
-            row["dynamic_smem_bytes"] = lib.flash_attention_bwd_sm90_smem_bytes(
-                which, int(key[key.index("<") + 1:-1]))
+        d = int(key[key.index("<") + 1:-1]) if "<" in key else 0
+        if "_sm90_" in key:
+            row["dynamic_smem_bytes"] = (
+                lib.flash_attention_bwd_sm90_smem_bytes(d))
+        elif "_f32_" not in key and d:
+            row["dynamic_smem_bytes"] = lib.flash_attention_bwd_mma_smem_bytes(
+                2 if "dkdv" in key else 3, d)
         print(f"[build] {key}: {row.get('registers')} registers, "
               f"{row.get('spill_bytes')} B spilled"
               + (f", {row['dynamic_smem_bytes']:,} B dynamic shared memory"
                  if "dynamic_smem_bytes" in row else ""))
-    check(len(flash_bwd) == 2 + 2 * 2 * 7
+    wgmma_dims = sorted(int(k[k.index("<") + 1:-1]) for k in flash_bwd
+                        if "_sm90_" in k)
+    check(len(flash_bwd) == (2 + 6) + 3 + (1 + 2 * 7)
+          and wgmma_dims == [16, 32, 64, 80, 96, 128]
           and all(row.get("spill_bytes") == 0 for row in flash_bwd.values()),
           f"flash backward ptxas report: {flash_bwd}")
     backward["flash_attention_bwd"] = flash_bwd
@@ -1479,10 +1501,12 @@ def margin_agree(top: torch.Tensor, ref_top: torch.Tensor,
 
 
 def check_launches(expect: dict[str, int], what: str,
-                   route: str | None = None) -> dict[str, int]:
+                   route: str | None = None,
+                   bwd_route: str | None = None) -> dict[str, int]:
     """The counts since ``zero_launches``: exactly ``expect`` of each kernel
     it names, none of the others, every flash launch on ``route`` and every
-    flash backward launch on that route's backward."""
+    flash backward launch on ``bwd_route`` (by default that route's
+    backward below D = 256)."""
     got = launch_counts()
     want = {name: expect.get(name, 0) for name in got}
     check(got == want, f"{what}: kernel launches {got}, want {want}")
@@ -1491,7 +1515,8 @@ def check_launches(expect: dict[str, int], what: str,
     want_routes = dict.fromkeys(routes, 0)
     if route is not None:
         want_routes[route] = want["flash_attention"]
-        want_routes[FA.BACKWARD_ROUTE[route]] = want["flash_attention_bwd"]
+        want_routes[bwd_route or FA.BACKWARD_ROUTE[route]] = \
+            want["flash_attention_bwd"]
     check(routes == want_routes, f"{what}: flash launches by route {routes}, "
           f"want {want_routes}")
     return got
@@ -2241,6 +2266,65 @@ def conv_times() -> None:
           f"{fmt_ms(total['device'] if measured else None)}")
 
 
+def flash_bwd_times() -> None:
+    """The bf16 flash backward kernels alone (``flash_attention_backward_
+    kernel`` on the forward kernel's saved statistics) at every shape of
+    phase 34's GRAD_SHAPES, the first minicpm-2b's layer and the fourth
+    zamba2-2.7b's: CUDA-event and device time, the device time of each
+    device kernel, the bound (10·D operations a visible pair at 989
+    TFLOP/s against each input read and each output written once) and
+    SDPA's backward alone where it computes the same function (no window,
+    no softcap; ``enable_gqa`` for GQA), timed as a yardstick the port
+    never calls.  Only the wrapper's signature is used, so a copy of this
+    file beside an older checkout times that checkout's kernels."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    _build.library()
+    for i, (name, B, H, KV, S, T, D, causal, window,
+            softcap) in enumerate(GRAD_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 970 + i)
+        q, k, v, do = (torch.randn(B * heads, n, D, generator=g,
+                                   device="cuda").bfloat16()
+                       for heads, n in ((H, S), (KV, T), (KV, T), (H, S)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out, lse, lo = FA.flash_attention_kernel(q, k, v, **kw, stats=True)
+
+        def call():
+            return FA.flash_attention_backward_kernel(q, k, v, out, lse, do,
+                                                      out_lo=lo, **kw)
+        ms = cuda_ms(call)
+        by_kernel = device_ms_by_kernel(call) or {}
+        pairs = B * H * flash_pairs(S, T, causal, window)
+        # q, O, O's lo part, dO and dq; k, v, dk, dv; the f32 lse
+        bound = roofline(10 * D * pairs,
+                         2 * D * (5 * B * H * S + 4 * B * KV * T)
+                         + 4 * B * H * S, PEAK_BF16_OPS)
+        library = None
+        if not window and not softcap:
+            # (B, heads, rows, D) views of (B, rows, heads, D) tensors, the
+            # model's layout, as phase 38 hands them to SDPA
+            q4, k4, v4, do4 = (
+                t.view(B, -1, t.shape[1], D).transpose(1, 2).contiguous()
+                .transpose(1, 2) for t in (q, k, v, do))
+            q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
+            out4 = F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, enable_gqa=H != KV)
+            library = cuda_ms(lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True))
+            del q4, k4, v4, do4, out4
+        device = sum(by_kernel.values()) if by_kernel else None
+        parts = ", ".join(f"{n.split('(')[0]} {t:.4f}"
+                          for n, t in sorted(by_kernel.items()))
+        print(f"[flash-bwd] {name}_bf16 {B}x{H}/{KV} heads S={S} T={T} D={D}"
+              f" causal={causal} window={window} softcap={softcap}: events "
+              f"{ms:.4f} ms, on the card {fmt_ms(device)} ({parts}); bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, 10*D a "
+              f"pair), {bound['ops'] / ms / 1e9:.1f} TFLOP/s of the 10*D; "
+              f"SDPA's backward alone {fmt_ms(library)}")
+        del q, k, v, do, out, lse, lo
+    torch.cuda.empty_cache()
+
+
 def recurrence_times(tag: str, module, kernel, plain, shapes, inputs,
                      closed_form, limit: float, note: str, bounds,
                      ops_label: str, exact=None) -> None:
@@ -2550,10 +2634,11 @@ def flash_grad_check(seed: int) -> list[dict]:
     the backward kernel of the dtype's route) against autograd of the plain
     attention in f32 on the same values, at every shape of GRAD_SHAPES in
     bf16 and in f32.  Each shape runs twice: the two gradients bit-equal,
-    two forward and two backward launches, each on its dtype's route, and
-    no call of the plain gradient."""
+    two forward and two backward launches, each on its dtype's route (the
+    backward's by dtype and head dim), and no call of the plain
+    gradient."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import BACKWARD_ROUTE
+    from repro_torch.kernels.flash_attention import backward_route
     print(f"[grad] limits, per element against autograd of the plain "
           f"attention in f32 on the same values: f32 |got - ref| <= "
           f"{GRAD_F32_RTOL}*max|ref|; bf16 |got - ref| <= "
@@ -2571,6 +2656,7 @@ def flash_grad_check(seed: int) -> list[dict]:
             do = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
             kw = dict(causal=causal, window=window, softcap=softcap)
             route = "wgmma_bf16" if dtype == torch.bfloat16 else "simt_f32"
+            bwd_route = backward_route(dtype, D)
             zero_launches()
             runs = []
             for _ in range(2):
@@ -2579,7 +2665,7 @@ def flash_grad_check(seed: int) -> list[dict]:
                 runs.append([t.grad for t in leaves])
             torch.cuda.synchronize()
             check_launches(train_expect(2), f"{tag}: two forwards and "
-                           f"backwards", route)
+                           f"backwards", route, bwd_route)
             same = all(torch.equal(a, b) for a, b in zip(*runs))
             check(same, f"{tag}: two backward launches differ")
             refs = [t.float().requires_grad_() for t in (q, k, v)]
@@ -2596,14 +2682,14 @@ def flash_grad_check(seed: int) -> list[dict]:
                        torch.float32 else FLASH_RTOL[dtype] * r.grad.abs()
                        + FLASH_ATOL)
                 used = max(used, (err / lim).max().item())
-            print(f"[grad] {tag:33s} {route} + {BACKWARD_ROUTE[route]}: "
+            print(f"[grad] {tag:33s} {route} + {bwd_route}: "
                   f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
                   f"{errs[2]:.3e}; limit used {used:.3f}; two backward "
                   f"launches bit-equal {same}")
             check(used <= 1.0, f"{tag}: flash gradient vs plain exceeds its "
                   f"limit {used:.3f}-fold")
             rows.append({"name": tag, "route": route,
-                         "backward_route": BACKWARD_ROUTE[route], "B": B,
+                         "backward_route": bwd_route, "B": B,
                          "H": H, "KV": KV, "S": S, "T": T, "D": D,
                          "causal": causal, "window": window,
                          "softcap": softcap, "max_abs_err": max(errs),
@@ -2952,15 +3038,15 @@ def attention_timings(tp: dict, smi: str) -> dict:
     att.update({"backward_bound_ms": bwd["bound_ms"],
                 "backward_bound_by": bwd["bound_by"],
                 "backward_ops": bwd["ops"], "backward_bytes": bwd["bytes"],
-                # as built: S and dP twice, P and dS as hi + lo (20·D)
-                "backward_built_ops_ms": 2 * bwd["ops_ms"]})
+                # as built: S and dP once, P and dS as hi + lo (16·D)
+                "backward_built_ops_ms": 1.6 * bwd["ops_ms"]})
     print(f"[time] attention at one layer's shape ({rows}x{seq}, "
           f"{H} heads of {D}, causal, bf16), {smi}: flash forward kernel "
           f"{att['forward_ms']:.4f} ms; forward + backward through the "
           f"autograd function {att['fwd_bwd_ms']:.4f} ms; the backward "
           f"kernels alone {att['backward_kernel_ms']:.4f} ms (bound "
           f"{att['backward_bound_ms']:.4f}, {att['backward_bound_by']}, 10*D "
-          f"a pair; {att['backward_built_ops_ms']:.4f} at the 20*D it does; "
+          f"a pair; {att['backward_built_ops_ms']:.4f} at the 16*D it does; "
           f"{att['backward_ops'] / att['backward_kernel_ms'] / 1e9:.1f} "
           f"TFLOP/s of the 10*D); the plain f32 backward it replaced "
           f"{att['backward_ms']:.4f}; plain forward + backward "
@@ -4080,6 +4166,9 @@ def main() -> int:
     if "--xlstm-prefill-times" in sys.argv[1:]:
         xlstm_prefill_times()
         return 0
+    if "--flash-bwd-times" in sys.argv[1:]:
+        flash_bwd_times()
+        return 0
     build_s, ptxas = build()
     count_plain_flash_backward()
     phase_time("1-2")
@@ -4376,12 +4465,14 @@ def main() -> int:
             "library_ms": "library_backward_ms"}, train_layers),
         "bound_by": tt["attention"]["backward_bound_by"],
         "bound_is": "10*D operations a visible pair (five products) at 989 "
-                    "TFLOP/s; the kernels do 20*D (S and dP twice, P and dS "
+                    "TFLOP/s; the kernel does 16*D (S and dP once, P and dS "
                     "as hi + lo bf16)",
         "library_is": "the backward of F.scaled_dot_product_attention, "
                       "is_causal (torch.autograd.grad on its graph)",
-        "launches_by_route": "every bf16 backward on bwd_tc_bf16, every "
-                             "f32 one on bwd_simt_f32, held per path",
+        "launches_by_route": "every bf16 backward on bwd_tc_bf16 (wgmma, "
+                             "D <= 128), at D = 256 on bwd_mma_bf16 "
+                             "(flash_attention_bwd_mma.cu, phase 34 only), "
+                             "every f32 one on bwd_simt_f32, held per path",
         "times_are": f"one layer's backward (CUDA events) x{train_layers}: "
                      f"the launches of one {TRAIN_CONFIG} "
                      f"{TRAIN_ROWS}x{TRAIN_SEQ} bf16 train step",

@@ -1,13 +1,16 @@
-// Flash attention backward in bf16 for Hopper (sm_90a), on the tensor cores:
-// dq, dk and dv of the forward in flash_attention_sm90.cu, for the output
-// gradient dO.  GQA, causal (top-left), optional sliding window and logit
-// softcap; bf16 in and out, f32 statistics and accumulation.  f32 inputs go
-// to the CUDA-core backward in flash_attention_bwd.cu instead.
+// Flash attention backward in bf16 for Hopper (sm_90a): tensor cores
+// through wgmma, TMA-fed tiles, one producer and two consumer warpgroups.
+// dq, dk and dv of the forward in flash_attention_sm90.cu for the output
+// gradient dO, at head dims 16 to 128.  GQA, causal (top-left), optional
+// sliding window and logit softcap; bf16 in and out, f32 statistics and
+// accumulation.  D = 256 goes to the mma.sync kernel in
+// flash_attention_bwd_mma.cu, f32 inputs to the CUDA-core backward in
+// flash_attention_bwd.cu.
 //
 // The Pallas TPU kernel src/repro/kernels/flash_attention.py:84
 // (flash_attention_kernel) has no backward: the JAX package trains through
-// the einsum attention_scores (src/repro/models/layers.py) under jax.grad.
-// This kernel gives the port's forward kernel that gradient:
+// the einsum attention_scores (src/repro/models/layers.py:114) under
+// jax.grad.  This kernel gives the port's forward kernel that gradient:
 //
 //   x_ij = mask(i, j) ? c*tanh(q_i.k_j / (c*sqrt(D))) : -1e30  (no c: /sqrt(D))
 //   P_ij = exp(x_ij - lse_i),           lse_i saved by the forward
@@ -19,70 +22,97 @@
 // with k, v of KV head bh / group, dK and dV summed over the group's query
 // heads.  q and dO are (BH, S, D), k and v (BKV, T, D), BH = BKV * group.
 //
-// Three launches, deterministic (no atomics: every output element has one
-// writer, each sum a fixed order; two launches give the same bits):
-//   (a) D_i = rowsum(dO * O), one f32 per query row, O taken as the bf16
-//       output plus the forward's lo = bf16(o - bf16(o)): the f32 O to
-//       2^-17.  D_i from the bf16 O alone would move every dS by up to 2^-9
-//       of sum|dO||O|, about the whole half-ulp limit of the gradient;
-//   (b) one block per (64-key tile, KV head): it walks the group's query
-//       heads and, per head, the query tiles that some key of the tile is
-//       visible to; per step it recomputes S^T = K.Q^T and dP^T = V.dO^T,
-//       forms P^T and dS^T in registers, and accumulates dV += P^T.dO and
-//       dK += dS^T.Q in registers;
-//   (c) one block per (64-query tile, query head): it walks the visible key
-//       tiles, recomputes S = Q.K^T and dP = dO.V^T, and accumulates
-//       dQ += dS.K in registers.
-//
 // What bounds it on an H100 SXM: the 10*D operations per visible (query,
 // key) pair of the five products at 989 TFLOP/s (bf16 tensor cores); the
 // bytes (q, k, v, O, dO, lse read once, dq, dk, dv written once) are some
-// 10^3 times fewer at a training shape.  As built it does 20*D a pair: S and
-// dP twice (in (b) and (c)), and P and dS each enter their products as hi +
-// lo bf16, two products into one f32 accumulator (hi = bf16(p), lo =
-// bf16(p - hi)), as the forward carries P: a single bf16 P or dS carries
-// 2^-9 relative error per term, about the whole half-ulp limit of dq, dk,
-// dv, where the split leaves some 2^-17.
+// 10^3 times fewer at a training shape.  As built it does 16*D a pair: S
+// and dP once, and P and dS each enter their products as hi + lo bf16, two
+// products into one f32 accumulator (hi = bf16(p), lo = bf16(p - hi)), as
+// the forward carries P: one bf16 P or dS carries 2^-9 relative error per
+// term, about the whole half-ulp limit of dq, dk, dv, where the split
+// leaves some 2^-17.
 //
-// The design, and why mma.sync:
-//   * every product is mma.sync m16n8k16 (bf16 in, f32 accumulate), its
-//     operands read from shared memory by ldmatrix (.trans where the
-//     contraction runs along the rows: Q and dO in (b), K in (c)); each warp
-//     owns 16 rows of the block and the C fragment of S (or dP) is, pair by
-//     pair, the A fragment of the next product, so P and dS never leave the
-//     registers.  wgmma would need P^T and dS^T in shared memory or a
-//     warpgroup's 64 rows per product; mma.sync keeps the first kernel of
-//     this backward simple and right, and the wgmma/TMA redesign is the
-//     next step (ROADMAP);
-//   * Q, dO (and lse, D_i) in (b) and K, V in (c) go through a two-stage
-//     cp.async ring: the next step's tiles load under this step's products;
-//     rows past S or T come in as zeros (cp.async's src-size 0);
-//   * shared rows are padded to D + 8 bf16, so that the 8 rows of every
-//     ldmatrix phase fall in distinct banks at every head dim;
-//   * tiles that no row can see are skipped (causal: the key tile's queries
-//     start at its first key; window: they end window - 1 past its last);
-//     masks, and the ragged S and T, are applied only on tiles that cross
-//     the diagonal, a window's edge, S or T;
-//   * tile sizes per head dim keep the accumulators in registers: (b) holds
-//     dK and dV (D f32 a thread) and S^T, dP^T (BQ f32): 64 queries a step
-//     up to D = 96, 32 at D = 128, and at D = 256 two warps share a key row
-//     group, each accumulating half of D (both compute the row group's
-//     S^T and dP^T); (c) holds dQ (D/2) and S, dP (BKC): 64 keys a step up
-//     to D = 128, 32 at D = 256.
+// Three launches:
+//   (a) flash_bwd_prep_kernel, eight lanes a query row: D_i = rowsum(dO *
+//       O), O taken as the bf16 output plus the forward's lo = bf16(o -
+//       bf16(o)), the f32 O to 2^-17 (from the bf16 O alone D_i would move
+//       every dS by up to 2^-9 of sum|dO||O|, the gradient's whole
+//       half-ulp limit); lse*log2(e); both per row padded to whole 64-row
+//       tiles; and the dQ tiles' counters set to 0;
+//   (b) flash_bwd_sm90_kernel, one CTA per (key tile, KV head): K and V
+//       stay in shared memory; it walks the group's query heads and, per
+//       head, the 64-query tiles that some key of the tile sees, in
+//       ascending order.  Per step each consumer warpgroup, for its 64
+//       keys: S^T = K.Q^T and dP^T = V.dO^T (wgmma, both operands in shared
+//       memory, K-major); P^T and dS^T in registers; dV += P^T.dO and dK +=
+//       dS^T.Q with P^T, dS^T (hi and lo) as register A operands and dO, Q
+//       MN-major (the forward's P.V); dS^T, hi and lo, into shared memory
+//       and its dQ part = dS.K (A = dS^T through the descriptor's
+//       transpose, B = K MN-major).  The parts go into a shared dQ buffer
+//       for one of the producer warpgroup's writer warps, which adds them
+//       into the query tile's f32 sum in global memory with TMA bulk
+//       reductions, part 0 and then part 1 (the first tile stores part
+//       0): no consumer waits on global memory or on the other.  A
+//       key tile is 128 keys, 64 a consumer, up to D = 96; at D = 128, where
+//       dK and dV of 64 keys would take 128 of a thread's registers, 64
+//       keys that both consumers share, each owning 64 columns of D (S^T
+//       and dP^T computed by both: 20*D a pair there), their dQ parts
+//       the two column halves of one tile;
+//   (c) flash_bwd_dq_convert_kernel: dq = bf16 of the f32 sums, one
+//       rounding, a 64-row tile a block (a 64-row tile's sum is finished
+//       only when its last key tile has added, so the rounding waits for
+//       the launch's end).
+//
+// Determinism.  The key tiles of a query tile add their parts in one fixed
+// order, the highest key tile first: each (query head, query tile) has a
+// counter; the writer of the tile of rank r waits until the counter reads
+// r (acquire), adds, waits for the bulk reduction to complete, and raises
+// the counter (release).  Every element of a sum gets its parts in that
+// order, so two launches give the same bits.  Key tiles run highest first
+// within a head (blockIdx.x = n_kt - 1 - tile), so a CTA waits only on
+// CTAs launched before it; and as every tile walks the query tiles in
+// ascending order from its own first one, the higher tile, which starts
+// later in the sequence, reaches a query tile first: on causal and
+// windowed shapes the writers rarely wait.  Non-causal shapes, where every
+// key tile sees every query tile, wait about a step per key tile
+// (ROADMAP).  The f32 sums are stored per tile in the consumers' fragment
+// order, so that the buffers are written without bank conflicts and copied
+// whole; steps of one CTA are distinct query tiles, so the writers (one a
+// buffer) need no order among themselves.
+//
+// The design, on Hopper:
+//   * the producer's loader thread loads K and V once (TMA, 3-d maps over
+//     (head, row, D), rows past T zero-filled) and keeps Q, dO, lse*log2e
+//     and D_i of the next steps in flight in a ring of two or three stages
+//     guarded by full and empty mbarriers; the producer warpgroup gives
+//     registers away with setmaxnreg, the consumers take them (232 a
+//     thread);
+//   * the consumers take turns to start their products (named barriers, as
+//     in the forward), so that one's P and dS run under the other's
+//     products; P and dS are branch-free, with masks in a second pass on
+//     tiles that cross the diagonal, a window's edge, S or T;
+//   * D is cut into 64-wide column chunks, 128-byte swizzled, and one 16-
+//     or 32-wide tail chunk, 32- or 64-byte swizzled, as in the forward;
+//     dS^T is written in the 128-byte swizzle that wgmma reads;
+//   * key tiles that no query sees write zero dK and dV.
 // Numerics.  Products of bf16 values are exact in f32, so S and dP differ
 // from the f32 arithmetic only in the order of their sums; the softcap uses
 // the accurate tanhf, as the forward does; P = exp2(x*log2(e) - lse*log2(e))
-// against the forward's saved lse (both from the same f32 x).  Every
-// gradient is rounded once, to bf16, from its f32 accumulator.
+// against the forward's saved lse (both from the same f32 x), through the
+// SFU's ex2 (exp2f without its fix-up of results below 2^-126, which flush
+// to 0).  dK and dV are rounded once from their registers, dQ once from
+// its ordered f32 sum.
 //
-// Shared memory: (b) 2*64*(D+8)*2 bytes of K and V plus two stages of Q and
-// dO (2*2*BQ*(D+8)*2) and of lse and D_i: 56,320 B at D = 64, 135,680 at
-// D = 256; (c) 2*64*(D+8)*2 of Q and dO plus two stages of K and V:
-// 55,296 B at D = 64, 135,168 at D = 256.  What it leaves on the table:
-// mma.sync's rate (wgmma's asynchronous, larger products reach more of
-// the tensor cores), S and dP computed twice, and at D = 256 twice more in
-// (b).
+// Shared memory: K and V (2*BK*D*2 bytes), two or three stages of Q, dO
+// (2*64*D*2) and their stats, dS^T hi and lo of both consumers (32 KB),
+// two or three dQ buffers: 215,656 B at D = 64, 231,496 at D = 96.
+// What it leaves on the table: P and dS's split costs 1.6x the products of
+// one bf16 P and dS; S^T, dP^T and the dQ part read both operands from
+// shared memory at N = 64, near its rate; D = 128 computes S^T and dP^T
+// twice; GQA shapes with few KV heads and short T give few CTAs (the
+// group's heads are walked in one CTA).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -92,581 +122,1061 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int ROWS = 64;              // rows a block owns: keys (b), queries (c)
+constexpr int BQ = 64;                // queries a step
+constexpr int THREADS = 384;          // producer + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int ERR_NO_ENCODER = 10001;     // as flash_attention_sm90.cu's
+constexpr int ERR_TENSOR_MAP = 10002;
+// Named barriers (0 is __syncthreads): WG_BAR + c, consumer c's own 128
+// threads; SCHED_BAR + c, consumer c's turn to start products (the
+// consumers take turns, as the forward's do, so that one's P and dS run
+// under the other's products).
+constexpr int WG_BAR = 1;
+constexpr int SCHED_BAR = 3;
 
+// Tiles and shared memory at head dim D, offsets from a 1024-aligned base.
+// Chunk c of a [rows][D] tile holds columns [64c, 64c + width) as a dense
+// [rows][width] block at byte offset rows * 128 * c.
 template <int D>
-struct BwdTiles {
-  static constexpr int LD = D + 8;                  // shared row stride, bf16
-  static constexpr int BQ = D <= 96 ? 64 : 32;      // queries a step of (b)
-  static constexpr int BKC = D <= 128 ? 64 : 32;    // keys a step of (c)
-  static constexpr int SPLIT = D == 256 ? 2 : 1;    // D slices in (b)
-  static constexpr int DW = D / SPLIT;              // columns a warp owns
-  static constexpr int THREADS_B = 128 * SPLIT;
-  static constexpr int THREADS_C = 128;
-  static constexpr int SMEM_B =
-      2 * ROWS * LD * 2 + 2 * 2 * BQ * LD * 2 + 2 * 2 * BQ * 4;
-  static constexpr int SMEM_C = 2 * ROWS * LD * 2 + 2 * 2 * BKC * LD * 2;
-  static_assert(D % 16 == 0 && DW % 16 == 0, "head dim");
-  static_assert(SMEM_B <= 232448 && SMEM_C <= 232448, "shared memory");
+struct Tiles {
+  // Below D = 128 each consumer owns 64 of the CTA's 128 keys and all of
+  // D; at D = 128, where dK and dV of 64 keys would take 128 of a
+  // thread's registers, the two share the CTA's 64 keys and each owns 64
+  // columns of D (both compute S^T and dP^T: 20*D a pair there).
+  static constexpr bool SPLIT = D == 128;
+  static constexpr int BK = SPLIT ? 64 : 128;     // keys a CTA owns
+  static constexpr int DW = SPLIT ? D / 2 : D;    // columns a consumer owns
+  static constexpr int N64 = D / 64;
+  static constexpr int TAIL = D % 64;
+  static constexpr int CHUNKS = N64 + (TAIL ? 1 : 0);
+  static constexpr int KV_BYTES = BK * D * 2;     // K or V
+  static constexpr int QT_BYTES = BQ * D * 2;     // Q or dO of one stage
+  static constexpr int DS_BYTES = 64 * BQ * 2;    // dS^T, hi or lo
+  static constexpr int DQ_BYTES = BQ * D * 4;     // a step's dQ part
+  // A dQ buffer: both consumers' parts (summed by the writer), or at D =
+  // 128 their column halves of one part.  As many buffers, one writer
+  // warp each (the producer's warps 1 to 3), as shared memory holds.
+  static constexpr int BUF_BYTES = SPLIT ? DQ_BYTES : 2 * DQ_BYTES;
+  static constexpr int NBUF = (D == 80 || D == 96) ? 2 : 3;
+  static constexpr int STAGES = D <= 80 ? 3 : 2;    // the Q, dO ring
+  static constexpr int STATS_BYTES = 2 * BQ * 4;  // lse*log2e, D_i
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;      // stage s: Q, then dO
+  static constexpr int DS_OFF = Q_OFF + STAGES * 2 * QT_BYTES;
+  static constexpr int DQ_OFF = DS_OFF + 4 * DS_BYTES;
+  static constexpr int ST_OFF = DQ_OFF + NBUF * BUF_BYTES;
+  static constexpr int BAR_OFF = ST_OFF + STAGES * STATS_BYTES;
+  // + 1024 to align the base for the 128-byte swizzle, + the mbarriers:
+  // K and V in; per stage full, empty; per dQ buffer full, empty
+  static constexpr int SMEM =
+      BAR_OFF + 8 * (1 + 2 * STAGES + 2 * NBUF) + 1024;
+  static constexpr int STAGE_TX = 2 * QT_BYTES + STATS_BYTES;
+  // dV, dK and the dQ part in one batch of products where the registers
+  // hold them all (dK, dV, the fragments of P and dS, the dQ part).
+  static constexpr bool ONE_BATCH = DW <= 80;
+  static_assert(D % 16 == 0 && D <= 128 &&
+                (TAIL == 0 || TAIL == 16 || TAIL == 32), "head dim");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
-struct BwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
-  const float* lse;
-  const float* di;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  int S, T, group, causal, window;
-  float scale, softcap;
-};
+__host__ __device__ constexpr int chunk_width(int D, int c) {
+  return c < D / 64 ? 64 : D % 64;
+}
+
+// The helpers below are those of flash_attention_sm90.cu (descriptors and
+// swizzle, mbarriers, TMA, the wgmma wrappers), copied: each source builds
+// alone.
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared, zeros when `valid` is false (src-size 0:
-// nothing is read, `src` need only be a valid address).
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0) : "memory");
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, and the swizzle that the chunk's layout uses (128 B for
+// width 64, 64 B for 32, 32 B for 16).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int width) {
+  const uint64_t swizzle = width == 64 ? 1 : width == 32 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (swizzle << 62);
 }
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
-                                    bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0) : "memory");
+
+// K-major chunk (the product's K dim contiguous): 8-row groups lie 8 *
+// width * 2 bytes apart; the leading offset is unused.
+__device__ __forceinline__ uint64_t k_major(uint32_t addr, int width) {
+  return smem_desc(addr, 16, 16 * width, width);
 }
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
+
+// MN-major chunk (the M or N dim contiguous, K down the rows): 8-row groups
+// lie 8 * width * 2 bytes apart; M or N never exceeds one swizzle atom
+// here, so both fields carry the group stride.
+__device__ __forceinline__ uint64_t mn_major(uint32_t addr, int width) {
+  return smem_desc(addr, 16 * width, 16 * width, width);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival per warp, once the whole warp is done with the stage.
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// One box of a 3-d tensor map, coordinates innermost first (column, row,
+// head), into shared memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head),
+      "r"(bar) : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of shared memory stored to (or, with `add`,
+// added in f32 to) global memory, as one bulk group; waits until done.
+__device__ __forceinline__ void bulk_store_f32(void* dst, uint32_t src,
+                                               uint32_t bytes, bool add) {
+  if (add) {
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+        "[%0], [%1], %2;" ::"l"(reinterpret_cast<uint64_t>(dst)),
+        "r"(src), "r"(bytes) : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+            reinterpret_cast<uint64_t>(dst)),
+        "r"(src), "r"(bytes) : "memory");
+  }
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+template <int COUNT>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(COUNT) : "memory");
+}
+template <int COUNT>
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(COUNT) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous product.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.  Without .trans lane l receives, of each
-// matrix, row l / 4, columns 2(l % 4) and 2(l % 4) + 1; with .trans the
-// same elements of the transposed matrix.
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// d[0..32) (+)= A·B for A, B in shared memory (K-major, descriptors).
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a_desc,
+                                             uint64_t b_desc, int accumulate) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
-      : "memory");
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+
+// d[0..32) (+)= A·B for A and B in shared memory, both MN-major (A's M and
+// B's N contiguous: the descriptors' transpose bits set).
+__device__ __forceinline__ void wgmma_ss_tt_n64(float* d, uint64_t a_desc,
+                                                uint64_t b_desc,
+                                                int accumulate) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
-      : "memory");
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-// c += a.b: a 16x16 (row-major fragment), b 16x8 (column fragment), f32.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
+// d[0..16) (+)= A·B, both MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_tt_n32(float* d, uint64_t a_desc,
+                                                uint64_t b_desc,
+                                                int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, %16, %17, p, 1, 1, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-// Fragment addresses in a [rows][LD] bf16 tile at `base` (shared address).
-// A operand, rows r0.. r0 + 15, columns c0.. c0 + 15 (the contraction along
-// the row); with ldsm_t the same address gives the B operands of two
-// 8-column tiles (columns c0.., c0 + 8..) of a product that contracts along
-// the rows r0.. r0 + 15.
-__device__ __forceinline__ uint32_t a_addr(uint32_t base, int r0, int c0,
-                                           int ld, int lane) {
-  return base + 2 * ((r0 + lane % 16) * ld + c0 + 8 * (lane / 16));
-}
-// B operands of two 8-column tiles of a product whose second factor is
-// stored transposed, [n][k]: n rows n0.. n0 + 15, k columns k0.. k0 + 15.
-__device__ __forceinline__ uint32_t b_addr(uint32_t base, int n0, int k0,
-                                           int ld, int lane) {
-  return base +
-         2 * ((n0 + lane % 8 + 8 * (lane / 16)) * ld + k0 + 8 * ((lane / 8) % 2));
+// d[0..8) (+)= A·B, both MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_tt_n16(float* d, uint64_t a_desc,
+                                                uint64_t b_desc,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
-  return *reinterpret_cast<const uint32_t*>(&h);
+// d[0..8) += A·B, A from registers (a[0..4)), B in shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                             uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
+      "p, 1, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
-// x and y as hi + lo bf16 pairs: hi = bf16(x), lo = bf16(x - hi).
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+// d[0..16) += A·B, A from registers (a[0..4)), B in shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
-// The A fragments, hi and lo, of a 16x16 block of an f32 C tile whose two
-// 8-column fragments are c0 (columns 0-7) and c1 (8-15): the C fragment's
-// pairs are the A fragment's, in the order (row g, cols 0-7), (g + 8,
-// 0-7), (g, 8-15), (g + 8, 8-15).
-__device__ __forceinline__ void split_a(const float (&c0)[4],
-                                        const float (&c1)[4],
-                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
+// d[0..32) += A·B, A from registers (a[0..4)), B in shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
-// The masked, softcapped, scaled logit x of the raw score s, P and dS:
-// returns P and sets ds = P (dp - di) x'(s).
-struct Grad {
-  float scale, softcap, cap_in;
-  __device__ __forceinline__ float apply(float s, float dp, float lse_l2,
-                                         float di, bool visible,
-                                         float& ds) const {
-    float x, dx;
-    if (softcap > 0.f) {
-      const float t = tanhf(s * cap_in);
-      x = softcap * t;
-      dx = (1.f - t * t) * scale;
-    } else {
-      x = s * scale;
-      dx = scale;
+// An f32 C tile of 64 columns as hi + lo bf16 A fragments, 16 columns each
+// (the forward's split_p): registers 8t..8t+7 of the tile are columns
+// 16t..16t+15.
+__device__ __forceinline__ void split(const float (&p)[32],
+                                      uint32_t (&hi)[4][4],
+                                      uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = p[8 * t + 2 * r], y = p[8 * t + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+      const float2 hf = __bfloat1622float2(h);
+      hi[t][r] = bits(h);
+      lo[t][r] = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
     }
-    const float p = visible ? exp2f(x * LOG2E - lse_l2) : 0.f;
-    ds = p * (dp - di) * dx;
-    return p;
   }
-};
+}
+
+// S^T (or dP^T) = K.Q^T (or V.dO^T) for the 64 keys from row `row0` of
+// the [BK][D] tile at `rows` against the [BQ][D] tile at `cols`, 16
+// columns of D a step, both K-major.  Started, not waited for.
+template <int D>
+__device__ __forceinline__ void start_scores(float* acc, uint32_t rows,
+                                             int row0, uint32_t cols) {
+  using C = Tiles<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / 4, w = chunk_width(D, c);
+    const uint64_t a =
+        k_major(rows + C::BK * 128 * c + row0 * w * 2 + 32 * (kk % 4), w);
+    const uint64_t b = k_major(cols + BQ * 128 * c + 32 * (kk % 4), w);
+    wgmma_ss_n64(acc, a, b, kk > 0);
+  }
+}
+
+// acc += X^T.Y for X^T (64 keys by BQ queries) as hi + lo A fragments and
+// the consumer's columns of the [BQ][D] tile Y at `tile` (dO for dV, Q for
+// dK), MN-major: per 16 queries, hi then lo against each chunk.  Started,
+// not waited for.
+template <int D>
+__device__ __forceinline__ void start_key_grad(float* acc,
+                                               const uint32_t (&hi)[4][4],
+                                               const uint32_t (&lo)[4][4],
+                                               uint32_t tile, int wg) {
+  using C = Tiles<D>;
+#pragma unroll
+  for (int t = 0; t < BQ / 16; ++t) {
+    if constexpr (C::SPLIT) {
+      const uint64_t b = mn_major(tile + BQ * 128 * wg + t * 2048, 64);
+      wgmma_rs_n64(acc, hi[t], b);
+      wgmma_rs_n64(acc, lo[t], b);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C::N64; ++c) {
+        const uint64_t b = mn_major(tile + BQ * 128 * c + t * 2048, 64);
+        wgmma_rs_n64(acc + 32 * c, hi[t], b);
+        wgmma_rs_n64(acc + 32 * c, lo[t], b);
+      }
+      if constexpr (C::TAIL > 0) {
+        constexpr int w = C::TAIL;
+        const uint64_t b =
+            mn_major(tile + BQ * 128 * C::N64 + t * 32 * w, w);
+        if constexpr (w == 32) {
+          wgmma_rs_n32(acc + 32 * C::N64, hi[t], b);
+          wgmma_rs_n32(acc + 32 * C::N64, lo[t], b);
+        } else {
+          wgmma_rs_n16(acc + 32 * C::N64, hi[t], b);
+          wgmma_rs_n16(acc + 32 * C::N64, lo[t], b);
+        }
+      }
+    }
+  }
+}
+
+// acc = dS.K over the 64 keys from row `row0` of the [BK][D] K tile at
+// `sk`, the consumer's columns: A = dS^T (hi, then lo) from the
+// consumer's [64 keys][BQ] tiles, MN-major; B = K, MN-major.  16 keys a
+// step.  Started, not waited for.
+template <int D>
+__device__ __forceinline__ void start_dq(float* acc, uint32_t ds_hi,
+                                         uint32_t ds_lo, uint32_t sk,
+                                         int row0, int wg) {
+  using C = Tiles<D>;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const uint64_t ah = mn_major(ds_hi + t * 2048, 64);
+    const uint64_t al = mn_major(ds_lo + t * 2048, 64);
+    const int row = row0 + 16 * t;
+    if constexpr (C::SPLIT) {
+      const uint64_t b = mn_major(sk + C::BK * 128 * wg + row * 128, 64);
+      wgmma_ss_tt_n64(acc, ah, b, t > 0);
+      wgmma_ss_tt_n64(acc, al, b, 1);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C::N64; ++c) {
+        const uint64_t b = mn_major(sk + C::BK * 128 * c + row * 128, 64);
+        wgmma_ss_tt_n64(acc + 32 * c, ah, b, t > 0);
+        wgmma_ss_tt_n64(acc + 32 * c, al, b, 1);
+      }
+      if constexpr (C::TAIL > 0) {
+        constexpr int w = C::TAIL;
+        const uint64_t b =
+            mn_major(sk + C::BK * 128 * C::N64 + row * 2 * w, w);
+        if constexpr (w == 32) {
+          wgmma_ss_tt_n32(acc + 32 * C::N64, ah, b, t > 0);
+          wgmma_ss_tt_n32(acc + 32 * C::N64, al, b, 1);
+        } else {
+          wgmma_ss_tt_n16(acc + 32 * C::N64, ah, b, t > 0);
+          wgmma_ss_tt_n16(acc + 32 * C::N64, al, b, 1);
+        }
+      }
+    }
+  }
+}
+
+// Four 8x8 bf16 matrices into shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8; register i holds, of matrix i, row lane / 4,
+// columns 2(lane % 4) and + 1 (the C fragment's layout).
+__device__ __forceinline__ void stmatrix4(uint32_t addr,
+                                          const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::
+          "r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+
+// Two floats of shared memory, read where the code reads them (the
+// compiler would hoist plain loads ahead of the loop, and spill).
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// 2^x as the SFU gives it: exp2f without its fix-up of results below
+// 2^-126, which flush to 0 (a term of P or dS below 2^-126 of the sum).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P^T and dS^T in place of the raw scores sc and dp^T of one consumer's
+// 64 keys by BQ queries (register 4j + 2h + e: key row r0 + 8h, query
+// column 8j + col0 + e), against the stage's lse*log2(e) and D_i at
+// `stats` (BQ floats each): x the scaled (and softcapped) logit, P =
+// exp2(x*log2(e) - lse*log2(e)), dS = P (dP - D_i) x'(s).  Branch-free;
+// the caller masks.
+template <bool CAP>
+__device__ __forceinline__ void grads(float (&sc)[32], float (&dp)[32],
+                                      uint32_t stats, int col0, float scale,
+                                      float softcap) {
+  const float cap_in = CAP ? scale / softcap : 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = ld_shared_f2(stats + 4 * (8 * j + col0));
+    const float2 dd = ld_shared_f2(stats + 4 * (BQ + 8 * j + col0));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        float x, dx;
+        if constexpr (CAP) {
+          const float t = tanhf(sc[i] * cap_in);
+          x = softcap * t;
+          dx = (1.f - t * t) * scale;
+        } else {
+          x = sc[i] * scale;
+          dx = scale;
+        }
+        const float p = ex2(x * LOG2E - (e ? l2.y : l2.x));
+        dp[i] = p * (dp[i] - (e ? dd.y : dd.x)) * dx;
+        sc[i] = p;
+      }
+  }
+}
 
 __device__ __forceinline__ bool visible(int i, int j, int S, int T,
                                         int causal, int window) {
-  bool ok = i < S && j < T;
-  if (causal) ok = ok && j <= i;
-  if (window > 0) ok = ok && j > i - window;
-  return ok;
+  return (i < S) & (j < T) & (!causal | (j <= i)) &
+         ((window <= 0) | (j > i - window));
 }
 
-// (a): D_i = sum_d dO_id (O_id + Olo_id), one warp a row.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release(int* p) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(p)
+               : "memory");
+}
+
+struct Maps {   // 3-d tensor maps over (head, row, D), one per chunk width
+  CUtensorMap q64, q_tail, do64, do_tail, k64, k_tail, v64, v_tail;
+};
+
+struct Args {
+  Maps maps;
+  const float* lse2;   // (BH, S_pad): lse*log2(e), 0 past S
+  const float* di;     // (BH, S_pad): D_i, 0 past S
+  float* dq_acc;       // (BH, n_q, 64 * D): the ordered dQ sums, per
+                       // tile in the consumers' fragment order
+  int* counters;       // (BH, n_q): adds made to each dQ tile
+  bf16* dk;
+  bf16* dv;
+  int S, T, S_pad, n_q, n_kt, group, causal, window;
+  float scale, softcap;
+};
+
+// (a): D_i = sum_d dO_id (O_id + Olo_id) and lse*log2(e), eight lanes a
+// row of the padded (BH, S_pad) layout (0 past S), 16 bytes a load; and
+// the counters set to 0.
 __global__ void __launch_bounds__(256)
-flash_bwd_dot_do_o_kernel(const bf16* __restrict__ dout,
-                          const bf16* __restrict__ o,
-                          const bf16* __restrict__ o_lo,
-                          float* __restrict__ di, int rows, int D) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const size_t base = static_cast<size_t>(row) * D;
-  float sum = 0.f;
-  for (int c = 2 * lane; c < D; c += 64) {
-    const float2 g = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(dout + base + c));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(o + base + c));
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(o_lo + base + c));
-    sum = fmaf(g.x, hi.x + lo.x, sum);
-    sum = fmaf(g.y, hi.y + lo.y, sum);
-  }
+flash_bwd_prep_kernel(const bf16* __restrict__ dout,
+                      const bf16* __restrict__ o,
+                      const bf16* __restrict__ o_lo,
+                      const float* __restrict__ lse, float* __restrict__ di,
+                      float* __restrict__ lse2, int* __restrict__ counters,
+                      int S, int S_pad, int n_q, int rows, int D) {
+  const int row = blockIdx.x * 32 + threadIdx.x / 8;
+  const int part = threadIdx.x % 8;
+  if (row >= rows) return;   // whole groups of eight lanes leave together
+  const int bh = row / S_pad, s = row % S_pad;
+  float sum = 0.f, l2 = 0.f;
+  if (s < S) {
+    const size_t base = (static_cast<size_t>(bh) * S + s) * D;
+    for (int c = 8 * part; c < D; c += 64) {
+      const uint4 g = *reinterpret_cast<const uint4*>(dout + base + c);
+      const uint4 hi = *reinterpret_cast<const uint4*>(o + base + c);
+      const uint4 lo = *reinterpret_cast<const uint4*>(o_lo + base + c);
+      const uint32_t gw[4] = {g.x, g.y, g.z, g.w};
+      const uint32_t hw[4] = {hi.x, hi.y, hi.z, hi.w};
+      const uint32_t lw[4] = {lo.x, lo.y, lo.z, lo.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) di[row] = sum;
-}
-
-// Rows [r0, r0 + n) of a (rows, D) bf16 matrix into a [n][LD] shared tile,
-// rows at or past `rows` as zeros.
-template <int D>
-__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
-                                          int r0, int n, int rows,
-                                          int threads) {
-  constexpr int CH = D / 8;   // 16-byte chunks a row
-  for (int i = threadIdx.x; i < n * CH; i += threads) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < rows;
-    const bf16* g = src + static_cast<size_t>(ok ? r0 + r : 0) * D + 8 * c;
-    cp16(dst + 2 * (r * (D + 8) + 8 * c), g, ok);
+      for (int k = 0; k < 4; ++k) {
+        const float2 gf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&gw[k]));
+        const float2 hf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&hw[k]));
+        const float2 lf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&lw[k]));
+        sum = fmaf(gf.x, hf.x + lf.x, sum);
+        sum = fmaf(gf.y, hf.y + lf.y, sum);
+      }
+    }
+    l2 = lse[static_cast<size_t>(bh) * S + s] * LOG2E;
+  }
+  const unsigned group = 0xffu << (threadIdx.x % 32 / 8 * 8);
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(group, sum, off);
+  if (part == 0) {
+    di[row] = sum;
+    lse2[row] = l2;
+    if (s % BQ == 0) counters[static_cast<size_t>(bh) * n_q + s / BQ] = 0;
   }
 }
 
-// (b): dK and dV of one 64-key tile of one KV head.
+// The query tiles that some key of the BK keys from k0 sees: nq of them from
+// q_lo, walked for each of the group's query heads.  Each role computes it
+// after setmaxnreg, so that nothing lives across the change of registers.
+struct Walk {
+  int q_lo, nq, steps;
+};
+template <int BK>
+__device__ __forceinline__ Walk walk(const Args& a, int k0) {
+  int q_lo = 0, q_hi = a.n_q;
+  if (a.causal) q_lo = k0 <= a.S - 1 ? k0 / BQ : a.n_q;
+  if (a.window > 0) {
+    const int k_max = min(k0 + BK - 1, a.T - 1);
+    q_hi = min(q_hi, (k_max + a.window - 1) / BQ + 1);
+  }
+  const int nq = max(0, q_hi - q_lo);
+  return {q_lo, nq, a.group * nq};
+}
+
+// (b): dK and dV of one key tile (128 keys, 64 at D = 128) of one KV head,
+// and its dQ parts.
 template <int D>
-__global__ void __launch_bounds__(BwdTiles<D>::THREADS_B)
-flash_bwd_dkdv_kernel(const BwdArgs a) {
-  using C = BwdTiles<D>;
-  constexpr int LD = C::LD, BQ = C::BQ, NT = BQ / 8, DW = C::DW;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
+  using C = Tiles<D>;
   extern __shared__ __align__(16) uint8_t smem[];
-  const uint32_t sK = smem_addr(smem);
-  const uint32_t sV = sK + ROWS * LD * 2;
-  const uint32_t sQ = sV + ROWS * LD * 2;            // 2 stages [BQ][LD]
-  const uint32_t sO = sQ + 2 * BQ * LD * 2;          // dO, 2 stages
-  float* lse_s = reinterpret_cast<float*>(smem + 2 * ROWS * LD * 2 +
-                                          4 * BQ * LD * 2);   // [2][BQ]
-  float* di_s = lse_s + 2 * BQ;                                // [2][BQ]
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sk = base + C::K_OFF, sv = base + C::V_OFF;
+  const uint32_t kv_full = base + C::BAR_OFF;
+  const uint32_t full = kv_full + 8, empty = full + 8 * C::STAGES;
+  const uint32_t dq_full = empty + 8 * C::STAGES;
+  const uint32_t dq_empty = dq_full + 8 * C::NBUF;
 
-  const int kvh = blockIdx.x;
-  const int k0 = blockIdx.y * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kg = warp % 4, slice = warp / 4;
-  const int g = lane / 4, t = lane % 4;
+  const int kt = a.n_kt - 1 - static_cast<int>(blockIdx.x);
+  const int kvh = blockIdx.y;
+  const int k0 = kt * C::BK;
 
-  // The query tiles some key of this tile is visible to.
-  int q_lo = a.causal ? k0 : 0;
-  int q_hi = a.S;
-  if (a.window > 0) q_hi = min(q_hi, k0 + ROWS - 1 + a.window);
-  q_lo = q_lo / BQ * BQ;
-  const int nq = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
-  const int steps = a.group * nq;
-
-  const size_t kv_off = static_cast<size_t>(kvh) * a.T * D;
-  auto load_step = [&](int i) {
-    const int bh = kvh * a.group + i / nq;
-    const int q0 = q_lo + (i % nq) * BQ;
-    const int st = i % 2;
-    const size_t off = static_cast<size_t>(bh) * a.S * D;
-    load_rows<D>(sQ + st * BQ * LD * 2, a.q + off, q0, BQ, a.S,
-                 C::THREADS_B);
-    load_rows<D>(sO + st * BQ * LD * 2, a.dout + off, q0, BQ, a.S,
-                 C::THREADS_B);
-    for (int r = threadIdx.x; r < BQ; r += C::THREADS_B) {
-      const bool ok = q0 + r < a.S;
-      const size_t row = static_cast<size_t>(bh) * a.S + (ok ? q0 + r : 0);
-      cp4(smem_addr(lse_s + st * BQ + r), a.lse + row, ok);
-      cp4(smem_addr(di_s + st * BQ + r), a.di + row, ok);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
-  };
-
-  load_rows<D>(sK, a.k + kv_off, k0, ROWS, a.T, C::THREADS_B);
-  load_rows<D>(sV, a.v + kv_off, k0, ROWS, a.T, C::THREADS_B);
-  if (steps > 0) load_step(0);
-  cp_commit();
-
-  float dk[DW / 8][4], dv[DW / 8][4];
-#pragma unroll
-  for (int n = 0; n < DW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const Grad grad{a.scale, a.softcap,
-                  a.softcap > 0.f ? a.scale / a.softcap : 0.f};
-  const int key_r = k0 + 16 * kg + g;   // this thread's keys: key_r, +8
-
-  for (int i = 0; i < steps; ++i) {
-    if (i + 1 < steps) load_step(i + 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const int st = i % 2;
-    const int q0 = q_lo + (i % nq) * BQ;
-    const uint32_t q_s = sQ + st * BQ * LD * 2, o_s = sO + st * BQ * LD * 2;
-    const float* lse_t = lse_s + st * BQ;
-    const float* di_t = di_s + st * BQ;
-
-    // S^T = K.Q^T and dP^T = V.dO^T for the warp's 16 keys.
-    float sc[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      ldsm(ak, a_addr(sK, 16 * kg, 16 * kk, LD, lane));
-      ldsm(av, a_addr(sV, 16 * kg, 16 * kk, LD, lane));
-#pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        uint32_t b[4];
-        ldsm(b, b_addr(q_s, 16 * np, 16 * kk, LD, lane));
-        mma(sc[2 * np], ak, b[0], b[1]);
-        mma(sc[2 * np + 1], ak, b[2], b[3]);
-        ldsm(b, b_addr(o_s, 16 * np, 16 * kk, LD, lane));
-        mma(dp[2 * np], av, b[0], b[1]);
-        mma(dp[2 * np + 1], av, b[2], b[3]);
-      }
+    for (int b = 0; b < C::NBUF; ++b) {
+      mbar_init(dq_full + 8 * b, CONSUMER_WARPS);
+      mbar_init(dq_empty + 8 * b, 1);   // the buffer's writer
     }
-
-    // P^T and dS^T in place; masks only on edge tiles.
-    const bool edge = (a.causal && k0 + ROWS - 1 > q0) ||
-                      (a.window > 0 && q0 + BQ - 1 - k0 >= a.window) ||
-                      k0 + ROWS > a.T || q0 + BQ > a.S;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        const int key = key_r + 8 * (e / 2);
-        const bool vis =
-            !edge || visible(q0 + col, key, a.S, a.T, a.causal, a.window);
-        float ds;
-        sc[j][e] = grad.apply(sc[j][e], dp[j][e], lse_t[col] * LOG2E,
-                              di_t[col], vis, ds);
-        dp[j][e] = ds;
-      }
-
-    // dV += P^T.dO and dK += dS^T.Q over the warp's slice of D.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t ph[4], pl[4], dh[4], dl[4];
-      split_a(sc[2 * kk], sc[2 * kk + 1], ph, pl);
-      split_a(dp[2 * kk], dp[2 * kk + 1], dh, dl);
-#pragma unroll
-      for (int n = 0; n < DW / 16; ++n) {
-        const int c0 = slice * DW + 16 * n;
-        uint32_t b[4];
-        ldsm_t(b, a_addr(o_s, 16 * kk, c0, LD, lane));
-        mma(dv[2 * n], ph, b[0], b[1]);
-        mma(dv[2 * n], pl, b[0], b[1]);
-        mma(dv[2 * n + 1], ph, b[2], b[3]);
-        mma(dv[2 * n + 1], pl, b[2], b[3]);
-        ldsm_t(b, a_addr(q_s, 16 * kk, c0, LD, lane));
-        mma(dk[2 * n], dh, b[0], b[1]);
-        mma(dk[2 * n], dl, b[0], b[1]);
-        mma(dk[2 * n + 1], dh, b[2], b[3]);
-        mma(dk[2 * n + 1], dl, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // before the next load overwrites this stage
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  cp_wait<0>();
+  __syncthreads();
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const Walk w = walk<C::BK>(a, k0);
+    const int q_lo = w.q_lo, nq = w.nq, steps = w.steps;
+    if (threadIdx.x == 0 && steps > 0) {
+      // The loader: one thread starts every load.
+      const Maps& m = a.maps;
+      mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = key_r + 8 * h;
-    if (key >= a.T) continue;
-    const size_t row = kv_off + static_cast<size_t>(key) * D;
+      for (int c = 0; c < C::CHUNKS; ++c) {
+        tma_load(sk + C::BK * 128 * c, c < C::N64 ? &m.k64 : &m.k_tail,
+                 kv_full, 64 * c, k0, kvh);
+        tma_load(sv + C::BK * 128 * c, c < C::N64 ? &m.v64 : &m.v_tail,
+                 kv_full, 64 * c, k0, kvh);
+      }
+      for (int n = 0; n < steps; ++n) {
+        const int s = n % C::STAGES;
+        const int bh = kvh * a.group + n / nq;
+        const int q0 = (q_lo + n % nq) * BQ;
+        const uint32_t sq = base + C::Q_OFF + 2 * s * C::QT_BYTES;
+        const uint32_t sdo = sq + C::QT_BYTES;
+        const uint32_t st = base + C::ST_OFF + s * C::STATS_BYTES;
+        mbar_wait(empty + 8 * s, ((n / C::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, C::STAGE_TX);
 #pragma unroll
-    for (int n = 0; n < DW / 8; ++n) {
-      const int c = slice * DW + 8 * n + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(a.dk + row + c) =
-          __floats2bfloat162_rn(dk[n][2 * h], dk[n][2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(a.dv + row + c) =
-          __floats2bfloat162_rn(dv[n][2 * h], dv[n][2 * h + 1]);
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          tma_load(sq + BQ * 128 * c, c < C::N64 ? &m.q64 : &m.q_tail,
+                   full + 8 * s, 64 * c, q0, bh);
+          tma_load(sdo + BQ * 128 * c, c < C::N64 ? &m.do64 : &m.do_tail,
+                   full + 8 * s, 64 * c, q0, bh);
+        }
+        const size_t row = static_cast<size_t>(bh) * a.S_pad + q0;
+        bulk_load(st, a.lse2 + row, BQ * 4, full + 8 * s);
+        bulk_load(st + BQ * 4, a.di + row, BQ * 4, full + 8 * s);
+      }
+    } else if (lane == 0 && warp >= 1 && warp <= C::NBUF) {
+      // Writer warp w: the dQ parts of the steps that use buffer w - 1,
+      // added into the query tile's f32 sum in the tile's turn: part 0
+      // (stored by the first tile), then, once that has completed, part 1
+      // (at D = 128 the buffer is one part).  Each step is its own (query
+      // head, query tile), so the writers need no order among themselves.
+      const int b = warp - 1;
+      const uint32_t buf = base + C::DQ_OFF + b * C::BUF_BYTES;
+      for (int n = b; n < steps; n += C::NBUF) {
+        const int bh = kvh * a.group + n / nq;
+        const int qi = q_lo + n % nq;
+        const int q_max = min(qi * BQ + BQ - 1, a.S - 1);
+        const int kt_hi = a.causal ? min(a.n_kt, q_max / C::BK + 1) : a.n_kt;
+        const int rank = kt_hi - 1 - kt;   // highest key tile first
+        int* const cnt = a.counters + static_cast<size_t>(bh) * a.n_q + qi;
+        float* const dst =
+            a.dq_acc + (static_cast<size_t>(bh) * a.n_q + qi) * (BQ * D);
+        mbar_wait(dq_full + 8 * b, (n / C::NBUF) & 1);
+        if (rank > 0) {
+          while (ld_acquire(cnt) != rank) {
+          }
+          asm volatile("fence.proxy.async.global;" ::: "memory");
+        }
+        bulk_store_f32(dst, buf, C::DQ_BYTES, rank > 0);
+        if constexpr (!C::SPLIT)
+          bulk_store_f32(dst, buf + C::DQ_BYTES, C::DQ_BYTES, true);
+        asm volatile("fence.proxy.async.global;" ::: "memory");
+        red_release(cnt);
+        mbar_arrive(dq_empty + 8 * b);
+      }
+    }
+  } else {
+    // Consumer wg: keys [kc0, kc0 + 64) of the tile, columns [cw0, cw0 +
+    // DW) of D.  Thread (warp wq, lane) holds rows r0 and r0 + 8 of every
+    // 64-row accumulator, and in every 8 columns the two at col0: register
+    // 4j + 2h + e is row r0 + 8h, column 8j + col0 + e.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const Walk w = walk<C::BK>(a, k0);
+    const int q_lo = w.q_lo, nq = w.nq, steps = w.steps;
+    const int wg = warp / 4 - 1;
+    const int wq = warp % 4;
+    const int tid = threadIdx.x % 128;
+    const int r0 = 16 * wq + lane / 4, col0 = 2 * (lane % 4);
+    const int row0 = C::SPLIT ? 0 : 64 * wg;   // the keys' rows in K, V
+    const int kc0 = k0 + row0;
+    const int cw0 = C::SPLIT ? 64 * wg : 0;
+    const uint32_t ds_hi = base + C::DS_OFF + 2 * wg * C::DS_BYTES;
+    const uint32_t ds_lo = ds_hi + C::DS_BYTES;
+
+    float dk[C::DW / 2], dv[C::DW / 2];
+#pragma unroll
+    for (int i = 0; i < C::DW / 2; ++i) dk[i] = dv[i] = 0.f;
+    if (steps > 0) mbar_wait(kv_full, 0);
+    if (wg == 1) named_arrive<256>(SCHED_BAR);   // consumer 0 goes first
+
+    for (int n = 0; n < steps; ++n) {
+      const int s = n % C::STAGES;
+      const int q0 = (q_lo + n % nq) * BQ;
+      const uint32_t sq = base + C::Q_OFF + 2 * s * C::QT_BYTES;
+      const uint32_t sdo = sq + C::QT_BYTES;
+      const uint32_t lse_t = base + C::ST_OFF + s * C::STATS_BYTES;
+      mbar_wait(full + 8 * s, (n / C::STAGES) & 1);
+
+      // S^T and dP^T for the consumer's 64 keys, in its turn.
+      float sc[32], dp[32];
+      named_sync<256>(SCHED_BAR + wg);
+      wgmma_fence();
+      start_scores<D>(sc, sk, row0, sq);
+      start_scores<D>(dp, sv, row0, sdo);
+      wgmma_commit();
+      named_arrive<256>(SCHED_BAR + 1 - wg);
+      wgmma_wait<0>();
+      pin(sc);
+      pin(dp);
+
+      // P^T and dS^T in place; masks only on edge tiles, where invisible
+      // pairs get P = dS = 0.
+      if (a.softcap > 0.f) {
+        grads<true>(sc, dp, lse_t, col0, a.scale, a.softcap);
+      } else {
+        grads<false>(sc, dp, lse_t, col0, a.scale, a.softcap);
+      }
+      if ((a.causal && kc0 + 63 > q0) ||
+          (a.window > 0 && q0 + BQ - 1 - kc0 >= a.window) ||
+          kc0 + 64 > a.T || q0 + BQ > a.S) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const bool vis = visible(q0 + 8 * (i / 4) + col0 + i % 2,
+                                   kc0 + r0 + 8 * ((i / 2) % 2), a.S, a.T,
+                                   a.causal, a.window);
+          sc[i] = vis ? sc[i] : 0.f;
+          dp[i] = vis ? dp[i] : 0.f;
+        }
+      }
+      uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+      split(sc, ph, pl);
+      split(dp, dh, dl);
+
+      // dS^T, hi and lo, into the consumer's [64 keys][BQ] tiles in the
+      // 128-byte swizzle (16-byte chunk j of row r at chunk j ^ (r % 8)),
+      // four 8x8 matrices a stmatrix: fragment (t, m) is the matrix of key
+      // rows 16 wq + 8(m % 2) on, query columns 16t + 8(m / 2) on, whose
+      // row lane % 8 lane gives the address of, for m = lane / 8.
+      {
+        const int m = lane / 8;
+        const int row = 16 * wq + 8 * (m % 2) + lane % 8;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const uint32_t off =
+              row * 128 + (((2 * t + m / 2) ^ (lane % 8)) << 4);
+          stmatrix4(ds_hi + off, dh[t]);
+          stmatrix4(ds_lo + off, dl[t]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_sync<128>(WG_BAR + wg);   // every thread's dS^T is in place
+
+      // dV += P^T.dO and dK += dS^T.Q, and the dQ part = dS.K over the
+      // consumer's 64 keys: in one turn, or in two where the registers
+      // cannot hold the dQ part beside the fragments.
+      float dq[C::DW / 2];
+      named_sync<256>(SCHED_BAR + wg);
+      pin(dv);
+      pin(dk);
+      wgmma_fence();
+      start_key_grad<D>(dv, ph, pl, sdo, wg);
+      start_key_grad<D>(dk, dh, dl, sq, wg);
+      if constexpr (C::ONE_BATCH)
+        start_dq<D>(dq, ds_hi, ds_lo, sk, row0, wg);
+      wgmma_commit();
+      named_arrive<256>(SCHED_BAR + 1 - wg);
+      wgmma_wait<0>();
+      pin(dv);
+      pin(dk);
+      pin(ph);
+      pin(pl);
+      pin(dh);
+      pin(dl);   // the fragments stay theirs until the products are done
+      release(empty + 8 * s, lane);
+      if constexpr (!C::ONE_BATCH) {
+        named_sync<256>(SCHED_BAR + wg);
+        wgmma_fence();
+        start_dq<D>(dq, ds_hi, ds_lo, sk, row0, wg);
+        wgmma_commit();
+        named_arrive<256>(SCHED_BAR + 1 - wg);
+        wgmma_wait<0>();
+      }
+      pin(dq);
+
+      // The part into dQ buffer n % NBUF in the tile's fragment order
+      // (float4 j of thread tid at (j * 128 + tid) * 16 bytes): consumer
+      // wg's whole part at part wg of the buffer, or at D = 128 its column
+      // half (float4s 8 wg to 8 wg + 7).  The buffer's writer takes it.
+      const int b = n % C::NBUF;
+      const uint32_t buf = base + C::DQ_OFF + b * C::BUF_BYTES +
+                           (C::SPLIT ? 8 * wg * 2048 : wg * C::DQ_BYTES) +
+                           tid * 16;
+      mbar_wait(dq_empty + 8 * b, ((n / C::NBUF) & 1) ^ 1);
+#pragma unroll
+      for (int j = 0; j < C::DW / 8; ++j)
+        asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                         buf + j * 2048),
+                     "f"(dq[4 * j]), "f"(dq[4 * j + 1]), "f"(dq[4 * j + 2]),
+                     "f"(dq[4 * j + 3]) : "memory");
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      release(dq_full + 8 * b, lane);
+    }
+
+    if (wg == 0) named_sync<256>(SCHED_BAR);   // consumer 1's last turn
+
+    // dK and dV, rounded once.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = kc0 + r0 + 8 * h;
+      if (key >= a.T) continue;
+      const size_t row =
+          (static_cast<size_t>(kvh) * a.T + key) * D + cw0 + col0;
+#pragma unroll
+      for (int j = 0; j < C::DW / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(a.dk + row + 8 * j) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(a.dv + row + 8 * j) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
-// (c): dQ of one 64-query tile of one query head.
-template <int D>
-__global__ void __launch_bounds__(BwdTiles<D>::THREADS_C)
-flash_bwd_dq_kernel(const BwdArgs a, int q_tiles) {
-  using C = BwdTiles<D>;
-  constexpr int LD = C::LD, BKC = C::BKC, NT = BKC / 8;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const uint32_t sQ = smem_addr(smem);
-  const uint32_t sO = sQ + ROWS * LD * 2;
-  const uint32_t sK = sO + ROWS * LD * 2;      // 2 stages [BKC][LD]
-  const uint32_t sV = sK + 2 * BKC * LD * 2;   // 2 stages
-
-  const int bh = blockIdx.x;
-  const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.y)) * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  int k_lo = 0, k_hi = a.T;
-  if (a.window > 0) k_lo = max(0, q0 - a.window + 1) / BKC * BKC;
-  if (a.causal) k_hi = min(a.T, q0 + ROWS);
-  const int steps = k_hi > k_lo ? (k_hi - k_lo + BKC - 1) / BKC : 0;
-
-  const size_t q_off = static_cast<size_t>(bh) * a.S * D;
-  const size_t kv_off = static_cast<size_t>(bh / a.group) * a.T * D;
-  load_rows<D>(sQ, a.q + q_off, q0, ROWS, a.S, C::THREADS_C);
-  load_rows<D>(sO, a.dout + q_off, q0, ROWS, a.S, C::THREADS_C);
-  auto load_step = [&](int i) {
-    const int st = i % 2;
-    load_rows<D>(sK + st * BKC * LD * 2, a.k + kv_off, k_lo + i * BKC, BKC,
-                 a.T, C::THREADS_C);
-    load_rows<D>(sV + st * BKC * LD * 2, a.v + kv_off, k_lo + i * BKC, BKC,
-                 a.T, C::THREADS_C);
-  };
-  if (steps > 0) load_step(0);
-  cp_commit();
-
-  // This thread's rows, q_r and q_r + 8: their lse (in log2 units) and D_i.
-  const int q_r = q0 + 16 * warp + g;
-  float lse_l2[2], di[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q_r + 8 * h;
-    const size_t at = static_cast<size_t>(bh) * a.S + (row < a.S ? row : 0);
-    lse_l2[h] = a.lse[at] * LOG2E;
-    di[h] = a.di[at];
+// (c): dq = bf16 of the f32 sums, one block a 64-row tile: the tile's
+// fragment order (float4 j of thread t: row 16(t / 32) + (t % 32) / 4 and
+// + 8, columns 8j + 2(t % 4) and + 1) through shared memory into rows, 16
+// bytes a store.
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_convert_kernel(const float4* __restrict__ acc,
+                            bf16* __restrict__ dq, int S, int n_q, int D) {
+  constexpr int LD = 128 + 8;   // bf16 a shared row, for D up to 128
+  __shared__ __align__(16) bf16 tile[BQ * LD];
+  const int t = threadIdx.x;
+  const size_t bh = blockIdx.x / n_q;
+  const int q0 = static_cast<int>(blockIdx.x % n_q) * BQ;
+  const int r = 16 * (t / 32) + (t % 32) / 4, c = 2 * (t % 4);
+  const float4* src = acc + static_cast<size_t>(blockIdx.x) * (D / 8) * 128;
+  for (int j = 0; j < D / 8; ++j) {
+    const float4 v = src[j * 128 + t];
+    *reinterpret_cast<__nv_bfloat162*>(tile + r * LD + 8 * j + c) =
+        __floats2bfloat162_rn(v.x, v.y);
+    *reinterpret_cast<__nv_bfloat162*>(tile + (r + 8) * LD + 8 * j + c) =
+        __floats2bfloat162_rn(v.z, v.w);
   }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-  const Grad grad{a.scale, a.softcap,
-                  a.softcap > 0.f ? a.scale / a.softcap : 0.f};
-
-  for (int i = 0; i < steps; ++i) {
-    if (i + 1 < steps) load_step(i + 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const int st = i % 2;
-    const int kb = k_lo + i * BKC;
-    const uint32_t k_s = sK + st * BKC * LD * 2, v_s = sV + st * BKC * LD * 2;
-
-    // S = Q.K^T and dP = dO.V^T for the warp's 16 queries.
-    float sc[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      ldsm(aq, a_addr(sQ, 16 * warp, 16 * kk, LD, lane));
-      ldsm(ao, a_addr(sO, 16 * warp, 16 * kk, LD, lane));
-#pragma unroll
-      for (int np = 0; np < BKC / 16; ++np) {
-        uint32_t b[4];
-        ldsm(b, b_addr(k_s, 16 * np, 16 * kk, LD, lane));
-        mma(sc[2 * np], aq, b[0], b[1]);
-        mma(sc[2 * np + 1], aq, b[2], b[3]);
-        ldsm(b, b_addr(v_s, 16 * np, 16 * kk, LD, lane));
-        mma(dp[2 * np], ao, b[0], b[1]);
-        mma(dp[2 * np + 1], ao, b[2], b[3]);
-      }
-    }
-
-    const bool edge = (a.causal && kb + BKC - 1 > q0) ||
-                      (a.window > 0 && q0 + ROWS - 1 - kb >= a.window) ||
-                      kb + BKC > a.T || q0 + ROWS > a.S;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int key = kb + 8 * j + 2 * t + (e & 1);
-        const bool vis = !edge || visible(q_r + 8 * h, key, a.S, a.T,
-                                          a.causal, a.window);
-        float ds;
-        grad.apply(sc[j][e], dp[j][e], lse_l2[h], di[h], vis, ds);
-        dp[j][e] = ds;
-      }
-
-    // dQ += dS.K
-#pragma unroll
-    for (int kk = 0; kk < BKC / 16; ++kk) {
-      uint32_t dh[4], dl[4];
-      split_a(dp[2 * kk], dp[2 * kk + 1], dh, dl);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        uint32_t b[4];
-        ldsm_t(b, a_addr(k_s, 16 * kk, 16 * n, LD, lane));
-        mma(dq[2 * n], dh, b[0], b[1]);
-        mma(dq[2 * n], dl, b[0], b[1]);
-        mma(dq[2 * n + 1], dh, b[2], b[3]);
-        mma(dq[2 * n + 1], dl, b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-  cp_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q_r + 8 * h;
-    if (row >= a.S) continue;
-    bf16* out = a.dq + q_off + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(dq[n][2 * h], dq[n][2 * h + 1]);
+  __syncthreads();
+  const int rows = min(BQ, S - q0), chunks = D / 8;
+  for (int i = t; i < rows * chunks; i += 128) {
+    const int row = i / chunks, ch = i % chunks;
+    *reinterpret_cast<uint4*>(dq + (bh * S + q0 + row) * D + 8 * ch) =
+        *reinterpret_cast<const uint4*>(tile + row * LD + 8 * ch);
   }
 }
 
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so that the
+// library links without -lcuda.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-d map over (heads, rows, D) of bf16: boxes of `width` columns by
+// `box_rows` rows of one head, swizzled to the width.  Rows past `rows` come
+// in as zeros.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
+            int rows, int D, int width, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(width),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Call {   // one launch's operands, as the wrapper passes them
+  const void *q, *k, *v, *o, *o_lo, *dout;
+  const float* lse;
+  void *dq, *dk, *dv;
+  float *di, *lse2, *dq_acc;
+  int* counters;
+  int BH, BKV, S, T, causal, window;
+  float softcap;
+  cudaStream_t stream;
+};
+
 template <int D>
-int launch(const BwdArgs& a, const bf16* o, const bf16* o_lo, float* di,
-           int BH, int BKV, cudaStream_t stream) {
-  using C = BwdTiles<D>;
-  const int rows = BH * a.S;
-  flash_bwd_dot_do_o_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
-      a.dout, o, o_lo, di, rows, D);
+int launch(const Call& c) {
+  using C = Tiles<D>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  Args a{};
+  Maps& m = a.maps;
+  bool ok = true;
+  if (C::N64 > 0)
+    ok = encode(fn, &m.q64, c.q, c.BH, c.S, D, 64, BQ) &&
+         encode(fn, &m.do64, c.dout, c.BH, c.S, D, 64, BQ) &&
+         encode(fn, &m.k64, c.k, c.BKV, c.T, D, 64, C::BK) &&
+         encode(fn, &m.v64, c.v, c.BKV, c.T, D, 64, C::BK);
+  if (C::TAIL > 0)
+    ok = ok && encode(fn, &m.q_tail, c.q, c.BH, c.S, D, C::TAIL, BQ) &&
+         encode(fn, &m.do_tail, c.dout, c.BH, c.S, D, C::TAIL, BQ) &&
+         encode(fn, &m.k_tail, c.k, c.BKV, c.T, D, C::TAIL, C::BK) &&
+         encode(fn, &m.v_tail, c.v, c.BKV, c.T, D, C::TAIL, C::BK);
+  if (!ok) return ERR_TENSOR_MAP;
+  a.n_q = (c.S + BQ - 1) / BQ;
+  a.S_pad = a.n_q * BQ;
+  a.n_kt = (c.T + C::BK - 1) / C::BK;
+  a.lse2 = c.lse2;
+  a.di = c.di;
+  a.dq_acc = c.dq_acc;
+  a.counters = c.counters;
+  a.dk = static_cast<bf16*>(c.dk);
+  a.dv = static_cast<bf16*>(c.dv);
+  a.S = c.S;
+  a.T = c.T;
+  a.group = c.BH / c.BKV;
+  a.causal = c.causal;
+  a.window = c.window;
+  a.scale = 1.0f / sqrtf(static_cast<float>(D));
+  a.softcap = c.softcap;
+  const int rows = c.BH * a.S_pad;
+  flash_bwd_prep_kernel<<<(rows + 31) / 32, 256, 0, c.stream>>>(
+      static_cast<const bf16*>(c.dout), static_cast<const bf16*>(c.o),
+      static_cast<const bf16*>(c.o_lo), c.lse, c.di, c.lse2, c.counters, c.S,
+      a.S_pad, a.n_q, rows, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_sm90_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM_B);
+                             C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<D><<<dim3(BKV, (a.T + ROWS - 1) / ROWS),
-                             C::THREADS_B, C::SMEM_B, stream>>>(a);
+  // Within a KV head the key tiles go highest first: a CTA waits only on
+  // CTAs launched before it.
+  flash_bwd_sm90_kernel<D><<<dim3(a.n_kt, c.BKV), THREADS, C::SMEM,
+                             c.stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM_C);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (a.S + ROWS - 1) / ROWS;
-  flash_bwd_dq_kernel<D><<<dim3(BH, q_tiles), C::THREADS_C, C::SMEM_C,
-                           stream>>>(a, q_tiles);
+  flash_bwd_dq_convert_kernel<<<c.BH * a.n_q, 128, 0, c.stream>>>(
+      reinterpret_cast<const float4*>(c.dq_acc), static_cast<bf16*>(c.dq),
+      c.S, a.n_q, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the three kernels on `stream` and returns the CUDA error (0 on
-// success).  q, dout, o, o_lo, dq: (BH, S, D); k, v, dk, dv: (BKV, T, D);
-// all contiguous bf16, 16-byte aligned; lse and di (scratch, written by the
-// first launch): (BH, S) f32.  The caller checks shapes, BH % BKV == 0, D in
-// {16, 32, 64, 80, 96, 128, 256}, BH and S / 64 within the grid's 65535, and
+// Launches the two kernels on `stream` and returns 0 or an error code for
+// flash_attention_sm90_error_string.  q, dout, o, o_lo, dq: (BH, S, D); k,
+// v, dk, dv: (BKV, T, D); all contiguous bf16, 16-byte aligned; lse: (BH,
+// S) f32 from the forward.  Scratch, written here: di and lse2 (BH, S_pad)
+// f32, dq_acc (BH, S_pad, D) f32 and counters (BH, S_pad / 64) int32, S_pad
+// = S rounded up to 64, 16-byte aligned.  The caller checks shapes, BH %
+// BKV == 0, D in {16, 32, 64, 80, 96, 128}, BKV within the grid's 65535 and
 // every index below 2**31.
 extern "C" int flash_attention_bwd_sm90_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* o_lo, const float* lse, const void* dout, void* dq, void* dk,
-    void* dv, float* di, int BH, int BKV, int S, int T, int D, int causal,
-    int window, float softcap, void* stream) {
-  BwdArgs a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = lse;
-  a.di = di;
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  a.S = S;
-  a.T = T;
-  a.group = BH / BKV;
-  a.causal = causal;
-  a.window = window;
-  a.scale = 1.0f / sqrtf(static_cast<float>(D));
-  a.softcap = softcap;
-  const bf16* ob = static_cast<const bf16*>(o);
-  const bf16* lo = static_cast<const bf16*>(o_lo);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    void* dv, float* di, float* lse2, float* dq_acc, int* counters, int BH,
+    int BKV, int S, int T, int D, int causal, int window, float softcap,
+    void* stream) {
+  const Call c{q,      k,      v,  o,      o_lo,     dout,   lse,
+               dq,     dk,     dv, di,     lse2,     dq_acc, counters,
+               BH,     BKV,    S,  T,      causal,   window, softcap,
+               static_cast<cudaStream_t>(stream)};
   switch (D) {
-    case 16: return launch<16>(a, ob, lo, di, BH, BKV, s);
-    case 32: return launch<32>(a, ob, lo, di, BH, BKV, s);
-    case 64: return launch<64>(a, ob, lo, di, BH, BKV, s);
-    case 80: return launch<80>(a, ob, lo, di, BH, BKV, s);
-    case 96: return launch<96>(a, ob, lo, di, BH, BKV, s);
-    case 128: return launch<128>(a, ob, lo, di, BH, BKV, s);
-    case 256: return launch<256>(a, ob, lo, di, BH, BKV, s);
+    case 16: return launch<16>(c);
+    case 32: return launch<32>(c);
+    case 64: return launch<64>(c);
+    case 80: return launch<80>(c);
+    case 96: return launch<96>(c);
+    case 128: return launch<128>(c);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory of launch (b) (`which` 2) or (c) (3) at head dim D,
-// 0 if not built for D.
-extern "C" int flash_attention_bwd_sm90_smem_bytes(int which, int D) {
-#define FLASH_BWD_SMEM(d) \
-  case d: return which == 2 ? BwdTiles<d>::SMEM_B : BwdTiles<d>::SMEM_C;
+// The main kernel's dynamic shared memory at head dim D (0 if not built
+// for D).
+extern "C" int flash_attention_bwd_sm90_smem_bytes(int D) {
   switch (D) {
-    FLASH_BWD_SMEM(16)
-    FLASH_BWD_SMEM(32)
-    FLASH_BWD_SMEM(64)
-    FLASH_BWD_SMEM(80)
-    FLASH_BWD_SMEM(96)
-    FLASH_BWD_SMEM(128)
-    FLASH_BWD_SMEM(256)
+    case 16: return Tiles<16>::SMEM;
+    case 32: return Tiles<32>::SMEM;
+    case 64: return Tiles<64>::SMEM;
+    case 80: return Tiles<80>::SMEM;
+    case 96: return Tiles<96>::SMEM;
+    case 128: return Tiles<128>::SMEM;
     default: return 0;
   }
-#undef FLASH_BWD_SMEM
 }

@@ -25,13 +25,25 @@ own tiles and mask ragged S and T.
 ``FlashAttention`` gives the kernel's output a gradient.  The JAX package
 trains through the einsum ``attention_scores`` and never through its
 Pallas kernel, which has no backward; the backward here is the gradient of
-that arithmetic, computed by hand-written kernels of the same two routes
-from the forward's saved q, k, v, O and per-row log-sum-exp:
-``csrc/flash_attention_bwd_sm90.cu`` (bf16, ``mma.sync`` on the tensor
-cores, P and dS as hi + lo bf16) and ``csrc/flash_attention_bwd.cu`` (f32,
-CUDA cores), each three launches (D_i = rowsum(dO∘O); dK and dV per key
-tile; dQ per query tile), deterministic.  ``ref.attention_ref_grad`` stays
-the plain version: the CPU's, and the yardstick the card is held to.
+that arithmetic, computed by hand-written kernels from the forward's saved
+q, k, v, O and per-row log-sum-exp, chosen by dtype and head dim:
+
+* bf16, D <= 128 → ``csrc/flash_attention_bwd_sm90.cu`` (``bwd_tc_bf16``):
+  ``wgmma`` with TMA-fed tiles, S and dP once per visible pair (twice at
+  D = 128, whose two consumers split D), P and dS as hi + lo bf16; three
+  launches: D_i and the padded statistics; dK and dV per key tile, whose
+  dQ parts are added into an f32 accumulator in a fixed order per query
+  tile, so two calls give the same bits; dq rounded from it.  Scratch from
+  ``torch.empty``: the padded statistics, the accumulator and the order's
+  counters;
+* bf16, D = 256 → ``csrc/flash_attention_bwd_mma.cu`` (``bwd_mma_bf16``):
+  the first backward's ``mma.sync`` kernel, three launches;
+* f32 → ``csrc/flash_attention_bwd.cu`` (``bwd_simt_f32``): the CUDA cores,
+  three launches.
+
+The head dim chooses before any launch; no route falls back on another.
+``ref.attention_ref_grad`` stays the plain version: the CPU's, and the
+yardstick the card is held to.
 """
 
 from __future__ import annotations
@@ -46,17 +58,30 @@ from repro_torch.kernels import ref
 launches = 0
 backward_launches = 0
 launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0, "bwd_tc_bf16": 0,
-                      "bwd_simt_f32": 0}
-# the backward's route beside each forward route
+                      "bwd_mma_bf16": 0, "bwd_simt_f32": 0}
+# the backward's route beside each forward route, at head dims other than
+# MMA_BACKWARD_HEAD_DIMS
 BACKWARD_ROUTE = {"wgmma_bf16": "bwd_tc_bf16", "simt_f32": "bwd_simt_f32"}
+# bf16 head dims whose backward runs the mma.sync kernel
+MMA_BACKWARD_HEAD_DIMS = (256,)
 
 # the head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _INDEX_LIMIT = 2**31                 # the kernel indexes with 32-bit ints
 _GRID_Y_LIMIT = 65535                # grid rows: f32 one per query head,
 _BF16_Q_TILE = 128                   # bf16 one per 128-query tile
-_BWD_ROWS = 64                       # backward: one grid row per 64 rows
+_BWD_ROWS = 64                       # backward (f32, mma): one grid row per
+                                     # 64 rows; wgmma: 64-row dQ tiles
 _TMA_ALIGN = 16                      # bytes, TMA's and cp.async's alignment
+
+
+def backward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The ``launches_by_kernel`` key of the backward kernel that takes
+    gradients of ``dtype`` at ``head_dim``."""
+    if dtype == torch.bfloat16 and head_dim in MMA_BACKWARD_HEAD_DIMS:
+        return "bwd_mma_bf16"
+    return BACKWARD_ROUTE["wgmma_bf16" if dtype == torch.bfloat16
+                          else "simt_f32"]
 
 
 def check_every_row_sees_a_key(S: int, T: int, window: int) -> None:
@@ -191,8 +216,9 @@ def flash_attention_backward_kernel(
     ``dout``, from its inputs, its output and the ``lse`` (and, in bf16,
     ``out_lo``) it returned with ``stats``: contiguous dq (BH, S, D) and
     dk, dv (BKV, T, D) in the inputs' dtype, dk and dv summed over each KV
-    head's query group.  Three launches of the dtype's backward kernel
-    (f32 D_i scratch from ``torch.empty``), counted once."""
+    head's query group.  The launches of the backward kernel of
+    ``backward_route(dtype, D)``, counted once; scratch from
+    ``torch.empty``."""
     global backward_launches
     bf16 = q.dtype == torch.bfloat16
     more = {"out": out, "dout": dout}
@@ -211,28 +237,43 @@ def flash_attention_backward_kernel(
         raise ValueError(f"flash_attention backward: lse must be contiguous "
                          f"float32 ({BH}, {S}) on {q.device}, got "
                          f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    route = backward_route(q.dtype, D)
+    s_pad = -(-S // _BWD_ROWS) * _BWD_ROWS
+    if route == "bwd_tc_bf16" and BH * s_pad * D >= _INDEX_LIMIT:
+        raise ValueError(f"flash_attention backward: the dQ accumulator "
+                         f"({BH}, {s_pad}, {D}) has {_INDEX_LIMIT} or more "
+                         f"elements")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    di = torch.empty((BH, S), dtype=torch.float32, device=q.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if bf16:
+        if route == "bwd_tc_bf16":
+            f32 = dict(dtype=torch.float32, device=q.device)
+            di, lse2 = (torch.empty((BH, s_pad), **f32) for _ in range(2))
+            dq_acc = torch.empty((BH, s_pad, D), **f32)
+            counters = torch.empty((BH, s_pad // _BWD_ROWS),
+                                   dtype=torch.int32, device=q.device)
             err = lib.flash_attention_bwd_sm90_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 out_lo.data_ptr(), lse.data_ptr(), dout.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
-                BH, BKV, S, T, D, int(causal), int(window), float(softcap),
+                lse2.data_ptr(), dq_acc.data_ptr(), counters.data_ptr(), BH,
+                BKV, S, T, D, int(causal), int(window), float(softcap),
                 stream)
+            error_string = lib.flash_attention_sm90_error_string
         else:
-            err = lib.flash_attention_bwd_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), di.data_ptr(), BH, BKV, S, T,
-                D, int(causal), int(window), float(softcap), stream)
-    route = BACKWARD_ROUTE["wgmma_bf16" if bf16 else "simt_f32"]
+            di = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+            fn = (lib.flash_attention_bwd_mma_bf16 if bf16
+                  else lib.flash_attention_bwd_f32)
+            tail = (out_lo.data_ptr(),) if bf16 else ()
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     *tail, lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), di.data_ptr(), BH, BKV, S,
+                     T, D, int(causal), int(window), float(softcap), stream)
+            error_string = lib.flash_attention_error_string
     if err:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: "
-                           f"{lib.flash_attention_error_string(err).decode()}")
+                           f"{error_string(err).decode()}")
     backward_launches += 1
     launches_by_kernel[route] += 1
     return dq, dk, dv

@@ -600,29 +600,32 @@ def _grad_check(dev, dtype, B, H, KV, S, T, D, causal, window, softcap):
     autograd function, whose backward launches the backward kernel)
     against autograd of the plain attention in f32 on the same values:
     within 1e-5·max|ref| in f32, half a bf16 ulp of |ref| plus 2e-5 in
-    bf16.  One forward and one backward launch, each on its dtype's
-    route, and no call of the plain gradient."""
+    bf16.  Twice: the two gradients bit-equal, two forward and two
+    backward launches, each on its dtype's (and head dim's) route, and no
+    call of the plain gradient."""
     g = torch.Generator(device=dev).manual_seed(S * 31 + D)
     q, k, v = (torch.randn(B, n, H_, D, generator=g, device=dev).to(dtype)
                for n, H_ in ((S, H), (T, KV), (T, KV)))
     do = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    route = "wgmma_bf16" if dtype == torch.bfloat16 else "simt_f32"
-    routes = (route, FA.BACKWARD_ROUTE[route])
+    routes = (_route(dtype), FA.backward_route(dtype, D))
     before = dict(FA.launches_by_kernel)
     bwd_before = FA.backward_launches
-    out = ops.flash_attention(*leaves, **kw)
-    out.backward(do)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.flash_attention(*leaves, **kw).backward(do)
+        runs.append(leaves)
     torch.cuda.synchronize()
     moved = {r: n - before[r] for r, n in FA.launches_by_kernel.items()}
-    assert moved == {r: int(r in routes) for r in moved}
-    assert FA.backward_launches == bwd_before + 1
+    assert moved == {r: 2 * int(r in routes) for r in moved}
+    assert FA.backward_launches == bwd_before + 2
+    assert all(torch.equal(a.grad, b.grad) for a, b in zip(*runs))
     refs = [t.float().clone().requires_grad_() for t in (q, k, v)]
     with ops.plain():
         ref_out = ops.flash_attention(*refs, **kw)
     ref_out.backward(do.float())
-    for t, r in zip(leaves, refs):
+    for t, r in zip(runs[0], refs):
         assert t.grad.dtype == dtype
         err = (t.grad.float() - r.grad).abs()
         if dtype == torch.float32:
@@ -646,8 +649,11 @@ def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
     _grad_check(cuda, dtype, B, H, KV, S, T, D, causal, window, softcap)
 
 
-# The backward kernels alone, at every head dim: launch (b) walks 64-key
-# tiles, (c) 64-query tiles, so 150 and 77 are multiples of neither.
+# The backward kernels alone, at every head dim: the wgmma kernel walks
+# 128-key tiles and 64-query tiles, the others 64-key and 64-query tiles,
+# so 150, 77 and 700 are multiples of none; 700 with a window of 200 has
+# six key tiles, each query tile's dQ summed over up to three in order, and
+# the non-causal 200 by 600 five, every one adding to every query tile.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", FA.HEAD_DIMS)
 @pytest.mark.parametrize("BH,BKV,S,T,causal,window,softcap", [
@@ -655,20 +661,22 @@ def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
     (4, 1, 150, 150, True, 37, 30.0),    # window and softcap, GQA 4:1
     (2, 2, 77, 150, False, 0, 0.0),      # cross, S < T, ragged
     (2, 2, 150, 77, True, 0, 0.0),       # causal, S > T: keys past S seen
+    (2, 1, 700, 700, True, 200, 0.0),    # window across key tiles, GQA 2:1
+    (2, 2, 200, 600, False, 0, 0.0),     # non-causal, five key tiles each
 ])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, D, BH, BKV, S, T,
                                              causal, window, softcap):
     """dq, dk, dv from the forward's saved statistics against
     ``attention_ref_grad`` in f32 on the same values (the limits of
     ``_grad_check``); two launches give the same bits; one backward launch
-    each on the dtype's backward route."""
+    each on the backward route of the dtype and head dim."""
     q, k, v = _qkv(cuda, BH, BKV, S, T, D, dtype)
     do = torch.randn(q.shape, generator=torch.Generator(
         device=cuda).manual_seed(D), device=cuda).to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse, lo = FA.flash_attention_kernel(q, k, v, **kw, stats=True)
     assert torch.equal(out, FA.flash_attention_kernel(q, k, v, **kw))
-    route = FA.BACKWARD_ROUTE[_route(dtype)]
+    route = FA.backward_route(dtype, D)
     before = dict(FA.launches_by_kernel)
     runs = [FA.flash_attention_backward_kernel(q, k, v, out, lse, do,
                                                out_lo=lo, **kw)

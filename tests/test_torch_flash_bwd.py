@@ -1,25 +1,33 @@
 """The flash-attention backward kernels' arithmetic on the CPU.
 
-``csrc/flash_attention_bwd_sm90.cu`` (bf16, tensor cores) and
+``csrc/flash_attention_bwd_sm90.cu`` (bf16 up to D = 128, ``wgmma``),
+``csrc/flash_attention_bwd_mma.cu`` (bf16 at D = 256, ``mma.sync``) and
 ``csrc/flash_attention_bwd.cu`` (f32, CUDA cores) run only on the card;
 this file emulates them in torch, step by step as they walk their tiles:
 the forward kernel's online softmax over its key tiles, which saves each
 row's log-sum-exp (and, in bf16, O's lo part); D_i = rowsum(dO∘O) from the
-f32-accurate O; launch (b), per 64-key tile of a KV head, walking the
-group's query heads and their visible query tiles (``backward_tiles``'s
-BQ) and accumulating dK and dV; launch (c), per 64-query tile, walking the
-visible key tiles (BKC) and accumulating dQ; in bf16 P and dS split into
-hi + lo bf16, each product summed in f32 sixteen rows at a time, hi then
-lo, as ``mma.sync`` takes them.  The emulation is held against
-``jax.grad`` of the JAX package's ``attention_scores`` (the arithmetic JAX
-trains through) at causal, windowed, softcapped, GQA, non-causal cross
-and ragged shapes and at every head dim:
+f32-accurate O.  The ``wgmma`` kernel: per key tile of a KV head (128
+keys, 64 at D = 128), the group's query heads and their visible 64-query
+tiles (``tc_query_tiles``); per step and 64 keys, S^T and dP^T, dV and dK
+accumulated, and the dQ parts added into the query tile's f32 sum in the
+fixed order of the key tiles, highest first (``tc_key_tiles``), each
+tile's halves in turn, rounded once.  The three-launch kernels: launch (b), per 64-key tile, walking the
+query tiles (``backward_tiles``'s BQ) and accumulating dK and dV; launch
+(c), per 64-query tile, walking the key tiles (BKC) and accumulating dQ.
+In bf16 P and dS split into hi + lo bf16, each product summed in f32
+sixteen rows at a time, hi then lo, as the tensor cores take them.  The
+emulation is held against ``jax.grad`` of the JAX package's
+``attention_scores`` (the arithmetic JAX trains through) at causal,
+windowed, softcapped, GQA, non-causal cross and ragged shapes and at every
+head dim:
 
 * f32: each element within 1e-5·max|ref|;
 * bf16: bf16 gradients, each within half a bf16 ulp (2^-8 relative) plus
   2e-5 of the gradient in f32 of the same bf16 values.
 
-The emulated log-sum-exp is held against ``torch.logsumexp`` of the masked,
+The ``wgmma`` kernel's tile walk is held against the visible pairs, and its
+dQ order against the launch order (no wait on a CTA launched later).  The
+emulated log-sum-exp is held against ``torch.logsumexp`` of the masked,
 softcapped logits, and ``FlashAttention`` runs with the emulation injected
 as its ``backward_fn``.  Inputs come from a numpy seed.
 """
@@ -41,6 +49,7 @@ F32_RTOL = 1e-5
 BF16_RTOL, BF16_ATOL = 2.0**-8, 2e-5
 LOG2E = 1.4426950408889634
 ROWS = 64          # keys a block of launch (b) owns, queries one of (c)
+TC_BQ = 64         # the wgmma kernel: queries a step
 
 
 def forward_key_tile(D: int, dtype: torch.dtype) -> int:
@@ -53,12 +62,49 @@ def forward_key_tile(D: int, dtype: torch.dtype) -> int:
 
 
 def backward_tiles(D: int, dtype: torch.dtype) -> tuple[int, int]:
-    """(BQ, BKC) of the backward kernels at head dim D: launch (b) walks
-    the queries BQ at a time, launch (c) the keys BKC at a time (the
-    sources' ``BwdTiles`` and ``F32Tiles``)."""
+    """(BQ, BKC) of the three-launch backward kernels at head dim D (f32,
+    and bf16 at D = 256): launch (b) walks the queries BQ at a time, launch
+    (c) the keys BKC at a time (the sources' ``BwdTiles`` and
+    ``F32Tiles``)."""
     if dtype == torch.bfloat16:
         return (64 if D <= 96 else 32), (64 if D <= 128 else 32)
     return (32, 32) if D == 256 else (64, 64)
+
+def tc_route(D: int, dtype: torch.dtype) -> bool:
+    """Whether the ``wgmma`` kernel takes the backward (bf16, D <= 128)."""
+    return dtype == torch.bfloat16 and D not in FA.MMA_BACKWARD_HEAD_DIMS
+
+
+def tc_key_tile(D: int) -> int:
+    """Keys a CTA of the ``wgmma`` kernel owns at head dim D (``Tiles<D>::
+    BK``): 128, 64 a consumer; at D = 128, 64, the consumers splitting D."""
+    return 64 if D == 128 else 128
+
+
+def tc_query_tiles(kt: int, S: int, T: int, causal: bool, window: int,
+                   bk: int) -> range:
+    """The 64-query tiles that ``bk``-key tile ``kt`` walks (the kernel's
+    ``q_lo``, ``q_hi``)."""
+    k0, n_q = kt * bk, -(-S // TC_BQ)
+    lo, hi = 0, n_q
+    if causal:
+        lo = k0 // TC_BQ if k0 <= S - 1 else n_q
+    if window:
+        k_max = min(k0 + bk - 1, T - 1)
+        hi = min(hi, (k_max + window - 1) // TC_BQ + 1)
+    return range(lo, max(lo, hi))
+
+
+def tc_key_tiles(i: int, S: int, T: int, causal: bool, window: int,
+                 bk: int) -> range:
+    """The ``bk``-key tiles that add to query tile ``i``'s dQ (the kernel's
+    ``kt_lo``, ``kt_hi``); they add from the last to the first."""
+    q0, n_kt = i * TC_BQ, -(-T // bk)
+    q_max = min(q0 + TC_BQ - 1, S - 1)
+    hi = min(n_kt, q_max // bk + 1) if causal else n_kt
+    lo = max(0, q0 - window + 1) // bk if window else 0
+    return range(lo, hi)
+
 
 # name, B, H, KV, S, T, D, causal, window, softcap: the shapes of
 # tests/test_torch_flash_grad.py, then ragged S and T (not multiples of any
@@ -185,14 +231,14 @@ def emulate_forward(q, k, v, *, causal, window, softcap):
 def emulate_backward(q, k, v, out, lse, dout, *, out_lo=None, causal=True,
                      window=0, softcap=0.0, rounded=True):
     """dq, dk, dv as the backward kernels compute them, from the forward's
-    out (in bf16 with out_lo) and lse: launch (a)'s D_i, (b)'s walk per
-    64-key tile and KV head, (c)'s per 64-query tile and query head.  In
-    the inputs' dtype, or the f32 accumulators where not ``rounded``."""
+    out (in bf16 with out_lo) and lse: D_i, then the ``wgmma`` kernel's
+    walk (``emulate_tc``) or the three-launch kernels' (b) per 64-key tile
+    and (c) per 64-query tile.  In the inputs' dtype, or the f32
+    accumulators where not ``rounded``."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
     G = BH // BKV
     bf16 = q.dtype == torch.bfloat16
-    BQ, BKC = backward_tiles(D, q.dtype)
     scale = 1 / math.sqrt(D)
     o = out.float() + (out_lo.float() if bf16 else 0)
     di = (dout.float() * o).sum(dim=-1)                       # (a)
@@ -216,6 +262,12 @@ def emulate_backward(q, k, v, out, lse, dout, *, out_lo=None, causal=True,
         p = torch.where(vis, p, 0.0)
         return p, p * (dp - di_b) * dx
 
+    dt = q.dtype if rounded else torch.float32
+    if tc_route(D, q.dtype):
+        grads = emulate_tc(q, k, v, dout, lse, di, grad_tile,
+                           causal=causal, window=window)
+        return tuple(g.to(dt) for g in grads)
+    BQ, BKC = backward_tiles(D, q.dtype)
     dk = torch.zeros(BKV, T, D)
     dv = torch.zeros(BKV, T, D)
     for kvh in range(BKV):                                     # (b)
@@ -257,8 +309,68 @@ def emulate_backward(q, k, v, out, lse, dout, *, out_lo=None, causal=True,
                 acc = _product(ds, kt, acc, bf16)
             n = min(ROWS, S - q0)
             dq[bh, q0:q0 + n] = acc[:n]
-    dt = q.dtype if rounded else torch.float32
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def emulate_tc(q, k, v, dout, lse, di, grad_tile, *, causal, window):
+    """The ``wgmma`` kernel's walk, in f32: per (key tile, KV head), the
+    group's query heads and their query tiles in ascending order; per step
+    and 64 keys of the tile (a consumer warpgroup's; at D = 128 the
+    consumers share them and split the columns, which sums the same terms
+    in the same order) S^T, dP^T, P^T and dS^T, dV += P^T.dO and dK +=
+    dS^T.Q, and the dQ part dS.K (hi + lo, 16 keys a product); then per
+    query tile the key tiles' parts added highest tile first, each tile's
+    first half then its second, the first stored."""
+    BH, S, D = q.shape
+    BKV, T, _ = k.shape
+    G = BH // BKV
+    bk = tc_key_tile(D)
+    halves = bk // 64
+    dk, dv = torch.zeros(BKV, T, D), torch.zeros(BKV, T, D)
+    parts: dict[tuple[int, int], list[tuple[int, torch.Tensor]]] = {}
+    for kvh in range(BKV):
+        for kt in range(-(-T // bk)):
+            acc_k = [torch.zeros(64, D) for _ in range(halves)]
+            acc_v = [torch.zeros(64, D) for _ in range(halves)]
+            for g in range(G):
+                bh = kvh * G + g
+                for i in tc_query_tiles(kt, S, T, causal, window, bk):
+                    q0 = i * TC_BQ
+                    qt, ot = _rows(q[bh], q0, TC_BQ), _rows(dout[bh], q0,
+                                                           TC_BQ)
+                    lse_t = _rows(lse[bh][:, None], q0, TC_BQ)[:, 0]
+                    di_t = _rows(di[bh][:, None], q0, TC_BQ)[:, 0]
+                    got = []
+                    for c in range(halves):
+                        kc0 = kt * bk + 64 * c
+                        kc, vc = _rows(k[kvh], kc0, 64), _rows(v[kvh], kc0,
+                                                               64)
+                        p, ds = grad_tile(kc @ qt.T, vc @ ot.T,
+                                          torch.arange(kc0, kc0 + 64),
+                                          torch.arange(q0, q0 + TC_BQ),
+                                          lse_t, di_t, by_row=False)
+                        acc_v[c] = _product(p, ot, acc_v[c], True)
+                        acc_k[c] = _product(ds, qt, acc_k[c], True)
+                        got.append(_product(ds.T, kc,
+                                            torch.zeros(TC_BQ, D), True))
+                    parts.setdefault((bh, i), []).append((kt, got))
+            for c in range(halves):
+                kc0 = kt * bk + 64 * c
+                n = max(0, min(64, T - kc0))
+                dk[kvh, kc0:kc0 + n] = acc_k[c][:n]
+                dv[kvh, kc0:kc0 + n] = acc_v[c][:n]
+    dq = torch.zeros(BH, S, D)
+    for (bh, i), got in parts.items():
+        order = sorted(got, key=lambda part: -part[0])
+        assert [kt for kt, _ in order] == \
+            list(reversed(tc_key_tiles(i, S, T, causal, window, bk)))
+        halves_in_order = [h for _, tile in order for h in tile]
+        acc = halves_in_order[0]
+        for part in halves_in_order[1:]:
+            acc = acc + part
+        n = min(TC_BQ, S - i * TC_BQ)
+        dq[bh, i * TC_BQ:i * TC_BQ + n] = acc[:n]
+    return dq, dk, dv
 
 
 def _case(shape, dtype, seed):
@@ -309,6 +421,101 @@ def test_emulated_backward_matches_jax_grad(shape, dtype, one_thread):
     for name, got, want in zip("qkv", grads, _jax_grads(shape, q, k, v, do)):
         assert got.dtype == dtype
         _held(got, want, B, dtype, f"d{name}")
+
+
+# (S, T, causal, window) of the tile-walk tests: SHAPES' and the card's
+# training shapes (minicpm 1024, whisper's cross 448 by 1500, gemma2's
+# window 128 at 512), ragged and windowed ones.
+WALK_CASES = sorted({sh[4:6] + sh[7:9] for sh in SHAPES} | {
+    (1024, 1024, True, 0), (448, 1500, False, 0), (512, 512, True, 128),
+    (77, 150, True, 0), (150, 77, True, 0), (300, 300, True, 37),
+    (1000, 1000, True, 4096), (130, 300, False, 0)})
+
+
+@pytest.mark.parametrize("bk", [128, 64])
+@pytest.mark.parametrize("S,T,causal,window", WALK_CASES)
+def test_tc_tile_walk_matches_visible_pairs(S, T, causal, window, bk):
+    """The ``wgmma`` kernel's walk at either key tile: key tile kt takes
+    query tile i exactly when some pair of the two tiles is visible, seen
+    from either side, and every query tile has a key tile (its dQ is
+    written)."""
+    mask = _visible(S, T, causal, window, "cpu")
+    n_q, n_kt = -(-S // TC_BQ), -(-T // bk)
+    for i in range(n_q):
+        for kt in range(n_kt):
+            seen = bool(mask[i * TC_BQ:(i + 1) * TC_BQ,
+                             kt * bk:(kt + 1) * bk].any())
+            assert (i in tc_query_tiles(kt, S, T, causal, window, bk)) == \
+                seen
+            assert (kt in tc_key_tiles(i, S, T, causal, window, bk)) == seen
+        assert len(tc_key_tiles(i, S, T, causal, window, bk)) > 0
+
+
+def _dq_order_ticks(S, T, causal, window, group, slots, bk,
+                    highest_first=True):
+    """Runs the ``wgmma`` kernel's CTAs of one KV head as a schedule: CTAs
+    start in launch order (highest key tile first) on ``slots`` SMs; each
+    takes one step a tick and, before its step's dQ add, waits until the
+    query tile's counter reads its rank (CTAs go in launch order within a
+    tick).  Returns the ticks to the end, or None if no CTA can move."""
+    n_kt = -(-T // bk)
+    order = list(range(n_kt))[::-1] if highest_first else list(range(n_kt))
+    walk = {kt: [(g, i) for g in range(group)
+                 for i in tc_query_tiles(kt, S, T, causal, window, bk)]
+            for kt in order}
+    counter: dict[tuple[int, int], int] = {}
+    waiting, running, done, ticks = list(order), [], set(), 0
+    while len(done) < n_kt:
+        while waiting and len(running) < slots:
+            running.append([waiting.pop(0), 0])
+        moved = False
+        for cta in running:
+            kt, n = cta
+            if n == len(walk[kt]):
+                continue
+            g, i = walk[kt][n]
+            tiles = tc_key_tiles(i, S, T, causal, window, bk)
+            if counter.get((g, i), 0) == tiles.stop - 1 - kt:
+                counter[(g, i)] = counter.get((g, i), 0) + 1
+                cta[1] += 1
+                moved = True
+        for cta in list(running):
+            if cta[1] == len(walk[cta[0]]):
+                running.remove(cta)
+                done.add(cta[0])
+                moved = True
+        if not moved:
+            return None
+        ticks += 1
+    assert all(counter[(g, i)] ==
+               len(tc_key_tiles(i, S, T, causal, window, bk))
+               for g, i in counter)
+    return ticks
+
+
+@pytest.mark.parametrize("slots", [1, 3, 64])
+@pytest.mark.parametrize("S,T,causal,window", WALK_CASES)
+@pytest.mark.parametrize("bk", [128, 64])
+def test_tc_dq_order_waits_only_on_earlier_ctas(S, T, causal, window, slots,
+                                                 bk):
+    """The dQ order with CTAs launched highest key tile first: the schedule
+    runs to its end however few SMs there are (a CTA waits only on CTAs
+    launched before it), every query tile's counter ends at its number of
+    key tiles, and on causal self-attention with every CTA resident no
+    wait lengthens the longest CTA's walk.  Launched lowest tile first, one
+    SM deadlocks wherever a query tile has two key tiles."""
+    group = 2
+    ticks = _dq_order_ticks(S, T, causal, window, group, slots, bk)
+    assert ticks is not None
+    longest = max(group * len(tc_query_tiles(kt, S, T, causal, window, bk))
+                  for kt in range(-(-T // bk)))
+    if causal and S == T and slots >= -(-T // bk):
+        assert ticks == longest
+    shared = any(len(tc_key_tiles(i, S, T, causal, window, bk)) > 1
+                 for i in range(-(-S // TC_BQ)))
+    if slots == 1 and shared:
+        assert _dq_order_ticks(S, T, causal, window, group, 1, bk,
+                               highest_first=False) is None
 
 
 @pytest.mark.parametrize("shape", SHAPES[:6] + SHAPES[7:9],
