@@ -12,8 +12,8 @@ Phases, each of which raises (exit code 1) on failure:
    three kernels, the mLSTM scan's four and each scan backward kernel's
    four, and per head dim the flash backward's kernels on each route
    (bf16: the wgmma kernel and its prep launch at D <= 128, mma.sync's D_i,
-   dK and dV, dQ at D = 256; f32: D_i, dK and dV, dQ), none of which may
-   spill.
+   dK and dV, dQ at D = 256; f32: the prep launch and the one-pass
+   kernel), none of which may spill.
 3. kernel check: the fused-conv kernel (the tensor-core kernel of
    ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
    split K over a cluster) against its plain PyTorch version on the card,
@@ -368,10 +368,11 @@ does the same for the mLSTM scan at every shape of phase 17 (MLSTM_ATOL).
 
     python3 chip_smoke.py --flash-bwd-times
 
-times the bf16 flash backward kernels alone at every shape of phase 34
-(minicpm-2b's layer first, zamba2-2.7b's D=80 fourth) beside their bound
-and SDPA's backward, through whatever ``src/repro_torch`` lies beside this
-file, the same way.
+times the flash backward kernels alone at every shape of phase 34
+(minicpm-2b's layer first, zamba2-2.7b's D=80 fourth), in bf16 and in f32,
+beside their bound and SDPA's backward, then the f32 forward kernel beside
+SDPA's f32 forward at the f32 twin's layer and whisper's f32 clip shapes,
+through whatever ``src/repro_torch`` lies beside this file, the same way.
 
     python3 chip_smoke.py --launch-paths
 
@@ -905,11 +906,11 @@ def build() -> tuple[float, dict]:
     # wgmma (flash_attention_bwd_sm90.cu: the prep launch, the main kernel
     # at D <= 128, the dq conversion), bf16 through mma.sync at D = 256
     # (flash_attention_bwd_mma.cu: D_i, dK and dV, dQ), f32
-    # (flash_attention_bwd.cu: the same three at every D): registers,
-    # spills (none allowed) and, for the tensor-core routes, dynamic shared
-    # memory.
-    flash_bwd = ptxas_report(log, r"(flash_bwd_(?:f32_)?(?:sm90|prep|dkdv|"
-                                  r"dq_convert|dq|dot_do_o)_kernel)"
+    # (flash_attention_bwd.cu: the prep launch and the main kernel at every
+    # D): registers, spills (none allowed) and, for the main kernels,
+    # dynamic shared memory.
+    flash_bwd = ptxas_report(log, r"(flash_bwd_(?:f32_)?(?:(?:sm90|prep|dkdv|"
+                                  r"dq_convert|dq|dot_do_o)_)?kernel)"
                                   r"(?:ILi(\d+)E)?",
                              lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""))
     for key, row in sorted(flash_bwd.items()):
@@ -917,7 +918,10 @@ def build() -> tuple[float, dict]:
         if "_sm90_" in key:
             row["dynamic_smem_bytes"] = (
                 lib.flash_attention_bwd_sm90_smem_bytes(d))
-        elif "_f32_" not in key and d:
+        elif "_f32_" in key and d:
+            row["dynamic_smem_bytes"] = lib.flash_attention_bwd_f32_smem_bytes(
+                d)
+        elif d:
             row["dynamic_smem_bytes"] = lib.flash_attention_bwd_mma_smem_bytes(
                 2 if "dkdv" in key else 3, d)
         print(f"[build] {key}: {row.get('registers')} registers, "
@@ -926,8 +930,11 @@ def build() -> tuple[float, dict]:
                  if "dynamic_smem_bytes" in row else ""))
     wgmma_dims = sorted(int(k[k.index("<") + 1:-1]) for k in flash_bwd
                         if "_sm90_" in k)
-    check(len(flash_bwd) == (2 + 6) + 3 + (1 + 2 * 7)
+    f32_dims = sorted(int(k[k.index("<") + 1:-1]) for k in flash_bwd
+                      if k.startswith("flash_bwd_f32_kernel<"))
+    check(len(flash_bwd) == (2 + 6) + 3 + (1 + 7)
           and wgmma_dims == [16, 32, 64, 80, 96, 128]
+          and f32_dims == [16, 32, 64, 80, 96, 128, 256]
           and all(row.get("spill_bytes") == 0 for row in flash_bwd.values()),
           f"flash backward ptxas report: {flash_bwd}")
     backward["flash_attention_bwd"] = flash_bwd
@@ -2267,61 +2274,118 @@ def conv_times() -> None:
 
 
 def flash_bwd_times() -> None:
-    """The bf16 flash backward kernels alone (``flash_attention_backward_
-    kernel`` on the forward kernel's saved statistics) at every shape of
-    phase 34's GRAD_SHAPES, the first minicpm-2b's layer and the fourth
-    zamba2-2.7b's: CUDA-event and device time, the device time of each
-    device kernel, the bound (10·D operations a visible pair at 989
-    TFLOP/s against each input read and each output written once) and
-    SDPA's backward alone where it computes the same function (no window,
-    no softcap; ``enable_gqa`` for GQA), timed as a yardstick the port
-    never calls.  Only the wrapper's signature is used, so a copy of this
-    file beside an older checkout times that checkout's kernels."""
+    """The flash backward kernels alone (``flash_attention_backward_kernel``
+    on the forward kernel's saved statistics) at every shape of phase 34's
+    GRAD_SHAPES, the first minicpm-2b's layer (the f32 twin's in f32) and
+    the fourth zamba2-2.7b's, in bf16 and in f32: CUDA-event and device
+    time, the device time of each device kernel, the bound (10·D operations
+    a visible pair at 989 TFLOP/s in bf16, 67 in f32, against each input
+    read and each output written once at 3.35 TB/s) and SDPA's backward
+    alone where it computes the same function (no window, no softcap;
+    ``enable_gqa`` for GQA; in f32 with TF32 off), timed as a yardstick the
+    port never calls.  Then the f32 forward kernel (``simt_f32``) against
+    SDPA's f32 forward at the twin's layer and at whisper's two f32 clip
+    shapes, with its bound (4·D a pair at 67 TFLOP/s).  Only the wrappers'
+    signatures are used, so a copy of this file beside an older checkout
+    times that checkout's kernels."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
     _build.library()
-    for i, (name, B, H, KV, S, T, D, causal, window,
-            softcap) in enumerate(GRAD_SHAPES):
-        g = torch.Generator(device="cuda").manual_seed(SEED + 970 + i)
-        q, k, v, do = (torch.randn(B * heads, n, D, generator=g,
-                                   device="cuda").bfloat16()
-                       for heads, n in ((H, S), (KV, T), (KV, T), (H, S)))
-        kw = dict(causal=causal, window=window, softcap=softcap)
-        out, lse, lo = FA.flash_attention_kernel(q, k, v, **kw, stats=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        tag, size = ("bf16", 2) if bf16 else ("f32", 4)
+        for i, (name, B, H, KV, S, T, D, causal, window,
+                softcap) in enumerate(GRAD_SHAPES):
+            g = torch.Generator(device="cuda").manual_seed(SEED + 970 + i)
+            q, k, v, do = (torch.randn(B * heads, n, D, generator=g,
+                                       device="cuda").to(dtype)
+                           for heads, n in ((H, S), (KV, T), (KV, T),
+                                            (H, S)))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            out, lse, lo = FA.flash_attention_kernel(q, k, v, **kw,
+                                                     stats=True)
+
+            def call():
+                return FA.flash_attention_backward_kernel(
+                    q, k, v, out, lse, do, out_lo=lo, **kw)
+            ms = cuda_ms(call)
+            by_kernel = device_ms_by_kernel(call) or {}
+            pairs = B * H * flash_pairs(S, T, causal, window)
+            # q, O (and in bf16 O's lo part), dO and dq; k, v, dk, dv; the
+            # f32 lse
+            bound = roofline(10 * D * pairs,
+                             size * D * ((5 if bf16 else 4) * B * H * S
+                                         + 4 * B * KV * T) + 4 * B * H * S,
+                             PEAK_BF16_OPS if bf16 else PEAK_F32_OPS)
+            library = None
+            if not window and not softcap:
+                # (B, heads, rows, D) views of (B, rows, heads, D) tensors,
+                # the model's layout, as phase 38 hands them to SDPA
+                q4, k4, v4, do4 = (
+                    t.view(B, -1, t.shape[1], D).transpose(1, 2).contiguous()
+                    .transpose(1, 2) for t in (q, k, v, do))
+                q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
+                out4 = F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal, enable_gqa=H != KV)
+                library = cuda_ms(lambda: torch.autograd.grad(
+                    out4, (q4, k4, v4), do4, retain_graph=True))
+                del q4, k4, v4, do4, out4
+            device = sum(by_kernel.values()) if by_kernel else None
+            parts = ", ".join(f"{n.split('(')[0]} {t:.4f}"
+                              for n, t in sorted(by_kernel.items()))
+            print(f"[flash-bwd] {name}_{tag} {B}x{H}/{KV} heads S={S} T={T} "
+                  f"D={D} causal={causal} window={window} softcap={softcap}"
+                  f": events {ms:.4f} ms, on the card {fmt_ms(device)} "
+                  f"({parts}); bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']}; 10*D a pair {bound['ops_ms']:.4f},"
+                  f" bytes {bound['bytes_ms']:.4f}), "
+                  f"{bound['ops'] / ms / 1e9:.1f} TFLOP/s of the 10*D; "
+                  f"SDPA's backward alone {fmt_ms(library)}")
+            del q, k, v, do, out, lse, lo
+        torch.cuda.empty_cache()
+    flash_f32_forward_times()
+
+
+def flash_f32_forward_times() -> None:
+    """The f32 flash forward kernel (``simt_f32``, no statistics, as on the
+    serving paths) against SDPA's f32 forward (TF32 off, no mask,
+    ``is_causal`` as the shape's: the same function) at the minicpm-2b f32
+    twin's layer and at whisper-large-v3's two f32 clip shapes (phase 28's
+    f32 rows): CUDA events, device time, the bound (4·D operations a
+    visible pair at 67 TFLOP/s against q, k, v read and O written once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    cfg, wcfg = get_config(TRAIN_CONFIG), get_config(WHISPER_CONFIG)
+    shapes = [(f"{cfg.name}_f32_twin_layer", TRAIN_ROWS, cfg.num_heads,
+               TRAIN_SEQ, TRAIN_SEQ, cfg.resolved_head_dim, True)] + [
+        (f"whisper_{name}", b, wcfg.num_heads, s, t, wcfg.resolved_head_dim,
+         causal)
+        for name, _, b, s, causal, _, dtype, t in WHISPER_FLASH_SHAPES
+        if dtype == torch.float32]
+    for i, (name, B, H, S, T, D, causal) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 990 + i)
+        q4, k4, v4 = (torch.randn(B, H, n, D, generator=g, device="cuda")
+                      for n in (S, T, T))
+        q, k, v = (t.reshape(B * H, -1, D) for t in (q4, k4, v4))
 
         def call():
-            return FA.flash_attention_backward_kernel(q, k, v, out, lse, do,
-                                                      out_lo=lo, **kw)
+            return FA.flash_attention_kernel(q, k, v, causal=causal)
         ms = cuda_ms(call)
-        by_kernel = device_ms_by_kernel(call) or {}
-        pairs = B * H * flash_pairs(S, T, causal, window)
-        # q, O, O's lo part, dO and dq; k, v, dk, dv; the f32 lse
-        bound = roofline(10 * D * pairs,
-                         2 * D * (5 * B * H * S + 4 * B * KV * T)
-                         + 4 * B * H * S, PEAK_BF16_OPS)
-        library = None
-        if not window and not softcap:
-            # (B, heads, rows, D) views of (B, rows, heads, D) tensors, the
-            # model's layout, as phase 38 hands them to SDPA
-            q4, k4, v4, do4 = (
-                t.view(B, -1, t.shape[1], D).transpose(1, 2).contiguous()
-                .transpose(1, 2) for t in (q, k, v, do))
-            q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
-            out4 = F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal, enable_gqa=H != KV)
-            library = cuda_ms(lambda: torch.autograd.grad(
-                out4, (q4, k4, v4), do4, retain_graph=True))
-            del q4, k4, v4, do4, out4
-        device = sum(by_kernel.values()) if by_kernel else None
-        parts = ", ".join(f"{n.split('(')[0]} {t:.4f}"
-                          for n, t in sorted(by_kernel.items()))
-        print(f"[flash-bwd] {name}_bf16 {B}x{H}/{KV} heads S={S} T={T} D={D}"
-              f" causal={causal} window={window} softcap={softcap}: events "
-              f"{ms:.4f} ms, on the card {fmt_ms(device)} ({parts}); bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, 10*D a "
-              f"pair), {bound['ops'] / ms / 1e9:.1f} TFLOP/s of the 10*D; "
-              f"SDPA's backward alone {fmt_ms(library)}")
-        del q, k, v, do, out, lse, lo
+        device = device_ms(call)
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal))
+        library_device = device_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal))
+        bound = roofline(4 * D * B * H * flash_pairs(S, T, causal, 0),
+                         4 * D * B * H * (2 * S + 2 * T))
+        print(f"[flash-fwd] {name}_f32 {B}x{H} heads S={S} T={T} D={D} "
+              f"causal={causal}: simt_f32 events {ms:.4f} ms, on the card "
+              f"{fmt_ms(device)}; SDPA f32 (TF32 off) events {library:.4f} "
+              f"ms, on the card {fmt_ms(library_device)}; bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; 4*D a pair "
+              f"{bound['ops_ms']:.4f}, bytes {bound['bytes_ms']:.4f}); "
+              f"kernel / SDPA {ms / library:.3f}")
+        del q4, k4, v4, q, k, v
     torch.cuda.empty_cache()
 
 
@@ -2598,7 +2662,7 @@ def whisper_paths(smi: str) -> dict:
 TRAIN_CONFIG = "minicpm-2b"
 # What the names of flash's device kernels contain: the forward's
 # (flash_attention_sm90_kernel, flash_attention_fwd_kernel) and the
-# backward's three (flash_bwd_*, both routes).
+# backward's (flash_bwd_*, every route).
 FLASH_MARKS = {"flash forward": ("flash_attention",),
                "flash backward": ("flash_bwd_",)}
 TRAIN_ROWS, TRAIN_SEQ = 4, 1024
@@ -3063,7 +3127,8 @@ def attention_timings(tp: dict, smi: str) -> dict:
 def f32_backward_timings(smi: str) -> dict:
     """The CUDA-core backward at the minicpm-2b f32 twin's layer shape
     (4x1024, 36 heads of 64, causal): the backward kernels against their
-    bound (10·D a pair at 67 TFLOP/s) and the plain backward."""
+    bound (10·D a pair at 67 TFLOP/s), the plain backward and SDPA's f32
+    backward (TF32 off)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
@@ -4491,9 +4556,13 @@ def main() -> int:
             "library_ms": "library_ms"}, TRAIN_TWIN_LAYERS),
         "bound_by": tt["f32_backward"]["bound_by"],
         "bound_is": "10*D operations a visible pair at 67 TFLOP/s (f32 on "
-                    "the CUDA cores)",
+                    "the CUDA cores); the kernel does the 10*D once a pair, "
+                    "and the masked parts of causal diagonal tiles",
         "library_is": "the backward of F.scaled_dot_product_attention in "
                       "f32, is_causal, TF32 off",
+        "launches_by_route": "every f32 backward on bwd_simt_f32 (two "
+                             "launches a call: prep and the main kernel), "
+                             "held per path",
         "times_are": f"one layer's backward (CUDA events) "
                      f"x{TRAIN_TWIN_LAYERS}: the launches of one step of "
                      f"the {TRAIN_CONFIG} f32 twin ({TRAIN_TWIN_LAYERS} "

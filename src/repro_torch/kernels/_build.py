@@ -35,8 +35,9 @@ SIGNATURES = {
     "flash_attention_error_string": (ctypes.c_char_p, [_int]),
     "flash_attention_sm90_bf16": (_int, [_ptr] * 6 + [_int] * 7
                                   + [ctypes.c_float, _ptr]),
-    "flash_attention_bwd_f32": (_int, [_ptr] * 10 + [_int] * 7
+    "flash_attention_bwd_f32": (_int, [_ptr] * 12 + [_int] * 7
                                 + [ctypes.c_float, _ptr]),
+    "flash_attention_bwd_f32_smem_bytes": (_int, [_int]),
     "flash_attention_bwd_sm90_bf16": (_int, [_ptr] * 14 + [_int] * 7
                                       + [ctypes.c_float, _ptr]),
     "flash_attention_bwd_sm90_smem_bytes": (_int, [_int]),

@@ -39,7 +39,16 @@ q, k, v, O and per-row log-sum-exp, chosen by dtype and head dim:
 * bf16, D = 256 → ``csrc/flash_attention_bwd_mma.cu`` (``bwd_mma_bf16``):
   the first backward's ``mma.sync`` kernel, three launches;
 * f32 → ``csrc/flash_attention_bwd.cu`` (``bwd_simt_f32``): the CUDA cores,
-  three launches.
+  exact to reordered f32 sums, bound at 10·D operations a visible pair at
+  67 TFLOP/s; two launches: D_i and the padded statistics; dK and dV per
+  key tile (128 keys up to D = 64, 64 at D = 80 and 96, 32 above), S and
+  dP once a pair in register-blocked patches of 8 x 8 fed from shared
+  memory, rows bulk-copied into a two-stage ring, the dQ parts added into
+  dq by bulk reductions in a fixed order, the lowest key tile first, so
+  two calls give the same bits.  Scratch from ``torch.empty``: the padded
+  statistics and the order's counters.  Timed on the card by ``python3
+  chip_smoke.py --flash-bwd-times``; its arithmetic emulated on the CPU by
+  ``tests/test_torch_flash_bwd.py``.
 
 The head dim chooses before any launch; no route falls back on another.
 ``ref.attention_ref_grad`` stays the plain version: the CPU's, and the
@@ -70,9 +79,13 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _INDEX_LIMIT = 2**31                 # the kernel indexes with 32-bit ints
 _GRID_Y_LIMIT = 65535                # grid rows: f32 one per query head,
 _BF16_Q_TILE = 128                   # bf16 one per 128-query tile
-_BWD_ROWS = 64                       # backward (f32, mma): one grid row per
-                                     # 64 rows; wgmma: 64-row dQ tiles
+_BWD_ROWS = 64                       # backward: mma one grid row per 64
+                                     # rows; wgmma 64-row dQ tiles; wgmma
+                                     # and f32 statistics padded to 64 rows
 _TMA_ALIGN = 16                      # bytes, TMA's and cp.async's alignment
+_F32_TILE = 32                       # f32 backward: its least key and
+                                     # query tile, the rows a dQ counter
+                                     # slot stands for
 
 
 def backward_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -229,7 +242,9 @@ def flash_attention_backward_kernel(
         more["out_lo"] = out_lo
     BH, BKV, S, T, D = _check("flash_attention_backward_kernel", q, k, v,
                               window, softcap, more, aligned=True)
-    if -(-max(S, T) // _BWD_ROWS) > _GRID_Y_LIMIT:
+    if -(-max(S, T) // _BWD_ROWS) > _GRID_Y_LIMIT or (
+            q.dtype == torch.float32
+            and -(-T // _F32_TILE) > _GRID_Y_LIMIT):
         raise ValueError(f"flash_attention backward: S {S} or T {T} too "
                          f"large for the grid")
     if (lse.device != q.device or lse.dtype != torch.float32
@@ -261,15 +276,26 @@ def flash_attention_backward_kernel(
                 BKV, S, T, D, int(causal), int(window), float(softcap),
                 stream)
             error_string = lib.flash_attention_sm90_error_string
+        elif route == "bwd_simt_f32":
+            f32 = dict(dtype=torch.float32, device=q.device)
+            di, lse_pad = (torch.empty((BH, s_pad), **f32) for _ in range(2))
+            counters = torch.empty((BH, s_pad // _F32_TILE),
+                                   dtype=torch.int32, device=q.device)
+            err = lib.flash_attention_bwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), di.data_ptr(), lse_pad.data_ptr(),
+                counters.data_ptr(), BH, BKV, S, T, D, int(causal),
+                int(window), float(softcap), stream)
+            error_string = lib.flash_attention_error_string
         else:
             di = torch.empty((BH, S), dtype=torch.float32, device=q.device)
-            fn = (lib.flash_attention_bwd_mma_bf16 if bf16
-                  else lib.flash_attention_bwd_f32)
-            tail = (out_lo.data_ptr(),) if bf16 else ()
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     *tail, lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), di.data_ptr(), BH, BKV, S,
-                     T, D, int(causal), int(window), float(softcap), stream)
+            err = lib.flash_attention_bwd_mma_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                out_lo.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
+                BH, BKV, S, T, D, int(causal), int(window), float(softcap),
+                stream)
             error_string = lib.flash_attention_error_string
     if err:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: "

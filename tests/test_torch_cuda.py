@@ -650,10 +650,13 @@ def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
 
 
 # The backward kernels alone, at every head dim: the wgmma kernel walks
-# 128-key tiles and 64-query tiles, the others 64-key and 64-query tiles,
-# so 150, 77 and 700 are multiples of none; 700 with a window of 200 has
-# six key tiles, each query tile's dQ summed over up to three in order, and
-# the non-causal 200 by 600 five, every one adding to every query tile.
+# 128-key tiles and 64-query tiles, the f32 kernel 128-key tiles up to D =
+# 64 (64 at D = 80 and 96, 32 above) and 64-query tiles (32 at D = 256),
+# the mma kernel 64 and 64, so 150, 77 and 700 are multiples of none; 700
+# with a window of 200 has six key tiles or more, each query tile's dQ
+# summed over up to three or more in order, and the non-causal 200 by 600
+# five or more, every one adding to every query tile, as in the ragged GQA
+# 77 by 200.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", FA.HEAD_DIMS)
 @pytest.mark.parametrize("BH,BKV,S,T,causal,window,softcap", [
@@ -663,6 +666,7 @@ def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
     (2, 2, 150, 77, True, 0, 0.0),       # causal, S > T: keys past S seen
     (2, 1, 700, 700, True, 200, 0.0),    # window across key tiles, GQA 2:1
     (2, 2, 200, 600, False, 0, 0.0),     # non-causal, five key tiles each
+    (6, 2, 77, 200, False, 0, 0.0),      # non-causal, GQA 3:1, ragged
 ])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, D, BH, BKV, S, T,
                                              causal, window, softcap):

@@ -6,17 +6,20 @@
 this file emulates them in torch, step by step as they walk their tiles:
 the forward kernel's online softmax over its key tiles, which saves each
 row's log-sum-exp (and, in bf16, O's lo part); D_i = rowsum(dO∘O) from the
-f32-accurate O.  The ``wgmma`` kernel: per key tile of a KV head (128
-keys, 64 at D = 128), the group's query heads and their visible 64-query
-tiles (``tc_query_tiles``); per step and 64 keys, S^T and dP^T, dV and dK
-accumulated, and the dQ parts added into the query tile's f32 sum in the
-fixed order of the key tiles, highest first (``tc_key_tiles``), each
-tile's halves in turn, rounded once.  The three-launch kernels: launch (b), per 64-key tile, walking the
-query tiles (``backward_tiles``'s BQ) and accumulating dK and dV; launch
-(c), per 64-query tile, walking the key tiles (BKC) and accumulating dQ.
-In bf16 P and dS split into hi + lo bf16, each product summed in f32
-sixteen rows at a time, hi then lo, as the tensor cores take them.  The
-emulation is held against ``jax.grad`` of the JAX package's
+f32-accurate O.  The one-pass kernels, ``wgmma`` (bf16) and f32: per
+key tile of a KV head (``backward_tiles``: ``wgmma`` 128 keys, 64 at D =
+128; f32 128 up to D = 64, 64 at D = 80 and 96, 32 above), the group's
+query heads and their visible query tiles (64 queries; f32 32 at D =
+256; ``tc_query_tiles``); per step S^T and dP^T once, dV and dK
+accumulated, and the dQ parts (``wgmma`` one per 64 keys, f32 one per
+half of the tile) added into the query tile's f32 sum in the fixed order
+of the key tiles (``tc_key_tiles``; ``wgmma`` highest first, f32 lowest
+first), each tile's parts in turn.  The three-launch ``mma.sync`` kernel: launch (b),
+per 64-key tile, walking the query tiles (``mma_tiles``' BQ) and
+accumulating dK and dV; launch (c), per 64-query tile, walking the key
+tiles (BKC) and accumulating dQ.  In bf16 P and dS split into hi + lo
+bf16, each product summed in f32 sixteen rows at a time, hi then lo, as
+the tensor cores take them.  The emulation is held against ``jax.grad`` of the JAX package's
 ``attention_scores`` (the arithmetic JAX trains through) at causal,
 windowed, softcapped, GQA, non-causal cross and ragged shapes and at every
 head dim:
@@ -25,8 +28,9 @@ head dim:
 * bf16: bf16 gradients, each within half a bf16 ulp (2^-8 relative) plus
   2e-5 of the gradient in f32 of the same bf16 values.
 
-The ``wgmma`` kernel's tile walk is held against the visible pairs, and its
-dQ order against the launch order (no wait on a CTA launched later).  The
+The one-pass kernels' tile walk is held against the visible pairs at each
+of their tiles, and their dQ orders against their launch orders (no wait
+on a CTA launched later).  The
 emulated log-sum-exp is held against ``torch.logsumexp`` of the masked,
 softcapped logits, and ``FlashAttention`` runs with the emulation injected
 as its ``backward_fn``.  Inputs come from a numpy seed.
@@ -61,18 +65,30 @@ def forward_key_tile(D: int, dtype: torch.dtype) -> int:
     return 64
 
 
-def backward_tiles(D: int, dtype: torch.dtype) -> tuple[int, int]:
-    """(BQ, BKC) of the three-launch backward kernels at head dim D (f32,
-    and bf16 at D = 256): launch (b) walks the queries BQ at a time, launch
-    (c) the keys BKC at a time (the sources' ``BwdTiles`` and
-    ``F32Tiles``)."""
-    if dtype == torch.bfloat16:
-        return (64 if D <= 96 else 32), (64 if D <= 128 else 32)
-    return (32, 32) if D == 256 else (64, 64)
+def mma_tiles(D: int) -> tuple[int, int]:
+    """(BQ, BKC) of the three-launch ``mma.sync`` kernel at head dim D (bf16
+    at D = 256): launch (b) walks the queries BQ at a time, launch (c) the
+    keys BKC at a time (the source's ``BwdTiles``)."""
+    return (64 if D <= 96 else 32), (64 if D <= 128 else 32)
 
-def tc_route(D: int, dtype: torch.dtype) -> bool:
-    """Whether the ``wgmma`` kernel takes the backward (bf16, D <= 128)."""
-    return dtype == torch.bfloat16 and D not in FA.MMA_BACKWARD_HEAD_DIMS
+
+def three_launch(D: int, dtype: torch.dtype) -> bool:
+    """Whether the three-launch ``mma.sync`` kernel takes the backward
+    (bf16 at D = 256); the ``wgmma`` kernel (bf16) and the f32 kernel walk
+    in one pass."""
+    return dtype == torch.bfloat16 and D in FA.MMA_BACKWARD_HEAD_DIMS
+
+
+def backward_tiles(D: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(BK, BQ) of the one-pass backward kernels at head dim D: the keys a
+    CTA owns and the queries a step.  ``wgmma`` (bf16): ``tc_key_tile(D)``
+    keys, 64 queries; f32 (``csrc/flash_attention_bwd.cu``'s
+    ``Tiles<D>``): 128 x 64 up to D = 64, 64 x 64 at D = 80 and 96, 32 x
+    64 at D = 128, 32 x 32 at D = 256."""
+    if dtype == torch.bfloat16:
+        return tc_key_tile(D), TC_BQ
+    bk = 128 if D <= 64 else 64 if D <= 96 else 32
+    return bk, 32 if D == 256 else 64
 
 
 def tc_key_tile(D: int) -> int:
@@ -82,25 +98,26 @@ def tc_key_tile(D: int) -> int:
 
 
 def tc_query_tiles(kt: int, S: int, T: int, causal: bool, window: int,
-                   bk: int) -> range:
-    """The 64-query tiles that ``bk``-key tile ``kt`` walks (the kernel's
-    ``q_lo``, ``q_hi``)."""
-    k0, n_q = kt * bk, -(-S // TC_BQ)
+                   bk: int, bq: int = TC_BQ) -> range:
+    """The ``bq``-query tiles that ``bk``-key tile ``kt`` walks (the one-pass
+    kernels' ``q_lo``, ``q_hi``)."""
+    k0, n_q = kt * bk, -(-S // bq)
     lo, hi = 0, n_q
     if causal:
-        lo = k0 // TC_BQ if k0 <= S - 1 else n_q
+        lo = k0 // bq if k0 <= S - 1 else n_q
     if window:
         k_max = min(k0 + bk - 1, T - 1)
-        hi = min(hi, (k_max + window - 1) // TC_BQ + 1)
+        hi = min(hi, (k_max + window - 1) // bq + 1)
     return range(lo, max(lo, hi))
 
 
 def tc_key_tiles(i: int, S: int, T: int, causal: bool, window: int,
-                 bk: int) -> range:
-    """The ``bk``-key tiles that add to query tile ``i``'s dQ (the kernel's
-    ``kt_lo``, ``kt_hi``); they add from the last to the first."""
-    q0, n_kt = i * TC_BQ, -(-T // bk)
-    q_max = min(q0 + TC_BQ - 1, S - 1)
+                 bk: int, bq: int = TC_BQ) -> range:
+    """The ``bk``-key tiles that add to ``bq``-query tile ``i``'s dQ (the
+    one-pass kernels' ``kt_lo``, ``kt_hi``); they add from the last to the
+    first."""
+    q0, n_kt = i * bq, -(-T // bk)
+    q_max = min(q0 + bq - 1, S - 1)
     hi = min(n_kt, q_max // bk + 1) if causal else n_kt
     lo = max(0, q0 - window + 1) // bk if window else 0
     return range(lo, hi)
@@ -231,9 +248,9 @@ def emulate_forward(q, k, v, *, causal, window, softcap):
 def emulate_backward(q, k, v, out, lse, dout, *, out_lo=None, causal=True,
                      window=0, softcap=0.0, rounded=True):
     """dq, dk, dv as the backward kernels compute them, from the forward's
-    out (in bf16 with out_lo) and lse: D_i, then the ``wgmma`` kernel's
-    walk (``emulate_tc``) or the three-launch kernels' (b) per 64-key tile
-    and (c) per 64-query tile.  In the inputs' dtype, or the f32
+    out (in bf16 with out_lo) and lse: D_i, then the one-pass kernels'
+    walk (``emulate_walk``) or the three-launch kernel's (b) per 64-key
+    tile and (c) per 64-query tile.  In the inputs' dtype, or the f32
     accumulators where not ``rounded``."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
@@ -263,11 +280,14 @@ def emulate_backward(q, k, v, out, lse, dout, *, out_lo=None, causal=True,
         return p, p * (dp - di_b) * dx
 
     dt = q.dtype if rounded else torch.float32
-    if tc_route(D, q.dtype):
-        grads = emulate_tc(q, k, v, dout, lse, di, grad_tile,
-                           causal=causal, window=window)
+    if not three_launch(D, q.dtype):
+        bk, bq = backward_tiles(D, q.dtype)
+        grads = emulate_walk(q, k, v, dout, lse, di, grad_tile,
+                             causal=causal, window=window, bk=bk, bq=bq,
+                             part=64 if bf16 else bk // 2, split=bf16,
+                             highest_first=bf16)
         return tuple(g.to(dt) for g in grads)
-    BQ, BKC = backward_tiles(D, q.dtype)
+    BQ, BKC = mma_tiles(D)
     dk = torch.zeros(BKV, T, D)
     dv = torch.zeros(BKV, T, D)
     for kvh in range(BKV):                                     # (b)
@@ -312,64 +332,67 @@ def emulate_backward(q, k, v, out, lse, dout, *, out_lo=None, causal=True,
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def emulate_tc(q, k, v, dout, lse, di, grad_tile, *, causal, window):
-    """The ``wgmma`` kernel's walk, in f32: per (key tile, KV head), the
-    group's query heads and their query tiles in ascending order; per step
-    and 64 keys of the tile (a consumer warpgroup's; at D = 128 the
-    consumers share them and split the columns, which sums the same terms
-    in the same order) S^T, dP^T, P^T and dS^T, dV += P^T.dO and dK +=
-    dS^T.Q, and the dQ part dS.K (hi + lo, 16 keys a product); then per
-    query tile the key tiles' parts added highest tile first, each tile's
-    first half then its second, the first stored."""
+def emulate_walk(q, k, v, dout, lse, di, grad_tile, *, causal, window, bk,
+                 bq, part, split, highest_first):
+    """The one-pass kernels' walk, in f32: per (``bk``-key tile, KV head),
+    the group's query heads and their ``bq``-query tiles in ascending
+    order; per step and ``part`` keys of the tile (``wgmma``: a consumer
+    warpgroup's 64, and at D = 128 the consumers share them and split the
+    columns, which sums the same terms in the same order; f32: a consumer
+    group's half of the dQ product) S^T, dP^T, P^T and dS^T, dV += P^T.dO
+    and dK += dS^T.Q, and the dQ part dS.K (with ``split``, hi + lo, 16
+    keys a product); then per
+    query tile the key tiles' parts added in the kernel's order (``wgmma``
+    the highest key tile first, f32 the lowest), each tile's parts in turn,
+    the first stored."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
     G = BH // BKV
-    bk = tc_key_tile(D)
-    halves = bk // 64
+    chunks = bk // part
     dk, dv = torch.zeros(BKV, T, D), torch.zeros(BKV, T, D)
     parts: dict[tuple[int, int], list[tuple[int, torch.Tensor]]] = {}
     for kvh in range(BKV):
         for kt in range(-(-T // bk)):
-            acc_k = [torch.zeros(64, D) for _ in range(halves)]
-            acc_v = [torch.zeros(64, D) for _ in range(halves)]
+            acc_k = [torch.zeros(part, D) for _ in range(chunks)]
+            acc_v = [torch.zeros(part, D) for _ in range(chunks)]
             for g in range(G):
                 bh = kvh * G + g
-                for i in tc_query_tiles(kt, S, T, causal, window, bk):
-                    q0 = i * TC_BQ
-                    qt, ot = _rows(q[bh], q0, TC_BQ), _rows(dout[bh], q0,
-                                                           TC_BQ)
-                    lse_t = _rows(lse[bh][:, None], q0, TC_BQ)[:, 0]
-                    di_t = _rows(di[bh][:, None], q0, TC_BQ)[:, 0]
+                for i in tc_query_tiles(kt, S, T, causal, window, bk, bq):
+                    q0 = i * bq
+                    qt, ot = _rows(q[bh], q0, bq), _rows(dout[bh], q0, bq)
+                    lse_t = _rows(lse[bh][:, None], q0, bq)[:, 0]
+                    di_t = _rows(di[bh][:, None], q0, bq)[:, 0]
                     got = []
-                    for c in range(halves):
-                        kc0 = kt * bk + 64 * c
-                        kc, vc = _rows(k[kvh], kc0, 64), _rows(v[kvh], kc0,
-                                                               64)
+                    for c in range(chunks):
+                        kc0 = kt * bk + part * c
+                        kc, vc = (_rows(x[kvh], kc0, part) for x in (k, v))
                         p, ds = grad_tile(kc @ qt.T, vc @ ot.T,
-                                          torch.arange(kc0, kc0 + 64),
-                                          torch.arange(q0, q0 + TC_BQ),
+                                          torch.arange(kc0, kc0 + part),
+                                          torch.arange(q0, q0 + bq),
                                           lse_t, di_t, by_row=False)
-                        acc_v[c] = _product(p, ot, acc_v[c], True)
-                        acc_k[c] = _product(ds, qt, acc_k[c], True)
-                        got.append(_product(ds.T, kc,
-                                            torch.zeros(TC_BQ, D), True))
+                        acc_v[c] = _product(p, ot, acc_v[c], split)
+                        acc_k[c] = _product(ds, qt, acc_k[c], split)
+                        got.append(_product(ds.T, kc, torch.zeros(bq, D),
+                                            split))
                     parts.setdefault((bh, i), []).append((kt, got))
-            for c in range(halves):
-                kc0 = kt * bk + 64 * c
-                n = max(0, min(64, T - kc0))
+            for c in range(chunks):
+                kc0 = kt * bk + part * c
+                n = max(0, min(part, T - kc0))
                 dk[kvh, kc0:kc0 + n] = acc_k[c][:n]
                 dv[kvh, kc0:kc0 + n] = acc_v[c][:n]
     dq = torch.zeros(BH, S, D)
     for (bh, i), got in parts.items():
-        order = sorted(got, key=lambda part: -part[0])
+        order = sorted(got, key=lambda tile: -tile[0] if highest_first
+                       else tile[0])
+        tiles = list(tc_key_tiles(i, S, T, causal, window, bk, bq))
         assert [kt for kt, _ in order] == \
-            list(reversed(tc_key_tiles(i, S, T, causal, window, bk)))
-        halves_in_order = [h for _, tile in order for h in tile]
-        acc = halves_in_order[0]
-        for part in halves_in_order[1:]:
-            acc = acc + part
-        n = min(TC_BQ, S - i * TC_BQ)
-        dq[bh, i * TC_BQ:i * TC_BQ + n] = acc[:n]
+            (tiles[::-1] if highest_first else tiles)
+        in_order = [h for _, tile in order for h in tile]
+        acc = in_order[0]
+        for h in in_order[1:]:
+            acc = acc + h
+        n = min(bq, S - i * bq)
+        dq[bh, i * bq:i * bq + n] = acc[:n]
     return dq, dk, dv
 
 
@@ -432,36 +455,48 @@ WALK_CASES = sorted({sh[4:6] + sh[7:9] for sh in SHAPES} | {
     (1000, 1000, True, 4096), (130, 300, False, 0)})
 
 
-@pytest.mark.parametrize("bk", [128, 64])
+# (BK, BQ) of the one-pass kernels: wgmma 128 x 64 and 64 x 64 (D = 128),
+# f32 128 x 64 (D <= 64), 64 x 64 (D = 80, 96), 32 x 64 (D = 128) and
+# 32 x 32 (D = 256).
+WALK_TILES = [(128, 64), (64, 64), (32, 64), (32, 32)]
+WALK_TILE_IDS = ["128", "64", "32x64", "32x32"]
+
+
+@pytest.mark.parametrize("bk,bq", WALK_TILES, ids=WALK_TILE_IDS)
 @pytest.mark.parametrize("S,T,causal,window", WALK_CASES)
-def test_tc_tile_walk_matches_visible_pairs(S, T, causal, window, bk):
-    """The ``wgmma`` kernel's walk at either key tile: key tile kt takes
+def test_tc_tile_walk_matches_visible_pairs(S, T, causal, window, bk, bq):
+    """The one-pass kernels' walk at each of their tiles: key tile kt takes
     query tile i exactly when some pair of the two tiles is visible, seen
     from either side, and every query tile has a key tile (its dQ is
     written)."""
     mask = _visible(S, T, causal, window, "cpu")
-    n_q, n_kt = -(-S // TC_BQ), -(-T // bk)
+    n_q, n_kt = -(-S // bq), -(-T // bk)
     for i in range(n_q):
         for kt in range(n_kt):
-            seen = bool(mask[i * TC_BQ:(i + 1) * TC_BQ,
+            seen = bool(mask[i * bq:(i + 1) * bq,
                              kt * bk:(kt + 1) * bk].any())
-            assert (i in tc_query_tiles(kt, S, T, causal, window, bk)) == \
-                seen
-            assert (kt in tc_key_tiles(i, S, T, causal, window, bk)) == seen
-        assert len(tc_key_tiles(i, S, T, causal, window, bk)) > 0
+            assert (i in tc_query_tiles(kt, S, T, causal, window, bk,
+                                        bq)) == seen
+            assert (kt in tc_key_tiles(i, S, T, causal, window, bk,
+                                       bq)) == seen
+        assert len(tc_key_tiles(i, S, T, causal, window, bk, bq)) > 0
 
 
-def _dq_order_ticks(S, T, causal, window, group, slots, bk,
-                    highest_first=True):
-    """Runs the ``wgmma`` kernel's CTAs of one KV head as a schedule: CTAs
-    start in launch order (highest key tile first) on ``slots`` SMs; each
-    takes one step a tick and, before its step's dQ add, waits until the
-    query tile's counter reads its rank (CTAs go in launch order within a
-    tick).  Returns the ticks to the end, or None if no CTA can move."""
+def _dq_order_ticks(S, T, causal, window, group, slots, bk, bq,
+                    f32=False, reverse=False):
+    """Runs the one-pass kernels' CTAs of one KV head as a schedule: CTAs
+    start in launch order on ``slots`` SMs; each takes one step a tick and,
+    before its step's dQ add, waits until the query tile's counter reads
+    its rank (CTAs go in launch order within a tick).  ``wgmma``: launched
+    highest key tile first, query tiles walked upward, the highest key tile
+    adds first; f32: launched lowest first, walked downward, the lowest
+    adds first; ``reverse`` launches the other way round.  Returns the
+    ticks to the end, or None if no CTA can move."""
     n_kt = -(-T // bk)
-    order = list(range(n_kt))[::-1] if highest_first else list(range(n_kt))
+    order = list(range(n_kt)) if f32 != reverse else list(range(n_kt))[::-1]
     walk = {kt: [(g, i) for g in range(group)
-                 for i in tc_query_tiles(kt, S, T, causal, window, bk)]
+                 for i in tc_query_tiles(kt, S, T, causal, window, bk, bq)
+                 [::-1 if f32 else 1]]
             for kt in order}
     counter: dict[tuple[int, int], int] = {}
     waiting, running, done, ticks = list(order), [], set(), 0
@@ -474,8 +509,9 @@ def _dq_order_ticks(S, T, causal, window, group, slots, bk,
             if n == len(walk[kt]):
                 continue
             g, i = walk[kt][n]
-            tiles = tc_key_tiles(i, S, T, causal, window, bk)
-            if counter.get((g, i), 0) == tiles.stop - 1 - kt:
+            tiles = tc_key_tiles(i, S, T, causal, window, bk, bq)
+            rank = kt - tiles.start if f32 else tiles.stop - 1 - kt
+            if counter.get((g, i), 0) == rank:
                 counter[(g, i)] = counter.get((g, i), 0) + 1
                 cta[1] += 1
                 moved = True
@@ -488,34 +524,42 @@ def _dq_order_ticks(S, T, causal, window, group, slots, bk,
             return None
         ticks += 1
     assert all(counter[(g, i)] ==
-               len(tc_key_tiles(i, S, T, causal, window, bk))
+               len(tc_key_tiles(i, S, T, causal, window, bk, bq))
                for g, i in counter)
     return ticks
 
 
+# The dQ order of each one-pass kernel at its tiles: (f32, BK, BQ).
+ORDER_CASES = [(False, 128, 64), (False, 64, 64)] + [
+    (True, bk, bq) for bk, bq in WALK_TILES]
+ORDER_IDS = ["128", "64"] + [f"f32-{i}" for i in WALK_TILE_IDS]
+
+
 @pytest.mark.parametrize("slots", [1, 3, 64])
 @pytest.mark.parametrize("S,T,causal,window", WALK_CASES)
-@pytest.mark.parametrize("bk", [128, 64])
+@pytest.mark.parametrize("f32,bk,bq", ORDER_CASES, ids=ORDER_IDS)
 def test_tc_dq_order_waits_only_on_earlier_ctas(S, T, causal, window, slots,
-                                                 bk):
-    """The dQ order with CTAs launched highest key tile first: the schedule
-    runs to its end however few SMs there are (a CTA waits only on CTAs
-    launched before it), every query tile's counter ends at its number of
-    key tiles, and on causal self-attention with every CTA resident no
-    wait lengthens the longest CTA's walk.  Launched lowest tile first, one
-    SM deadlocks wherever a query tile has two key tiles."""
+                                                 f32, bk, bq):
+    """The dQ order of the ``wgmma`` kernel (highest key tile launched and
+    adding first) and of the f32 kernel (lowest first): the schedule runs
+    to its end however few SMs there are (a CTA waits only on CTAs launched
+    before it), every query tile's counter ends at its number of key
+    tiles, and on causal self-attention with every CTA resident no wait
+    lengthens the longest CTA's walk.  Launched the other way round, one SM
+    deadlocks wherever a query tile has two key tiles."""
     group = 2
-    ticks = _dq_order_ticks(S, T, causal, window, group, slots, bk)
+    ticks = _dq_order_ticks(S, T, causal, window, group, slots, bk, bq, f32)
     assert ticks is not None
-    longest = max(group * len(tc_query_tiles(kt, S, T, causal, window, bk))
+    longest = max(group * len(tc_query_tiles(kt, S, T, causal, window, bk,
+                                             bq))
                   for kt in range(-(-T // bk)))
     if causal and S == T and slots >= -(-T // bk):
         assert ticks == longest
-    shared = any(len(tc_key_tiles(i, S, T, causal, window, bk)) > 1
-                 for i in range(-(-S // TC_BQ)))
+    shared = any(len(tc_key_tiles(i, S, T, causal, window, bk, bq)) > 1
+                 for i in range(-(-S // bq)))
     if slots == 1 and shared:
-        assert _dq_order_ticks(S, T, causal, window, group, 1, bk,
-                               highest_first=False) is None
+        assert _dq_order_ticks(S, T, causal, window, group, 1, bk, bq, f32,
+                               reverse=True) is None
 
 
 @pytest.mark.parametrize("shape", SHAPES[:6] + SHAPES[7:9],
