@@ -6,8 +6,9 @@ Phases, each of which raises (exit code 1) on failure:
 1. card: needs CUDA; prints the card's name and power limit; TF32 off.
 2. build: compiles the hand-written kernels from ``src/repro_torch/kernels/
    csrc`` with nvcc for sm_90a (one process per source); prints the build
-   time and ptxas's report, per head dim the bf16 flash kernel's registers,
-   spills and dynamic shared memory, the same per tile width (64, 128)
+   time and ptxas's report, per head dim the bf16 and f32 flash kernels'
+   registers, spills and dynamic shared memory (the f32 one may spill at
+   no head dim), the same per tile width (64, 128)
    for the fused-conv kernel, per chunk (64, 128) for the SSD scan's
    three kernels, the mLSTM scan's four and each scan backward kernel's
    four, and per head dim the flash backward's kernels on each route
@@ -58,9 +59,13 @@ Phases, each of which raises (exit code 1) on failure:
    batch row, softcap 50): S=8192 global and with the 4096 window, a ragged
    S=1000, B=4 at S=64 and a non-causal S=512, in bf16 (the tensor-core
    kernel), and a ragged, windowed S=1000 in f32 (the CUDA-core kernel);
-   then small bf16 shapes at the other head dims (16, 32, 64, 128); every
-   element within FLASH_RTOL·|plain| + FLASH_ATOL of the plain version
-   computed in f32.
+   then small bf16 shapes at the other head dims (16, 32, 64, 128), and the
+   same shapes and one at each of 80, 96 and 256 in f32 (the CUDA-core
+   kernel at every head dim it is built for), each launched twice more
+   with its statistics: outputs and log-sum-exps bit-equal, the
+   log-sum-exp within FLASH_ATOL of the plain version's; every element
+   within FLASH_RTOL·|plain| + FLASH_ATOL of the plain version computed in
+   f32.
 8. prefill: gemma2-2b at full width (26 layers, d 2304, vocab 256000,
    bf16, random weights from a seed) built through ``build_model`` runs
    ``forward`` at 1×8192; the logits are finite and of the right shape, the
@@ -371,8 +376,9 @@ does the same for the mLSTM scan at every shape of phase 17 (MLSTM_ATOL).
 times the flash backward kernels alone at every shape of phase 34
 (minicpm-2b's layer first, zamba2-2.7b's D=80 fourth), in bf16 and in f32,
 beside their bound and SDPA's backward, then the f32 forward kernel beside
-SDPA's f32 forward at the f32 twin's layer and whisper's f32 clip shapes,
-through whatever ``src/repro_torch`` lies beside this file, the same way.
+SDPA's f32 forward at the f32 twin's layer, whisper's f32 clip shapes and
+phase 34's other head dims, through whatever ``src/repro_torch`` lies
+beside this file, the same way.
 
     python3 chip_smoke.py --launch-paths
 
@@ -482,6 +488,14 @@ FLASH_HEAD_DIM_SHAPES = [
     ("d32_s257_t191_noncausal", 6, 3, 257, 191, 32, False, 0, 30.0),
     ("d64_s200_group8", 8, 1, 200, 200, 64, True, 0, 0.0),
     ("d128_s333_window128", 8, 4, 333, 333, 128, True, 128, 50.0),
+]
+# The CUDA-core kernel's builds, in f32 with the limits above (rtol 0), its
+# statistics too and two launches bit-equal: the shapes above and one at
+# each other head dim.
+FLASH_F32_HEAD_DIM_SHAPES = FLASH_HEAD_DIM_SHAPES + [
+    ("d80_s300_t257_group4", 8, 2, 300, 257, 80, True, 0, 0.0),
+    ("d96_s257_noncausal_window100", 6, 3, 257, 257, 96, False, 100, 30.0),
+    ("d256_s333_group2_window128", 4, 2, 333, 333, 256, True, 128, 50.0),
 ]
 
 # zamba2-2.7b serving: the SSD-scan kernel, flash at D=80 and the hybrid path.
@@ -823,18 +837,22 @@ def build() -> tuple[float, dict]:
               f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
     check(sorted(sm90) == [16, 32, 64, 80, 96, 128, 256],
           f"flash_attention_sm90 ptxas report: {sm90}")
-    # The f32 CUDA-core flash kernel per head dim; neither route may spill
-    # at phi3's D = 96, the build this slice added.
+    # The f32 CUDA-core flash kernel per head dim: registers (at launch; the
+    # consumers raise theirs to 232 with setmaxnreg), spills (none allowed
+    # at any head dim) and dynamic shared memory; the bf16 kernel may not
+    # spill at phi3's D = 96.
     f32 = ptxas_report(log, r"flash_attention_fwd_kernelILi(\d+)E",
                        lambda m: int(m[1]))
     for d, row in sorted(f32.items()):
+        row["dynamic_smem_bytes"] = lib.flash_attention_f32_smem_bytes(d)
         print(f"[build] flash_attention (f32) D={d}: {row.get('registers')} "
-              f"registers, {row.get('spill_bytes')} B spilled")
+              f"registers at launch, {row.get('spill_bytes')} B spilled, "
+              f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
     check(sorted(f32) == sorted(sm90)
           and sm90[96].get("spill_bytes") == 0
-          and f32[96].get("spill_bytes") == 0,
-          f"flash at D=96 spills or is missing: bf16 {sm90.get(96)}, f32 "
-          f"{f32.get(96)}")
+          and all(row.get("spill_bytes") == 0 for row in f32.values()),
+          f"flash spills or is missing: bf16 at D=96 {sm90.get(96)}, f32 "
+          f"{f32}")
     # The fused-conv kernel per tile width and patch copy (16 bytes along
     # Cin, or 4 for the stem): registers, spills (none allowed) and dynamic
     # shared memory.
@@ -1478,17 +1496,40 @@ def flash_check(cfg, shapes, seed: int) -> list[dict]:
     return rows
 
 
-def flash_head_dim_check(seed: int) -> list[dict]:
-    """The tensor-core kernel at the head dims that no path runs."""
+def flash_head_dim_check(seed: int, shapes, dtype) -> list[dict]:
+    """The kernel of ``dtype`` at the head dims of ``shapes``: each shape
+    held per element against the plain version (``flash_held``); in f32
+    (the CUDA-core kernel at every head dim it is built for) launched twice
+    more with its statistics, the two outputs and log-sum-exps bit-equal
+    and the log-sum-exp within FLASH_ATOL of the plain version's."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import attention_ref
+    tag = "_f32" if dtype == torch.float32 else ""
     rows = []
     for i, (name, bh, bkv, s, t, hd, causal, window,
-            softcap) in enumerate(FLASH_HEAD_DIM_SHAPES):
+            softcap) in enumerate(shapes):
         g = torch.Generator(device="cuda").manual_seed(seed + i)
-        q, k, v = (torch.randn(n, L, hd, generator=g, device="cuda")
-                   .bfloat16() for n, L in ((bh, s), (bkv, t), (bkv, t)))
-        rows.append({**flash_held(name, q, k, v, dict(
-            causal=causal, window=window, softcap=softcap)), "S": s, "T": t,
-            "head_dim": hd})
+        q, k, v = (torch.randn(n, L, hd, generator=g, device="cuda").to(dtype)
+                   for n, L in ((bh, s), (bkv, t), (bkv, t)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        row = {**flash_held(name + tag, q, k, v, kw), "S": s, "T": t,
+               "head_dim": hd}
+        if dtype == torch.float32:
+            (out, lse, _), (out2, lse2, _) = (
+                FA.flash_attention_kernel(q, k, v, **kw, stats=True)
+                for _ in range(2))
+            torch.cuda.synchronize()
+            same = torch.equal(out, out2) and torch.equal(lse, lse2)
+            _, ref_lse, _ = attention_ref(q, k, v, **kw, stats=True)
+            lse_err = (lse - ref_lse).abs().max().item()
+            print(f"[flash] {name + tag:27s} with statistics: two launches "
+                  f"bit-equal {same}, lse max_abs_err {lse_err:.3e} (limit "
+                  f"{FLASH_ATOL})")
+            check(same, f"{name}{tag}: two launches differ")
+            check(lse_err <= FLASH_ATOL, f"{name}{tag}: lse err "
+                  f"{lse_err:.3e}")
+            row.update(bit_equal=same, lse_max_abs_err=lse_err)
+        rows.append(row)
     return rows
 
 
@@ -2284,8 +2325,9 @@ def flash_bwd_times() -> None:
     alone where it computes the same function (no window, no softcap;
     ``enable_gqa`` for GQA; in f32 with TF32 off), timed as a yardstick the
     port never calls.  Then the f32 forward kernel (``simt_f32``) against
-    SDPA's f32 forward at the twin's layer and at whisper's two f32 clip
-    shapes, with its bound (4·D a pair at 67 TFLOP/s).  Only the wrappers'
+    SDPA's f32 forward at the twin's layer, at whisper's two f32 clip
+    shapes and at phase 34's other head dims, with its bound (4·D a pair at
+    67 TFLOP/s).  Only the wrappers'
     signatures are used, so a copy of this file beside an older checkout
     times that checkout's kernels."""
     from repro_torch.kernels import _build
@@ -2349,42 +2391,56 @@ def flash_bwd_times() -> None:
 def flash_f32_forward_times() -> None:
     """The f32 flash forward kernel (``simt_f32``, no statistics, as on the
     serving paths) against SDPA's f32 forward (TF32 off, no mask,
-    ``is_causal`` as the shape's: the same function) at the minicpm-2b f32
-    twin's layer and at whisper-large-v3's two f32 clip shapes (phase 28's
-    f32 rows): CUDA events, device time, the bound (4·D operations a
-    visible pair at 67 TFLOP/s against q, k, v read and O written once)."""
+    ``is_causal`` as the shape's, ``enable_gqa`` for GQA: the same function
+    where the shape has no window and no softcap) at the minicpm-2b f32
+    twin's layer, at whisper-large-v3's two f32 clip shapes (phase 28's f32
+    rows) and at phase 34's other head dims (qwen3's GQA at D = 128,
+    gemma2's D = 256 with window and softcap, zamba2's D = 80): CUDA
+    events, device time, the bound (4·D operations a visible pair at 67
+    TFLOP/s against q, k, v read and O written once)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     cfg, wcfg = get_config(TRAIN_CONFIG), get_config(WHISPER_CONFIG)
     shapes = [(f"{cfg.name}_f32_twin_layer", TRAIN_ROWS, cfg.num_heads,
-               TRAIN_SEQ, TRAIN_SEQ, cfg.resolved_head_dim, True)] + [
-        (f"whisper_{name}", b, wcfg.num_heads, s, t, wcfg.resolved_head_dim,
-         causal)
+               cfg.num_heads, TRAIN_SEQ, TRAIN_SEQ, cfg.resolved_head_dim,
+               True, 0, 0.0)] + [
+        (f"whisper_{name}", b, wcfg.num_heads, wcfg.num_heads, s, t,
+         wcfg.resolved_head_dim, causal, 0, 0.0)
         for name, _, b, s, causal, _, dtype, t in WHISPER_FLASH_SHAPES
-        if dtype == torch.float32]
-    for i, (name, B, H, S, T, D, causal) in enumerate(shapes):
+        if dtype == torch.float32] + [
+        shape for shape in GRAD_SHAPES if shape[6] != 64]
+    for i, (name, B, H, KV, S, T, D, causal, window,
+            softcap) in enumerate(shapes):
         g = torch.Generator(device="cuda").manual_seed(SEED + 990 + i)
-        q4, k4, v4 = (torch.randn(B, H, n, D, generator=g, device="cuda")
-                      for n in (S, T, T))
-        q, k, v = (t.reshape(B * H, -1, D) for t in (q4, k4, v4))
+        q4, k4, v4 = (torch.randn(B, n_heads, n, D, generator=g,
+                                  device="cuda")
+                      for n_heads, n in ((H, S), (KV, T), (KV, T)))
+        q, k, v = (t.reshape(-1, t.shape[2], D) for t in (q4, k4, v4))
+        kw = dict(causal=causal, window=window, softcap=softcap)
 
         def call():
-            return FA.flash_attention_kernel(q, k, v, causal=causal)
+            return FA.flash_attention_kernel(q, k, v, **kw)
         ms = cuda_ms(call)
         device = device_ms(call)
-        library = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal))
-        library_device = device_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal))
-        bound = roofline(4 * D * B * H * flash_pairs(S, T, causal, 0),
-                         4 * D * B * H * (2 * S + 2 * T))
-        print(f"[flash-fwd] {name}_f32 {B}x{H} heads S={S} T={T} D={D} "
-              f"causal={causal}: simt_f32 events {ms:.4f} ms, on the card "
-              f"{fmt_ms(device)}; SDPA f32 (TF32 off) events {library:.4f} "
-              f"ms, on the card {fmt_ms(library_device)}; bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; 4*D a pair "
-              f"{bound['ops_ms']:.4f}, bytes {bound['bytes_ms']:.4f}); "
-              f"kernel / SDPA {ms / library:.3f}")
+        library = library_device = None
+        if not window and not softcap:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal, enable_gqa=H != KV)
+            library, library_device = cuda_ms(sdpa), device_ms(sdpa)
+        bound = roofline(4 * D * B * H * flash_pairs(S, T, causal, window),
+                         4 * D * B * (2 * H * S + 2 * KV * T))
+        sdpa = (f"SDPA f32 (TF32 off) events {library:.4f} ms, on the card "
+                f"{fmt_ms(library_device)}" if library else
+                "SDPA: not the same function (window or softcap)")
+        ratio = f"; kernel / SDPA {ms / library:.3f}" if library else ""
+        print(f"[flash-fwd] {name}_f32 {B}x{H}/{KV} heads S={S} T={T} D={D} "
+              f"causal={causal} window={window} softcap={softcap}: "
+              f"simt_f32 events {ms:.4f} ms, on the card {fmt_ms(device)}; "
+              f"{sdpa}; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}; 4*D a pair {bound['ops_ms']:.4f}, "
+              f"bytes {bound['bytes_ms']:.4f}); "
+              f"{bound['ops'] / ms / 1e9:.1f} TFLOP/s of the 4*D{ratio}")
         del q4, k4, v4, q, k, v
     torch.cuda.empty_cache()
 
@@ -4255,7 +4311,10 @@ def main() -> int:
     cfg = get_config(LM_CONFIG)
     expect = {"flash_attention": cfg.num_layers}
     flash_rows = flash_check(cfg, FLASH_SHAPES, SEED + 200)
-    dim_rows = flash_head_dim_check(SEED + 250)
+    dim_rows = flash_head_dim_check(SEED + 250, FLASH_HEAD_DIM_SHAPES,
+                                    torch.bfloat16)
+    dim_rows += flash_head_dim_check(SEED + 260, FLASH_F32_HEAD_DIM_SHAPES,
+                                     torch.float32)
     lm = prefill_path(cfg, PREFILL_S, expect)
     served = serve_path(cfg, lm, expect)
     flash_timings(flash_rows, cfg, FLASH_SHAPES, SEED + 200)
@@ -4417,6 +4476,8 @@ def main() -> int:
     h_flash = totals(h_flash_rows)
     m_flash, p_flash = totals(m_flash_rows), totals(p_flash_rows)
     w_flash = totals(w_flash_rows)
+    enc32 = next(r for r in w_flash_rows
+                 if r["name"] == "b1_s1500_enc_d64_f32")
     kernels = {"kernels": [{
         "name": "fused_conv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_conv_sm90.cu",
@@ -4443,7 +4504,12 @@ def main() -> int:
         "f32_route": {"source": "src/repro_torch/kernels/csrc/"
                                 "flash_attention.cu",
                       "launches": twin["launches"]["flash_attention"],
-                      "in": f"the {tcfg.name} prefill"},
+                      "in": f"the {tcfg.name} prefill",
+                      **{key: enc32[key] for key in (
+                          "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err")},
+                      "times_are": f"one launch at {enc32['name']} "
+                                   f"({wcfg.name}'s f32 encoder clip)"},
         "library_mask_ms": per_forward(flash_rows, "library_mask_ms"),
         "max_abs_err": max(r["max_abs_err"] for r in (
             flash_rows + dim_rows + h_flash_rows + m_flash_rows

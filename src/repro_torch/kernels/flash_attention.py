@@ -12,7 +12,17 @@ The wrapper routes by dtype; neither route falls back on the other:
   within half a bf16 ulp of the f32 function (see the source's header).
 * f32 → ``csrc/flash_attention.cu``: the CUDA-core kernel, exact to
   reordered f32 sums, which the tensor cores cannot give; bound at
-  67 TFLOP/s.
+  67 TFLOP/s.  A persistent grid, one CTA an SM, deals out items of 128
+  query rows of a head (64 at D = 256), longest first; two consumer groups
+  take half of an item's rows each, while a producer warpgroup copies Q
+  and the K and V rows (128 keys a tile up to D = 64, 64 up to D = 128, 32
+  at D = 256) 16 bytes a thread into a ring of mbarrier-guarded buffers.
+  S in register patches of 8 x 8 (8 x 4 at D = 80 to 128), a branch-free
+  softmax in base 2 whose row statistics stay in registers, P through
+  shared memory, O += P.V in 8-row patches over parts of the keys added in
+  a fixed order.  Its bases must be 16-byte aligned.  Timed against SDPA's
+  f32 forward by ``python3 chip_smoke.py --flash-bwd-times``; its
+  arithmetic emulated on the CPU by ``tests/test_torch_flash_fwd_f32.py``.
 
 It takes CUDA tensors only and raises on anything the kernels do not take;
 ``kernels.ops.flash_attention`` sends CPU tensors to the plain version.
@@ -77,8 +87,9 @@ MMA_BACKWARD_HEAD_DIMS = (256,)
 # the head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _INDEX_LIMIT = 2**31                 # the kernel indexes with 32-bit ints
-_GRID_Y_LIMIT = 65535                # grid rows: f32 one per query head,
-_BF16_Q_TILE = 128                   # bf16 one per 128-query tile
+_GRID_Y_LIMIT = 65535                # grid rows: the bf16 backward's one
+                                     # per KV head (BKV <= BH), the bf16
+_BF16_Q_TILE = 128                   # forward's one per 128-query tile
 _BWD_ROWS = 64                       # backward: mma one grid row per 64
                                      # rows; wgmma 64-row dQ tiles; wgmma
                                      # and f32 statistics padded to 64 rows
@@ -119,8 +130,8 @@ def _check(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            aligned: bool = False) -> tuple[int, int, int, int, int]:
     """Raises on operands the kernels do not take: q (BH, S, D), k and v
     (BKV, T, D), and ``more`` of q's dtype and shape, all 16-byte aligned
-    in bf16 (TMA, cp.async) or where ``aligned`` (the f32 backward's float4
-    loads); returns BH, BKV, S, T, D."""
+    in bf16 (TMA, cp.async) or where ``aligned`` (the f32 kernels' bulk
+    copies and float4 loads); returns BH, BKV, S, T, D."""
     if q.device.type != "cuda":
         raise ValueError(f"{op} runs on CUDA tensors, q is on {q.device}")
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -186,7 +197,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     either way."""
     global launches
     BH, BKV, S, T, D = _check("flash_attention_kernel", q, k, v, window,
-                              softcap)
+                              softcap, aligned=True)
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32,

@@ -208,6 +208,46 @@ def test_flash_whisper_shapes_match_plain(cuda, S, T, causal, dtype):
                         window=0, softcap=0.0)
 
 
+# The CUDA-core kernel at every head dim it is built for, with its
+# statistics, as chip_smoke.py's phase 7 holds it: a ragged causal GQA
+# shape past two query tiles, a windowed softcapped one, and a non-causal
+# cross one.
+@pytest.mark.parametrize("D", FA.HEAD_DIMS)
+@pytest.mark.parametrize("BH,BKV,S,T,causal,window,softcap", [
+    (6, 2, 300, 257, True, 0, 0.0),
+    (4, 2, 333, 333, True, 100, 50.0),
+    (6, 3, 130, 300, False, 0, 30.0),
+])
+def test_flash_f32_kernel_with_statistics_matches_plain(
+        cuda, D, BH, BKV, S, T, causal, window, softcap):
+    """Per element against the plain version; two launches with statistics
+    give the same output and log-sum-exp bits, the output the same bits as
+    a launch without; the log-sum-exp within FLASH_ATOL of the plain
+    version's."""
+    q, k, v = _qkv(cuda, BH, BKV, S, T, D, torch.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _held_against_plain(q, k, v, **kw)
+    (out, lse, lo), (out2, lse2, _) = (
+        FA.flash_attention_kernel(q, k, v, **kw, stats=True)
+        for _ in range(2))
+    torch.cuda.synchronize()
+    assert lo is None
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(out, FA.flash_attention_kernel(q, k, v, **kw))
+    _, ref_lse, _ = attention_ref(q, k, v, **kw, stats=True)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=FLASH_ATOL)
+
+
+def test_flash_f32_refuses_an_unaligned_base(cuda):
+    """The f32 kernel copies rows 16 bytes at a time; the wrapper raises
+    rather than launch on a base those copies cannot take."""
+    q, k, v = _qkv(cuda, 4, 2, 8, 8, 32, torch.float32)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    shifted = shifted.view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention_kernel(shifted, k, v)
+
+
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     q, k, v = _qkv(cuda, 4, 2, 8, 8, 32, torch.float32)
     with pytest.raises(TypeError):

@@ -58,11 +58,12 @@ TC_BQ = 64         # the wgmma kernel: queries a step
 
 def forward_key_tile(D: int, dtype: torch.dtype) -> int:
     """Keys a step of the forward kernel's online softmax at head dim D
-    (``csrc/flash_attention_sm90.cu``'s ``Tiles<D>::BK``,
-    ``csrc/flash_attention.cu``'s ``BK``)."""
+    (``Tiles<D>::BK`` of ``csrc/flash_attention_sm90.cu`` in bf16 and of
+    ``csrc/flash_attention.cu`` in f32: 128 up to D = 64, 64 up to D = 128,
+    32 at D = 256)."""
     if dtype == torch.bfloat16:
         return 64 if D in (128, 256) else 128
-    return 64
+    return 128 if D <= 64 else 64 if D <= 128 else 32
 
 
 def mma_tiles(D: int) -> tuple[int, int]:
