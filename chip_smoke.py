@@ -10,11 +10,11 @@ Phases, each of which raises (exit code 1) on failure:
    registers, spills and dynamic shared memory (the f32 one may spill at
    no head dim), the same per tile width (64, 128)
    for the fused-conv kernel, per chunk (64, 128) for the SSD scan's
-   three kernels, the mLSTM scan's four and each scan backward kernel's
-   four, and per head dim the flash backward's kernels on each route
-   (bf16: the wgmma kernel and its prep launch at D <= 128, mma.sync's D_i,
-   dK and dV, dQ at D = 256; f32: the prep launch and the one-pass
-   kernel), none of which may spill.
+   three kernels, the mLSTM scan's four, the SSD scan backward's four and
+   the mLSTM scan backward's six, and per head dim the flash backward's
+   kernels on each route (bf16: the wgmma kernel and its prep launch at D
+   <= 128, mma.sync's D_i, dK and dV, dQ at D = 256; f32: the prep launch
+   and the one-pass kernel), none of which may spill.
 3. kernel check: the fused-conv kernel (the tensor-core kernel of
    ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
    split K over a cluster) against its plain PyTorch version on the card,
@@ -285,10 +285,12 @@ Phases, each of which raises (exit code 1) on failure:
 40. the same for the mLSTM scan's backward kernel
     (``csrc/mlstm_scan_bwd_sm90.cu``, ``MLSTMScan``) at xlstm's 4x512 (4
     heads of 512), forget-all (f_pre = -30) and long-memory gates; then
-    each backward kernel's time per shape against its bound (the fewer
-    operations of the adjoint recurrence and the chunked or pairwise form,
-    f32 at 67 TFLOP/s, against the bytes) and the plain backward's at the
-    training shape; no PyTorch call computes either gradient.
+    each backward kernel's time per shape against its bound (the SSD
+    scan's: the fewer operations of the adjoint recurrence and the chunked
+    form as three bf16 products; the mLSTM scan's: the pairs' f64 scores
+    at 67 TFLOP/s and their other products as three TF32 products at 495;
+    each against the bytes) and the plain backward's at the training
+    shape; no PyTorch call computes either gradient.
 41. training: zamba2-2.7b at full width and depth (54 layers, bf16) takes 3
     steps at 4x1024 and one more, every one with remat (the plain step
     runs out of the card's 80 GB): exactly 90 mamba_scan, 45 backward, 18
@@ -379,6 +381,13 @@ beside their bound and SDPA's backward, then the f32 forward kernel beside
 SDPA's f32 forward at the f32 twin's layer, whisper's f32 clip shapes and
 phase 34's other head dims, through whatever ``src/repro_torch`` lies
 beside this file, the same way.
+
+    python3 chip_smoke.py --scan-bwd-times
+
+times both scans' backward kernels alone at phase 39's and 40's shapes,
+each first held against the plain gradient as there: CUDA events, each
+device kernel's time, TFLOP/s and the bound, through whatever
+``src/repro_torch`` lies beside this file, the same way.
 
     python3 chip_smoke.py --launch-paths
 
@@ -899,14 +908,15 @@ def build() -> tuple[float, dict]:
     check(len(mlstm) == 4
           and all(row.get("spill_bytes") == 0 for row in mlstm.values()),
           f"mlstm_scan_sm90 ptxas report: {mlstm}")
-    # The two scans' backward kernels, four launches each: registers,
+    # The two scans' backward kernels, four and six launches: registers,
     # spills (none allowed) and dynamic shared memory.
     backward = {}
-    for lib_name, pattern, phases in (
+    for lib_name, pattern, phases, count in (
             ("mamba_scan_bwd_sm90", r"(mamba_bwd_(?:chunk|pass|grad|"
-             r"head_sum)_kernel)", {"chunk": 1, "grad": 3}),
-            ("mlstm_scan_bwd_sm90", r"(mlstm_bwd_(?:gates|rows|cols|"
-             r"gate_grads)_kernel)", {"rows": 2, "cols": 3})):
+             r"head_sum)_kernel)", {"chunk": 1, "grad": 3}, 4),
+            ("mlstm_scan_bwd_sm90", r"(mlstm_bwd_(?:gates|scores|rows|pairs|"
+             r"products|gate_grads)_kernel)",
+             {"scores": 2, "pairs": 4, "products": 5}, 6)):
         report = ptxas_report(log, pattern, lambda m: m[1])
         smem = getattr(lib, f"{lib_name}_smem_bytes")
         for key, row in sorted(report.items()):
@@ -916,7 +926,7 @@ def build() -> tuple[float, dict]:
             print(f"[build] {key}: {row.get('registers')} registers, "
                   f"{row.get('spill_bytes')} B spilled, "
                   f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
-        check(len(report) == 4
+        check(len(report) == count
               and all(row.get("spill_bytes") == 0 for row in report.values()),
               f"{lib_name} ptxas report: {report}")
         backward[lib_name] = report
@@ -3544,7 +3554,7 @@ def mlstm_bwd_bounds(shape, cfg) -> dict:
     f32 work, the fewer of two ways: the pairs (t, s <= t) at 10·P each
     (q·k, dnum·v, dq, dk, dv) and O(S) for the gates, or the adjoint
     recurrence at 10·P² a step and head; ``bound_f32_ms`` is that work in
-    f32 on the CUDA cores, the route the kernel takes."""
+    f32 on the CUDA cores."""
     _, _, b, s, _, _ = shape
     H, P = cfg.num_heads, cfg.d_model // cfg.num_heads
     pairs = b * H * (s * (s + 1) // 2 * 10 * P + 20 * s)
@@ -3592,6 +3602,59 @@ def backward_timings(rows: list[dict], shapes, inputs, plain, bwd_kernel,
                  if row["plain_ms"] is not None else ""))
         del args, dout, extra
     torch.cuda.empty_cache()
+
+
+def scan_bwd_times() -> None:
+    """Both scans' backward kernels alone at phases 39's and 40's shapes,
+    each first held as ``backward_check`` holds it (SCAN_GRAD_RTOL, two
+    backward launches bit-equal), then per shape CUDA-event time (10
+    calls, as ``backward_timings``), each device kernel's time
+    (torch.profiler), TFLOP/s of the bound's work count and the bound
+    (``scan_bwd_bounds``, ``mlstm_bwd_bounds``).  Only the wrappers' and
+    ``ops``' signatures are used, so a copy of this file beside an older
+    checkout times that checkout's kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import mlstm_scan as ML
+    from repro_torch.kernels.ref import mamba_scan_ref, mlstm_ref
+    _build.library()
+    torch.manual_seed(SEED)
+    hcfg, xcfg = get_config(HYBRID_CONFIG), get_config(XLSTM_CONFIG)
+    print(f"[scan-bwd] the backward kernels of {ROOT / 'src'}")
+    for (tag, op, plain, mod, shapes, inputs, names, kernel, bounds,
+         output) in (
+            ("scan_grad", ops.mamba_scan, mamba_scan_ref, MS,
+             SCAN_GRAD_SHAPES, lambda i, sh: scan_inputs(i, sh, hcfg),
+             ("dtx", "a_log", "B", "C"), MS.mamba_scan_bwd_kernel,
+             lambda sh: scan_bwd_bounds(sh, hcfg), None),
+            ("mlstm_grad", ops.mlstm_scan, mlstm_ref, ML, MLSTM_GRAD_SHAPES,
+             lambda i, sh: mlstm_inputs(i, sh, xcfg),
+             ("q", "k", "v", "i_pre", "f_pre"), ML.mlstm_scan_bwd_kernel,
+             lambda sh: mlstm_bwd_bounds(sh, xcfg), ML.mlstm_scan_kernel)):
+        backward_check(tag, op, plain, mod, shapes, inputs, names)
+        for i, shape in enumerate(shapes):
+            args = inputs(i, shape)
+            dout = torch.randn_like(args[0])
+            extra = (output(*args),) if output else ()
+
+            def call():
+                return kernel(dout, *args, *extra)
+            ms = cuda_ms(call, iters=10)
+            by_kernel = device_ms_by_kernel(call) or {}
+            bound = bounds(shape)
+            device = sum(by_kernel.values()) if by_kernel else None
+            parts = ", ".join(
+                re.sub(r"^\(anonymous namespace\)::", "", n).split("(")[0]
+                + f" {t:.4f}" for n, t in sorted(by_kernel.items()))
+            print(f"[scan-bwd] {shape[0]:20s} {tuple(args[0].shape)}: "
+                  f"events {ms:.4f} ms, on the card {fmt_ms(device)} "
+                  f"({parts}); {bound['ops'] / ms / 1e9:.2f} TFLOP/s of "
+                  f"the {bound['ops']:.4g} operations ({bound['ops_form']}"
+                  f"); bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']}), {ms / bound['bound_ms']:.1f}x it")
+            del args, dout, extra
+        torch.cuda.empty_cache()
 
 
 HYBRID_MARKS = {"mamba_scan forward": ("mamba_scan_chunk_state",
@@ -4289,6 +4352,9 @@ def main() -> int:
         return 0
     if "--flash-bwd-times" in sys.argv[1:]:
         flash_bwd_times()
+        return 0
+    if "--scan-bwd-times" in sys.argv[1:]:
+        scan_bwd_times()
         return 0
     build_s, ptxas = build()
     count_plain_flash_backward()

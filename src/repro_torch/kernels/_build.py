@@ -4,8 +4,9 @@
 per source, all started together, and links the objects into one shared
 library with a plain ``extern "C"`` interface: no PyTorch headers, so a
 build takes seconds.  The library lands in ``build/kernels/`` at the root of
-the checkout, named by a hash of the sources and flags, so an edited source
-is never served from a stale build.  Nothing here runs at import.
+the checkout, named by a hash of the sources, the headers beside them
+(``csrc/*.cuh``) and the flags, so an edited source is never served from a
+stale build.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ def library_path() -> Path:
     registers, shared memory, spills) is kept beside it as ``.log``."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):   # the sources and their headers
         digest.update(src.name.encode() + src.read_bytes())
     lib = BUILD_DIR / f"repro_torch_kernels-{digest.hexdigest()[:16]}.so"
     if lib.exists():

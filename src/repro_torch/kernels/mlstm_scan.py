@@ -10,10 +10,11 @@ launches), so a run can show that its path went through the kernel.  The
 Pallas ``chunk`` knob has no counterpart: the kernel is built for chunks of
 CHUNK steps and masks a ragged last chunk, so it takes any S.
 
-The backward is a kernel of its own (``csrc/mlstm_scan_bwd_sm90.cu``, four
-launches, the pairs (t, s) in the quadratic form on the CUDA cores),
-``mlstm_scan_bwd_kernel``, counted by ``backward_launches``; ``MLSTMScan``
-is the autograd function that runs the two.
+The backward is a kernel of its own (``csrc/mlstm_scan_bwd_sm90.cu``, six
+launches, each pair (t, s) of the quadratic form taken once: the scores in
+f64 on the FP64 tensor cores, the products as three TF32 products on the
+tensor cores), ``mlstm_scan_bwd_kernel``, counted by ``backward_launches``
+(once a call); ``MLSTMScan`` is the autograd function that runs the two.
 """
 
 from __future__ import annotations

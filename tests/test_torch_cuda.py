@@ -887,6 +887,8 @@ def test_scan_backward_matches_plain(cuda, b, S, H, P, N, decays):
     (2, 256, 2, 512, None, 1.0, 0.1),     # |n.q| < 1 at most steps
     (2, 37, 3, 33, None, 1.0, 1.0),       # ragged everything
     (1, 1, 1, 1, None, 1.0, 1.0),
+    (1, 1000, 2, 512, None, 1.0, 1.0),    # a ragged S at full P
+    (1, 1024, 1, 512, None, 1.0, 1.0),    # S = 2P
 ])
 def test_mlstm_backward_matches_plain(cuda, b, S, H, P, gates, i_scale, qk):
     q, k, v, i_pre, f_pre = _mlstm_inputs(cuda, b, S, H, P, f_pre=gates,
@@ -906,6 +908,9 @@ def test_backward_kernels_refuse_what_they_cannot_take(cuda):
         ML.mlstm_scan_bwd_kernel(q.double(), q, k, v, i_pre, f_pre, q)
     with pytest.raises(ValueError, match="shape"):
         ML.mlstm_scan_bwd_kernel(q, q, k, v, i_pre, f_pre, q[:, :8])
+    big = _mlstm_inputs(cuda, 1, 4, 1, 513)
+    with pytest.raises(ValueError, match="P <= 512"):
+        ML.mlstm_scan_bwd_kernel(big[0], *big, big[0])
 
 
 def _train_launches(cfg) -> dict[str, int]:

@@ -19,14 +19,16 @@ CUDA kernel itself is held against the plain version on the card, in
 scratch sizes and refusals are checked here too.
 
 The backward kernel (``csrc/mlstm_scan_bwd_sm90.cu``) is emulated the same
-way: the plain version's exponents with f64 prefix sums, d in f64, the
-pairs (t, s) in the quadratic form with their row and column sums over
-the same f64 terms, and the m chain run backwards; held against autograd of
-the plain recurrence in f32 and against the gradient of the recurrence in
-f64 on the usual, stabiliser and long-memory draws, forget-all and a draw
-where the clamp max(|n·q|, 1) holds at most steps, each gradient tensor
-within ATOL·max|g|.  Treating the stabiliser as gradient-free misses the
-limit there."""
+way: the plain version's exponents with f64 prefix sums; the scores q·k in
+f64 and D in f64, d_t in f64 from the score tiles' row sums; the scores
+and D rounded to f32; dnum·vᵀ and the products dq, dk and dv as three TF32
+products; dl = M·S in f64 with its row and column sums over the very same
+terms, each over the pair blocks lowest first; the m chain run backwards.
+It is held against autograd of the plain recurrence in f32 and against the
+gradient of the recurrence in f64 on the usual, stabiliser and long-memory
+draws, forget-all and a draw where the clamp max(|n·q|, 1) holds at most
+steps, each gradient tensor within ATOL·max|g|.  Treating the stabiliser
+as gradient-free misses the limit there."""
 
 import functools
 import math
@@ -345,46 +347,75 @@ def one_thread():
     torch.set_num_threads(before)
 
 
-def emulate_bwd(dh, q, k, v, i_pre, f_pre, h, *, stabiliser=True):
+BLK, ST = 128, 64   # the backward kernel's pair block and score tile
+
+
+def _in_order(parts: torch.Tensor) -> torch.Tensor:
+    """The partial sums along the last dimension added lowest first, as
+    the kernel adds its tiles' and blocks' sums."""
+    out = torch.zeros_like(parts[..., 0])
+    for j in range(parts.shape[-1]):
+        out = out + parts[..., j]
+    return out
+
+
+def emulate_bwd(dh, q, k, v, i_pre, f_pre, h, *, stabiliser=True,
+                sums=False):
     """The mLSTM scan's gradient (dq, dk, dv, d i_pre, d f_pre) computed as
-    the backward kernel computes it, from the output h:
+    the backward kernel computes it, from the output h, the steps padded to
+    SP, a multiple of BLK:
       1. the plain version's m chain, lf' and i', the max's share w, and G
-         the prefix sums of lf'_u for u >= 1 in f64;
-      2. D_ts = e^{i'_s + G_t - G_s} in f64 (masked, s <= t), d_t = sum_s
-         D_ts (q_t.k_s) in f64, den_t, dd_t = -(dh_t.h_t)/den_t sign(d_t)
-         where |d_t| >= 1, dnum = dh/den; per pair M = (dnum_t.v_s + dd_t)
-         D_ts (f32) and dl = M (q_t.k_s) in f64, their row and column sums;
-         dq = M K, dk = Mᵀ Q, dv = (D∘QKᵀ)ᵀ dnum;
-      3. backwards over t in f64: G^m_t = w_{t+1} G^m_{t+1} - rowsum_t,
+         the prefix sums of lf'_u for u >= 1 in f64; dh_t·h_t in f64;
+      2. per pair the scores q_t·k_s in f64 (exact products, f64 sums) and
+         D_ts = e^{i'_s + G_t - G_s} in f64 (masked, s <= t < S); the row
+         sums of D (q·k) per score tile of ST columns;
+      3. d_t the tiles' sums, lowest first; den_t, dd_t = -(dh_t·h_t)/den_t
+         sign(d_t) where |d_t| >= 1, dnum = dh/den;
+      4. S and D rounded to f32; X = dnum·Vᵀ as three TF32 products, M =
+         (X + dd_t) D, W∘S = D S, dl = M S in f64, its row and column sums
+         per block of BLK pairs, the blocks' sums lowest first;
+      5. dq = M·K, dk = Mᵀ·Q and dv = (W∘S)ᵀ·dnum as three TF32 products;
+      6. backwards over t in f64: G^m_t = w_{t+1} G^m_{t+1} - rowsum_t,
          d lf'_t = sum_{u>=t} (rowsum_u - colsum_u), d log f_t = d lf'_t +
          w_t G^m_t, d i_t = colsum_t + (1 - w_t) G^m_t, d f_pre = d log f
          σ(-f_pre).
-    ``stabiliser=False`` drops the m chain's adjoint (G^m = 0)."""
-    f64 = torch.float64
+    ``stabiliser=False`` drops the m chain's adjoint (G^m = 0); ``sums``
+    returns (rowsum, colsum, dl) instead of the gradient."""
+    f64, mm = torch.float64, PRODUCTS["tf32x3"]
     s = q.shape[1]
+    sp = -(-s // BLK) * BLK
     m, lfs, iota, lf, ii = plain_chain(i_pre, f_pre)      # (b, H, s)
     above = lf + torch.cat([torch.full_like(m[..., :1], M0), m[..., :-1]], -1)
     w = torch.where(above > ii, 1.0, torch.where(above == ii, 0.5, 0.0))
     G = lfs.to(f64)
     G[..., 0] = 0.0
-    G = G.cumsum(-1)
-    tri = torch.ones(s, s, dtype=torch.bool).tril()
-    D = torch.exp(torch.where(tri, iota.to(f64)[..., None, :]
+    G = F.pad(G.cumsum(-1), [0, sp - s])
+    io = F.pad(iota.to(f64), [0, sp - s], value=M0)
+    step = torch.arange(sp)
+    vis = (step[None, :] <= step[:, None]) & (step[:, None] < s)
+    D = torch.exp(torch.where(vis, io[..., None, :]
                               + (G[..., :, None] - G[..., None, :]),
                               -torch.inf))
-    Q, K, V, dH, Hh = (t.permute(0, 2, 1, 3) for t in (q, k, v, dh, h))
-    d = (D * (Q.to(f64) @ K.to(f64).transpose(-1, -2))).sum(-1)
+    Q, K, V, dH, Hh = (F.pad(t.permute(0, 2, 1, 3), [0, 0, 0, sp - s])
+                       for t in (q, k, v, dh, h))
+    S64 = Q.to(f64) @ K.to(f64).transpose(-1, -2)
+    d = _in_order((D * S64).unflatten(-1, (sp // ST, ST)).sum(-1))[..., :s]
     clamp = d.abs() < 1.0
     den = torch.where(clamp, 1.0, d.abs()).float()
-    hd = (dH.to(f64) * Hh.to(f64)).sum(-1)
+    hd = (dH.to(f64) * Hh.to(f64)).sum(-1)[..., :s]
     dd = torch.where(clamp, 0.0, -(hd / den) * torch.sign(d)).float()
-    dnum = dH / den[..., None]
-    Df, S32 = D.float(), Q @ K.transpose(-1, -2)
-    M = (dnum @ V.transpose(-1, -2) + dd[..., None]) * Df
+    dnum = dH / F.pad(den, [0, sp - s], value=1.0)[..., None]
+    S32, Df = S64.float(), D.float()
+    M = (mm(dnum, V.transpose(-1, -2))
+         + F.pad(dd, [0, sp - s])[..., None]) * Df
     dl = M.to(f64) * S32.to(f64)
-    rowsum, colsum = dl.sum(-1), dl.sum(-2)
-    dq, dk = M @ K, M.transpose(-1, -2) @ Q
-    dv = (Df * S32).transpose(-1, -2) @ dnum
+    rowsum = _in_order(dl.unflatten(-1, (sp // BLK, BLK)).sum(-1))[..., :s]
+    colsum = _in_order(dl.unflatten(-2, (sp // BLK, BLK)).sum(-2)
+                       .transpose(-1, -2))[..., :s]
+    if sums:
+        return rowsum, colsum, dl
+    dq, dk = mm(M, K), mm(M.transpose(-1, -2), Q)
+    dv = mm((Df * S32).transpose(-1, -2), dnum)
     dlf, di = torch.empty_like(rowsum), torch.empty_like(rowsum)
     carry, quad = torch.zeros_like(rowsum[..., 0]), torch.zeros_like(d[..., 0])
     wd = w.to(f64) if stabiliser else torch.zeros_like(rowsum)
@@ -397,7 +428,7 @@ def emulate_bwd(dh, q, k, v, i_pre, f_pre, h, *, stabiliser=True):
     df = dlf.float() * torch.sigmoid(-f_pre.float().permute(0, 2, 1))
 
     def back(t):
-        return t.permute(0, 2, 1, *range(3, t.dim()))
+        return t[:, :, :s].permute(0, 2, 1, *range(3, t.dim()))
     return back(dq), back(dk), back(dv), back(di.float()), back(df)
 
 
@@ -463,6 +494,20 @@ def test_gradient_free_stabiliser_misses_the_limit(kind, one_thread):
     args, dh, h, g32, _ = _bwd_case(kind)
     got = emulate_bwd(dh, *args, h, stabiliser=False)
     assert max(grad_errors(got, g32)[3:]) > 10
+
+
+def test_row_and_column_sums_add_the_same_terms(one_thread):
+    """d lf' is the difference of dl's row and column sums summed over t:
+    taken over the same f64 terms, their totals agree to f64 rounding;
+    over the terms rounded to f32 (as column sums of recomputed f32
+    products would take them) they are 10^3 times further apart."""
+    args, dh, h, *_ = _bwd_case("usual")
+    rowsum, colsum, dl = emulate_bwd(dh, *args, h, sums=True)
+    scale = dl.abs().sum().item()
+    gap = abs(rowsum.sum().item() - colsum.sum().item())
+    assert gap <= 1e-13 * scale
+    f32_gap = abs(rowsum.sum().item() - dl.float().double().sum().item())
+    assert f32_gap > 1e3 * max(gap, 1e-13 * scale)
 
 
 @pytest.mark.parametrize("b,s,h,p", [(2, 40, 3, 48), (1, 1, 1, 1)])
