@@ -913,7 +913,7 @@ def build() -> tuple[float, dict]:
     backward = {}
     for lib_name, pattern, phases, count in (
             ("mamba_scan_bwd_sm90", r"(mamba_bwd_(?:chunk|pass|grad|"
-             r"head_sum)_kernel)", {"chunk": 1, "grad": 3}, 4),
+             r"group_sum)_kernel)", {"chunk": 1, "grad": 3}, 4),
             ("mlstm_scan_bwd_sm90", r"(mlstm_bwd_(?:gates|scores|rows|pairs|"
              r"products|gate_grads)_kernel)",
              {"scores": 2, "pairs": 4, "products": 5}, 6)):
@@ -3500,8 +3500,8 @@ def scan_bwd_bounds(shape, cfg) -> dict:
     adjoints and the carries, and C·Bᵀ once per chunk).  The bound is
     reckoned as ``scan_bounds`` reckons the forward's: that work as three
     bf16 products on the tensor cores, against the bytes;
-    ``bound_f32_ms`` is the same work in f32 on the CUDA cores, the route
-    the kernel takes; ``ops`` is the f32 work, for TFLOP/s."""
+    ``bound_f32_ms`` is the same work in f32 on the CUDA cores; ``ops`` is
+    the f32 work, for TFLOP/s."""
     from repro_torch.models.ssm import ssm_dims
     _, _, b, s, _ = shape
     _, H, P, N = ssm_dims(cfg)

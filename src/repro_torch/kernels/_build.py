@@ -56,9 +56,10 @@ SIGNATURES = {
     "mlstm_scan_sm90_error_string": (ctypes.c_char_p, [_int]),
     "mlstm_scan_sm90_scratch_bytes": (ctypes.c_longlong, [_int] * 5),
     "mlstm_scan_sm90_smem_bytes": (_int, [_int, _int]),
-    "mamba_scan_bwd_sm90_f32": (_int, [_ptr] * 10 + [_int] * 5 + [_ptr]),
+    "mamba_scan_bwd_sm90_f32": (_int, [_ptr] * 10 + [_int] * 7 + [_ptr]),
     "mamba_scan_bwd_sm90_scratch_bytes": (ctypes.c_longlong, [_int] * 4),
     "mamba_scan_bwd_sm90_smem_bytes": (_int, [_int]),
+    "mamba_scan_bwd_sm90_resident_blocks": (_int, [_int]),
     "mlstm_scan_bwd_sm90_f32": (_int, [_ptr] * 13 + [_int] * 4 + [_ptr]),
     "mlstm_scan_bwd_sm90_scratch_bytes": (ctypes.c_longlong, [_int] * 3),
     "mlstm_scan_bwd_sm90_smem_bytes": (_int, [_int]),

@@ -92,6 +92,8 @@
 
 #include <cstdint>
 
+#include "ssd_bf16x3_sm90.cuh"
+
 namespace {
 
 constexpr int TILE = 64;            // P and N as the blocks hold them
@@ -115,29 +117,6 @@ struct ScanArgs {
   int S, H, P, N, nc, group;
   bool vec_x, vec_bc;  // 16-byte loads along P (dtx) and N (B, C)
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Two f32 as hi and lo bf16 pairs.
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - f.x, y - f.y));
-}
-
-// Four f32 as hi and lo bf16, four of each packed in 8 bytes.
-__device__ __forceinline__ void split4(float4 v, uint2& hi, uint2& lo) {
-  split2(v.x, v.y, hi.x, lo.x);
-  split2(v.z, v.w, hi.y, lo.y);
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
@@ -189,54 +168,6 @@ __device__ __forceinline__ void ldsm_b2(uint32_t (&b)[2][2], uint32_t addr) {
   b[0][1] = r[1];
   b[1][0] = r[2];
   b[1][1] = r[3];
-}
-
-// Four floats of row `row` (n valid columns) from column c0; zeros past n.
-// `vec`: n % 4 == 0 and the rows 16-byte aligned.
-__device__ __forceinline__ float4 load4(const float* row, int c0, int n,
-                                        bool vec) {
-  if (vec)
-    return c0 < n ? __ldg(reinterpret_cast<const float4*>(row + c0))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-  float v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = c0 + i < n ? __ldg(row + c0 + i) : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// The cumulative log decays of the block's heads h0 .. h0+G-1 over its
-// chunk of L steps, cum[j][s] (a = 0 past L, so cum[j][Q-1] = cum at L-1).
-// All threads load; each warp then scans whole heads, Q/32 steps a lane.
-template <int Q>
-__device__ __forceinline__ void chunk_cumsum(const ScanArgs& a, float* cum,
-                                             size_t row0, int h0, int G, int L,
-                                             int nthreads) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  for (int i = tid; i < Q * G; i += nthreads) {
-    const int s = i / G, j = i % G;
-    cum[j * Q + s] = s < L ? __ldg(a.a_log + (row0 + s) * a.H + h0 + j) : 0.f;
-  }
-  __syncthreads();
-  constexpr int PER = Q / 32;
-  for (int j = warp; j < G; j += nthreads / 32) {
-    float v[PER];
-    float run = 0.f;
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      run += cum[j * Q + lane * PER + k];
-      v[k] = run;
-    }
-    float before = run;   // inclusive scan of the lanes' totals
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float up = __shfl_up_sync(0xffffffffu, before, off);
-      if (lane >= off) before += up;
-    }
-    before -= run;
-#pragma unroll
-    for (int k = 0; k < PER; ++k) cum[j * Q + lane * PER + k] = before + v[k];
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -309,7 +240,7 @@ mamba_scan_chunk_state_kernel(const ScanArgs a) {
       *reinterpret_cast<uint2*>(bl + s * LDH + n) = lo;
     }
   }
-  chunk_cumsum<Q>(a, cum, row0, h0, G, L, PHASE1_THREADS);
+  chunk_cumsum<Q>(a.a_log, a.H, cum, row0, h0, G, L, PHASE1_THREADS);
   if (tid < G)
     a.decay[(static_cast<size_t>(bi) * a.nc + c) * a.H + h0 + tid] =
         expf(cum[tid * Q + Q - 1]);
@@ -495,7 +426,8 @@ mamba_scan_chunk_output_kernel(const ScanArgs a) {
       *reinterpret_cast<float4*>(bf + s * LDF + n) = bv[k];
     }
   }
-  chunk_cumsum<Q>(a, cum, row0, h0, G, L, THREADS);   // syncs C and B too
+  // (syncs C and B too)
+  chunk_cumsum<Q>(a.a_log, a.H, cum, row0, h0, G, L, THREADS);
 
   const int rt = row_tile(warp, W), t_lo = 16 * rt + g, t_hi = t_lo + 8;
   const int ch = warp / W;   // this warp's half of P

@@ -13,9 +13,11 @@ masked, so it takes any S.  ``plan`` picks how many heads a block of the
 first and the last launch takes.
 
 The backward is a kernel of its own (``csrc/mamba_scan_bwd_sm90.cu``, four
-launches, f32 on the CUDA cores), ``mamba_scan_bwd_kernel``, counted by
-``backward_launches``; ``MambaScan`` is the autograd function that runs the
-two.
+launches: chunk sums, state passes, chunk gradients, group sums; chunk 64,
+the products on the tensor cores as three bf16 products each),
+``mamba_scan_bwd_kernel``, counted by ``backward_launches`` once a call;
+``plan_bwd`` picks the heads a block of its chunk-sums and chunk-gradients
+launches takes.  ``MambaScan`` is the autograd function that runs the two.
 """
 
 from __future__ import annotations
@@ -38,8 +40,15 @@ STATE_FLOATS = 64 * 64    # one head's state in the scratch, padded
 MAX_GROUP = 32            # heads a block of phase 1 or 3 takes
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 # A block's set-up in units of one head's work: phase 1 splits B and scans
-# the decays, phase 3 also stages C and forms C.B^T, as much as a head.
+# the decays, phase 3 also stages C and forms C.B^T, as much as a head; the
+# backward's chunk sums and chunk gradients likewise.
 _SETUP_COST = {1: 0.5, 3: 1.0}
+BWD_CHUNK = 64            # the backward kernel's chunk (time steps)
+# Heads a block of the backward's chunk sums takes at most: at zamba2's
+# 4x1024 blocks of 5 heads in several waves ran faster on an H100 than one
+# wave of blocks of 20, each block's first loads then overlapping other
+# blocks' work (PERF.md).
+BWD_SUMS_GROUP = 5
 
 
 def chunk_for(S: int) -> int:
@@ -51,14 +60,14 @@ def chunk_for(S: int) -> int:
 
 
 def heads_per_block(blocks_per_head: int, H: int, resident: int,
-                    setup: float) -> int:
-    """The heads G (at most MAX_GROUP) a block takes, when each of
+                    setup: float, most: int = MAX_GROUP) -> int:
+    """The heads G (at most ``most``) a block takes, when each of
     ``blocks_per_head`` (batch x chunk) cells needs ceil(H / G) blocks and
     the card holds ``resident`` at once: the G whose waves of blocks take
     the least modelled time, a block costing ``setup`` plus G heads; ties
     go to the smaller G."""
     best = None
-    for g in range(1, min(H, MAX_GROUP) + 1):
+    for g in range(1, min(H, most) + 1):
         waves = math.ceil(blocks_per_head * math.ceil(H / g) / resident)
         cost = waves * (setup + g)
         if best is None or cost < best[0]:
@@ -75,6 +84,31 @@ def plan(b: int, S: int, H: int, chunk: int,
     cells = b * math.ceil(S / chunk)
     return tuple(heads_per_block(cells, H, r, _SETUP_COST[phase])
                  for r, phase in zip(resident, (1, 3)))
+
+
+@functools.cache
+def plan_bwd(b: int, S: int, H: int,
+             resident: tuple[int, int] = (2 * SMS, SMS)) -> tuple[int, int]:
+    """The heads per block of the backward's chunk sums and chunk gradients,
+    where the card holds ``resident`` blocks of each at once."""
+    cells = b * math.ceil(S / BWD_CHUNK)
+    return (heads_per_block(cells, H, resident[0], _SETUP_COST[1],
+                            BWD_SUMS_GROUP),
+            heads_per_block(cells, H, resident[1], _SETUP_COST[3]))
+
+
+@functools.cache
+def bwd_resident_blocks(device: int) -> tuple[int, int]:
+    """How many blocks of the backward's chunk sums and of its chunk
+    gradients CUDA device ``device`` holds at once."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        blocks = tuple(lib.mamba_scan_bwd_sm90_resident_blocks(phase)
+                       for phase in (1, 3))
+    if min(blocks) < 1:
+        raise RuntimeError(f"mamba_scan_bwd: the card holds no block of the "
+                           f"kernel: {blocks}")
+    return blocks
 
 
 @functools.cache
@@ -165,13 +199,18 @@ def mamba_scan_bwd_kernel(dy: torch.Tensor, dtx: torch.Tensor,
     ddtx, da = torch.empty_like(dtx), torch.empty_like(a_log)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     lib = _build.library()
-    scratch = torch.empty(lib.mamba_scan_bwd_sm90_scratch_bytes(b, S, H, N),
-                          dtype=torch.uint8, device=dtx.device)
+    group1, group3 = plan_bwd(b, S, H, bwd_resident_blocks(dtx.device.index))
+    # The chunks' own states and adjoints, then in place the states
+    # entering and the adjoints leaving them; the decays; each group's part
+    # of dB and dC.
+    scratch = torch.empty(
+        lib.mamba_scan_bwd_sm90_scratch_bytes(b, S, H, group3),
+        dtype=torch.uint8, device=dtx.device)
     with torch.cuda.device(dtx.device):
         err = lib.mamba_scan_bwd_sm90_f32(
             dy.data_ptr(), dtx.data_ptr(), a_log.data_ptr(), B.data_ptr(),
             C.data_ptr(), ddtx.data_ptr(), da.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), scratch.data_ptr(), b, S, H, P, N,
+            dC.data_ptr(), scratch.data_ptr(), b, S, H, P, N, group1, group3,
             torch.cuda.current_stream(dtx.device).cuda_stream)
     if err:
         raise RuntimeError(f"mamba_scan backward kernel launch failed: "

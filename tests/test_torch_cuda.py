@@ -872,6 +872,9 @@ def _bwd_check(op, plain, mod, args):
     (1, 200, 3, 64, 64, -30.0),      # full reset
     (2, 37, 5, 33, 17, "long"),      # ragged everything
     (1, 1, 1, 1, 1, None),
+    (1, 256, 80, 64, 64, None),      # zamba2's 80 heads, a ragged last group
+    (1, 1000, 8, 64, 64, None),      # a ragged S at full P and N
+    (1, 512, 7, 64, 64, "long"),     # a prime number of heads
 ])
 def test_scan_backward_matches_plain(cuda, b, S, H, P, N, decays):
     _bwd_check(ops.mamba_scan, mamba_scan_ref, MS,

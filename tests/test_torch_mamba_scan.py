@@ -16,9 +16,11 @@ heads per block is checked here too.
 The backward kernel (``csrc/mamba_scan_bwd_sm90.cu``) is emulated the same
 way: its chunk of 64, its four launches (chunk sums, the passes of the
 entering states and the leaving adjoints, the chunk gradients with d a_log
-as the quadrant sums of (1) in its header, the sum over heads) in f32, held
-against autograd of the plain recurrence in f32 and against the gradient of
-the recurrence in f64, each gradient tensor within ATOL·max|g|."""
+as the quadrant sums of (1) in its header, the sums of dB and dC over each
+group of heads and then over the groups), its ten matrix products split as
+the forward's, held against autograd of the plain recurrence in f32 and
+against the gradient of the recurrence in f64, each gradient tensor within
+ATOL·max|g|; one bf16 or one TF32 pass misses that limit."""
 
 import functools
 import math
@@ -230,6 +232,19 @@ def test_plan_stays_in_bounds(b, s, h, resident):
         assert waves >= 1
 
 
+@pytest.mark.parametrize("b,s,h,resident,want", [
+    (4, 1024, 80, (264, 132), (5, 20)),    # zamba2's train shape: 1,024
+                                           # and 256 blocks
+    (1, 1024, 80, (264, 132), (5, 10)),    # 16 cells: 256 and 128 blocks
+    (1, 1, 1, (1, 1), (1, 1)),
+])
+def test_backward_plan_fills_the_card(b, s, h, resident, want):
+    """The backward's heads per block at chunk 64: the chunk sums at most
+    BWD_SUMS_GROUP, the chunk gradients in whole waves of blocks, C·Bᵀ
+    formed once for that many heads."""
+    assert MS.plan_bwd(b, s, h, resident) == want
+
+
 def test_more_resident_blocks_never_mean_more_heads_per_block():
     groups = [MS.heads_per_block(32, 80, r, 1.0) for r in (66, 132, 264, 528)]
     assert groups == sorted(groups, reverse=True)
@@ -242,26 +257,35 @@ BWD_SHAPE = (1, 512, 3, 64, 64)   # zamba2's P and N, 8 chunks
 ZERO = 1e-6             # of the largest gradient: below it, rounding
 
 
-def emulate_bwd(dy, dtx, a_log, Bm, Cm, *, quadrant=True, carry=True):
+def emulate_bwd(dy, dtx, a_log, Bm, Cm, *, product="bf16x3", group=None,
+                quadrant=True, carry=True):
     """The SSD scan's gradient (d dtx, d a_log, dB, dC) computed as the
-    backward kernel computes it, in f32: chunks of BWD_CHUNK steps (padded
-    steps with a_log = 0 and zero inputs), cum summed in order,
-    gl = e^{cum}, gr = e^{cum_L - cum}, then
+    backward kernel computes it: chunks of BWD_CHUNK steps (padded steps
+    with a_log = 0 and zero inputs), cum summed in order, gl = e^{cum},
+    gr = e^{cum_L - cum}, then
       1. per chunk dS = (gr∘X)ᵀB and L = (gl∘dY)ᵀC;
       2. the state S0 entering each chunk, forwards, and the adjoint Gh
          leaving it, backwards (``carry=False``: Gh = 0, dropping what the
          later chunks give back);
       3. E1 = D∘(C Bᵀ), E2 = D∘(dY Xᵀ) with D = [r >= k] e^{cum_r - cum_k}
-         masked before the exp; dx = E1ᵀ dY + gr∘(B Ghᵀ), the heads' dB = E2ᵀ
-         C + gr∘(X Gh) and dC = E2 B + gl∘(dY S0); d a_log as the sums of
-         (1) in the kernel's header, the pair terms W = [r > k] E1∘(dY Xᵀ)
-         as quadrant sums (``quadrant=False``: as the reverse cumulative
-         sum of the adjoint of cum instead, the usual form);
-      4. dB and dC summed over the heads."""
+         masked before the exp; dx = gr∘(B Ghᵀ) + E1ᵀ dY, each head's dB =
+         gr∘(X Gh) + E2ᵀ C and dC = gl∘(dY S0) + E2 B; d a_log as the sums
+         of (1) in the kernel's header, the pair terms W = [r > k]
+         E1∘(dY Xᵀ) as quadrant sums (``quadrant=False``: as the reverse
+         cumulative sum of the adjoint of cum instead, the usual form);
+      4. dB and dC summed over the heads of each group of ``group`` (the
+         wrapper's ``plan_bwd`` at an H100's resident blocks if None) in
+         head order, then over the groups in group order;
+    each of the ten matrix products by ``PRODUCTS[product]`` (the kernel's:
+    bf16x3), every other operation in f32.  The kernel reads x_t and C_t
+    for the row dots of (1) back from their split tiles, hi + lo, within
+    2^-17 of each value: not emulated."""
+    mm = PRODUCTS[product]
     b, s, h, p = dtx.shape
     L = BWD_CHUNK
     nc = math.ceil(s / L)
     pad = nc * L - s
+    group = group or MS.plan_bwd(b, s, h)[1]
 
     def heads(t):       # (b, s, h, x) -> (b, nc, h, L, x)
         t = F.pad(t, [0, 0, 0, 0, 0, pad])
@@ -279,8 +303,8 @@ def emulate_bwd(dy, dtx, a_log, Bm, Cm, *, quadrant=True, carry=True):
         run = run + a[..., i]
         cum[..., i] = run
     gl, gr = torch.exp(cum), torch.exp(cum[..., -1:] - cum)
-    dS = (gr[..., None] * X).transpose(-1, -2) @ Bc
-    own = (gl[..., None] * dY).transpose(-1, -2) @ Cc
+    dS = mm((gr[..., None] * X).transpose(-1, -2), Bc)
+    own = mm((gl[..., None] * dY).transpose(-1, -2), Cc)
     decay = gl[..., -1, None, None]
     S0, Gh = torch.empty_like(dS), torch.zeros_like(own)
     run = torch.zeros_like(dS[:, 0])
@@ -295,12 +319,12 @@ def emulate_bwd(dy, dtx, a_log, Bm, Cm, *, quadrant=True, carry=True):
     tri = torch.ones(L, L, dtype=torch.bool).tril()
     D = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :],
                               -torch.inf))
-    YX = dY @ X.transpose(-1, -2)
-    E1, E2 = D * (Cc @ Bc.transpose(-1, -2)), D * YX
-    cx, cc = Bc @ Gh.transpose(-1, -2), dY @ S0
-    dX = E1.transpose(-1, -2) @ dY + gr[..., None] * cx
-    dBh = E2.transpose(-1, -2) @ Cc + gr[..., None] * (X @ Gh)
-    dCh = E2 @ Bc + gl[..., None] * cc
+    YX = mm(dY, X.transpose(-1, -2))
+    E1, E2 = D * mm(Cc, Bc.transpose(-1, -2)), D * YX
+    cx, cc = mm(Bc, Gh.transpose(-1, -2)), mm(dY, S0)
+    dX = gr[..., None] * cx + mm(E1.transpose(-1, -2), dY)
+    dBh = gr[..., None] * mm(X, Gh) + mm(E2.transpose(-1, -2), Cc)
+    dCh = gl[..., None] * cc + mm(E2, Bc)
     f = gr * (X * cx).sum(-1)                 # e^{cum_L - cum_s} x_s.(Gh B_s)
     e = gl * (Cc * cc).sum(-1)                # e^{cum_t} dy_t.(S0 C_t)
     gs = gl[..., -1:] * (Gh * S0).sum((-1, -2))[..., None]
@@ -314,8 +338,20 @@ def emulate_bwd(dy, dtx, a_log, Bm, Cm, *, quadrant=True, carry=True):
         dcum = pairs.sum(-1) - pairs.sum(-2) + e - f
         dcum[..., -1] += gs[..., 0] + f.sum(-1)
         da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
-    return (back(dX), back(da[..., None])[..., 0], back(dBh).sum(2),
-            back(dCh).sum(2))
+
+    def head_sum(t):    # (b, s, h, n): in head order within each group,
+        parts = []      # then over the groups in group order
+        for g0 in range(0, h, group):
+            part = t[:, :, g0]
+            for j in range(g0 + 1, min(g0 + group, h)):
+                part = part + t[:, :, j]
+            parts.append(part)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+    return (back(dX), back(da[..., None])[..., 0], head_sum(back(dBh)),
+            head_sum(back(dCh)))
 
 
 def scan_grads(args, dy, fn, dtype):
@@ -373,28 +409,56 @@ def test_backward_arithmetic_holds_the_limit(kind, one_thread):
     assert max(grad_errors(got, g64)) <= 1.0
 
 
+@BWD_DRAWS
+@pytest.mark.parametrize("product", ["bf16x1", "tf32x1"])
+def test_backward_one_pass_misses_the_limit(kind, product, one_thread):
+    """One bf16 or one TF32 pass in place of the split: some gradient misses
+    ATOL·max|g| at least threefold on every draw (bf16 30–45-fold, TF32
+    3.8–6.1-fold), where the split holds it about tenfold."""
+    args, dy, g32, _ = _bwd_case(kind)
+    assert max(grad_errors(emulate_bwd(dy, *args, product=product),
+                           g32)) >= 3.0
+
+
+def test_backward_group_sums_hold_the_limit_at_80_heads(one_thread):
+    """zamba2's 80 heads at S 256: dB and dC summed over groups of the
+    plan's size (3 heads, the last group of 2), in head order and then in
+    group order, within the limit as every other gradient."""
+    b, s, h, p, n = 1, 256, 80, 64, 64
+    group = MS.plan_bwd(b, s, h)[1]
+    assert 1 < group < h and h % group
+    args = tuple(map(torch.from_numpy, draw(80, b, s, h, p, n, False)))
+    dy = torch.from_numpy(np.random.default_rng(81).standard_normal(
+        args[0].shape).astype(np.float32))
+    g32 = scan_grads(args, dy, mamba_scan_ref, torch.float32)
+    assert max(grad_errors(emulate_bwd(dy, *args, group=group), g32)) <= 1.0
+
+
 @pytest.mark.parametrize("kind", ["fast", "long_memory"])
 def test_quadrant_and_usual_forms_of_d_a_log_agree(kind, one_thread):
     """d a_log as quadrant sums (the kernel's) and as the reverse cumulative
-    sum of cum's adjoint (the usual form): both within 0.02 of the limit of
-    the f64 gradient where d a_log is of the order of the others."""
+    sum of cum's adjoint (the usual form), the products exact so that only
+    the forms differ: both within 0.02 of the limit of the f64 gradient
+    where d a_log is of the order of the others."""
     args, dy, _, g64 = _bwd_case(kind)
     for quadrant in (True, False):
-        da = emulate_bwd(dy, *args, quadrant=quadrant)[1]
+        da = emulate_bwd(dy, *args, product="exact", quadrant=quadrant)[1]
         assert grad_errors([da], [g64[1]])[0] <= 0.02
 
 
 def test_quadrant_sums_keep_a_vanishing_d_a_log(one_thread):
-    """At the full reset d a_log is ~1e-12: the quadrant sums hold it within
-    1e-6 of itself, while the usual form's differences of the larger pair
-    terms lose all of it."""
+    """At the full reset d a_log is ~1e-12: with the products exact, the
+    quadrant sums hold it within 1e-6 of itself, while the usual form's
+    differences of the larger pair terms lose all of it.  (The kernel's
+    split products hold it within ~1e-5 of itself, their own rounding.)"""
     args, dy, g32, g64 = _bwd_case("reset")
 
-    def rel(quadrant):
-        da = emulate_bwd(dy, *args, quadrant=quadrant)[1]
+    def rel(quadrant, product="exact"):
+        da = emulate_bwd(dy, *args, product=product, quadrant=quadrant)[1]
         return ((da.double() - g64[1]).abs().max()
                 / g64[1].abs().max()).item()
     assert rel(True) <= 1e-6 and rel(False) > 0.5
+    assert rel(True, "bf16x3") <= 1e-5
 
 
 def test_dropped_adjoint_misses_long_memory(one_thread):
