@@ -12,9 +12,10 @@ Phases, each of which raises (exit code 1) on failure:
    for the fused-conv kernel, per chunk (64, 128) for the SSD scan's
    three kernels, the mLSTM scan's four, the SSD scan backward's four and
    the mLSTM scan backward's six, and per head dim the flash backward's
-   kernels on each route (bf16: the wgmma kernel and its prep launch at D
-   <= 128, mma.sync's D_i, dK and dV, dQ at D = 256; f32: the prep launch
-   and the one-pass kernel), none of which may spill.
+   kernels on each route (bf16: the wgmma kernel at every head dim, its
+   prep launch and its dq conversion, built for D <= 128 and for D = 256;
+   f32: the prep launch and the one-pass kernel), none of which may
+   spill.
 3. kernel check: the fused-conv kernel (the tensor-core kernel of
    ``csrc/fused_conv_sm90.cu``: three bf16 wgmma products per f32 product,
    split K over a cluster) against its plain PyTorch version on the card,
@@ -232,13 +233,14 @@ Phases, each of which raises (exit code 1) on failure:
 34. flash gradient: dq, dk and dv through ``ops.flash_attention`` on a
     tensor that needs a gradient (the kernel inside the ``FlashAttention``
     autograd function, whose backward launches the backward kernels:
-    ``csrc/flash_attention_bwd_sm90.cu`` for bf16 (``csrc/
-    flash_attention_bwd_mma.cu`` at D=256), ``csrc/flash_attention_bwd.cu``
-    for f32) against autograd of the plain
+    ``csrc/flash_attention_bwd_sm90.cu`` for bf16 at every head dim,
+    ``csrc/flash_attention_bwd.cu`` for f32) against autograd of the plain
     attention in f32 on the same values, in bf16 and in f32, at
     minicpm-2b's 4x1024 with 36 heads of 64, qwen3's GQA 64/8 at D=128,
     gemma2's D=256 with window and softcap 50, zamba2's D=80 at 4x1024
-    and a whisper-like non-causal cross shape (S=448, T=1500, D=64); each
+    and a whisper-like non-causal cross shape (S=448, T=1500, D=64), and
+    in bf16 at gemma2-2b's training layers (1x8192, 8/4 heads of 256,
+    softcap 50, causal and with the 4096 window: phase 53's); each
     element within 1e-5·max|ref| (f32) or half a bf16 ulp + 2e-5 (bf16);
     each shape twice, the two gradients bit-equal, two forward and two
     backward launches, each on its dtype's (and head dim's) route.  From
@@ -301,14 +303,16 @@ Phases, each of which raises (exit code 1) on failure:
 43. timings of phase 41's step as in phase 38 (every part with remat),
     the profiled step's shares of the scan's and flash's forward and
     backward kernels.
-44. training: xlstm-1.3b at full width and depth (48 layers, bf16) takes
-    one step at 4x512 and one with remat (XLSTM_TRAIN_STEPS; each ~10 s of
-    the sLSTM's host loop): exactly 36 mlstm_scan and 36
-    backward launches a step (72 forward with remat); then the f32 twin of
-    one unit (4 layers) at 1x512 against ``ops.plain()``, as phase 36.
-45. timings of phase 44's step as in phase 43, one repeat of each; the
-    profiled step is one unit's at full width (a step of all 48 layers records ~10^6 profiler
-    events).
+44. training: xlstm-1.3b at full width cut to two units (8 layers,
+    bf16; XLSTM_TRAIN_LAYERS, to keep the script within its budget: each
+    unit's sLSTM loops over the steps on the host) takes one
+    step at 4x512 and one with remat (XLSTM_TRAIN_STEPS): exactly 6
+    mlstm_scan and 6 backward launches a step (12 forward with remat);
+    then the f32 twin of one unit (4 layers) at 1x512 against
+    ``ops.plain()``, as phase 36.
+45. timings of phase 44's step as in phase 43; the
+    profiled step is one unit's at full width (a step of all 48 layers
+    records ~10^6 profiler events).
 46. the launcher: ``python -m repro_torch.launch.train --arch minicpm-2b
     --mesh 1x1 --policy fused_seq`` (``launch.train.run`` in this process,
     on a one-rank NCCL group) at 4x1024 bf16, 4 steps, its state's leaves
@@ -350,6 +354,25 @@ Phases, each of which raises (exit code 1) on failure:
     nothing; each step's loss and the final parameters against the plain
     trainer from the same seed (bit-equal, or the loss within
     LAUNCH_LOSS_RTOL, and the run prints the first step that differs).
+53. (run right after phase 34, phases 53-55 in order) training:
+    gemma2-2b at full width and depth (26 layers, d 2304, 8
+    query and 4 KV heads of 256, d_ff 9216, vocab 256000, bf16, attention
+    softcap 50, final softcap 30, tied and scaled embeddings) on phase 8's
+    weights, kept on the host since phase 10 rather than drawn again,
+    takes 3 steps of ``make_train_step`` at 1x8192 (Gemma 2's training
+    context, where the 13 local layers' 4096 window bites) and one more,
+    every one with remat, AdamW lr 3e-4 under WSD: exactly 52 flash and
+    26 flash backward launches a step on the tensor-core routes, the plain
+    flash gradient never called; loss, gradients and updates as phase 35.
+    Then the gradient without remat, which runs out of the card's 80 GB,
+    printed with the memory it reached (why the steps take remat).
+54. timings of phase 53's step as in phase 38 (the profiled step's
+    shares of flash's forward and backward kernels and the idle share),
+    and the bf16 backward kernels alone at both training layers against
+    their bound and the plain f32 backward (none held).
+55. f32 twin: gemma2-2b at full width cut to one local and one global
+    layer, f32, at 1x4608 (the window bites past 4096) against
+    ``ops.plain()``, as phase 36.
 51. prints the ``kernels`` JSON line (the four kernels, the flash
     backward on each route and the scans' two backward kernels), 52. the final ``{"ok": true, ...}`` line.  The full
     record goes to ``build/chip_smoke.json``, and the summary line ends
@@ -930,16 +953,14 @@ def build() -> tuple[float, dict]:
               and all(row.get("spill_bytes") == 0 for row in report.values()),
               f"{lib_name} ptxas report: {report}")
         backward[lib_name] = report
-    # The flash backward's kernels, per head dim on each route: bf16 through
-    # wgmma (flash_attention_bwd_sm90.cu: the prep launch, the main kernel
-    # at D <= 128, the dq conversion), bf16 through mma.sync at D = 256
-    # (flash_attention_bwd_mma.cu: D_i, dK and dV, dQ), f32
+    # The flash backward's kernels, per head dim on each route: bf16
+    # (flash_attention_bwd_sm90.cu: the prep launch, the main kernel at
+    # every D, the dq conversion built for D <= 128 and for D = 256), f32
     # (flash_attention_bwd.cu: the prep launch and the main kernel at every
     # D): registers, spills (none allowed) and, for the main kernels,
     # dynamic shared memory.
-    flash_bwd = ptxas_report(log, r"(flash_bwd_(?:f32_)?(?:(?:sm90|prep|dkdv|"
-                                  r"dq_convert|dq|dot_do_o)_)?kernel)"
-                                  r"(?:ILi(\d+)E)?",
+    flash_bwd = ptxas_report(log, r"(flash_bwd_(?:f32_)?(?:(?:sm90|prep|"
+                                  r"dq_convert)_)?kernel)(?:ILi(\d+)E)?",
                              lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""))
     for key, row in sorted(flash_bwd.items()):
         d = int(key[key.index("<") + 1:-1]) if "<" in key else 0
@@ -949,9 +970,6 @@ def build() -> tuple[float, dict]:
         elif "_f32_" in key and d:
             row["dynamic_smem_bytes"] = lib.flash_attention_bwd_f32_smem_bytes(
                 d)
-        elif d:
-            row["dynamic_smem_bytes"] = lib.flash_attention_bwd_mma_smem_bytes(
-                2 if "dkdv" in key else 3, d)
         print(f"[build] {key}: {row.get('registers')} registers, "
               f"{row.get('spill_bytes')} B spilled"
               + (f", {row['dynamic_smem_bytes']:,} B dynamic shared memory"
@@ -960,8 +978,8 @@ def build() -> tuple[float, dict]:
                         if "_sm90_" in k)
     f32_dims = sorted(int(k[k.index("<") + 1:-1]) for k in flash_bwd
                       if k.startswith("flash_bwd_f32_kernel<"))
-    check(len(flash_bwd) == (2 + 6) + 3 + (1 + 7)
-          and wgmma_dims == [16, 32, 64, 80, 96, 128]
+    check(len(flash_bwd) == (1 + 2 + 7) + (1 + 7)
+          and wgmma_dims == [16, 32, 64, 80, 96, 128, 256]
           and f32_dims == [16, 32, 64, 80, 96, 128, 256]
           and all(row.get("spill_bytes") == 0 for row in flash_bwd.values()),
           f"flash backward ptxas report: {flash_bwd}")
@@ -1564,7 +1582,7 @@ def check_launches(expect: dict[str, int], what: str,
     """The counts since ``zero_launches``: exactly ``expect`` of each kernel
     it names, none of the others, every flash launch on ``route`` and every
     flash backward launch on ``bwd_route`` (by default that route's
-    backward below D = 256)."""
+    backward)."""
     got = launch_counts()
     want = {name: expect.get(name, 0) for name in got}
     check(got == want, f"{what}: kernel launches {got}, want {want}")
@@ -2328,7 +2346,9 @@ def flash_bwd_times() -> None:
     """The flash backward kernels alone (``flash_attention_backward_kernel``
     on the forward kernel's saved statistics) at every shape of phase 34's
     GRAD_SHAPES, the first minicpm-2b's layer (the f32 twin's in f32) and
-    the fourth zamba2-2.7b's, in bf16 and in f32: CUDA-event and device
+    the fourth zamba2-2.7b's, in bf16 and in f32, then in bf16 at gemma2's
+    training shapes (GEMMA2_GRAD_SHAPES) and paligemma-3b's heads
+    (PALIGEMMA_GRAD_SHAPE): CUDA-event and device
     time, the device time of each device kernel, the bound (10·D operations
     a visible pair at 989 TFLOP/s in bf16, 67 in f32, against each input
     read and each output written once at 3.35 TB/s) and SDPA's backward
@@ -2346,8 +2366,10 @@ def flash_bwd_times() -> None:
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
         tag, size = ("bf16", 2) if bf16 else ("f32", 4)
+        shapes = GRAD_SHAPES + (GEMMA2_GRAD_SHAPES + [PALIGEMMA_GRAD_SHAPE]
+                                if bf16 else [])
         for i, (name, B, H, KV, S, T, D, causal, window,
-                softcap) in enumerate(GRAD_SHAPES):
+                softcap) in enumerate(shapes):
             g = torch.Generator(device="cuda").manual_seed(SEED + 970 + i)
             q, k, v, do = (torch.randn(B * heads, n, D, generator=g,
                                        device="cuda").to(dtype)
@@ -2754,8 +2776,29 @@ GRAD_SHAPES = [
     ("zamba2_D80_4x1024", 4, 32, 32, 1024, 1024, 80, True, 0, 0.0),
     ("whisper_cross_S448_T1500", 4, 20, 20, 448, 1500, 64, False, 0, 0.0),
 ]
+# gemma2-2b's training shapes (phase 53's layers: 1x8192, 8 query and 4 KV
+# heads of 256, softcap 50; the global layers causal, the local ones with
+# the 4096 window, which bites past position 4096), held in bf16 only in
+# phase 34 and timed by --flash-bwd-times.
+GEMMA2_GRAD_SHAPES = [
+    ("gemma2_train_1x8192_global", 1, 8, 4, 8192, 8192, 256, True, 0, 50.0),
+    ("gemma2_train_1x8192_win4096", 1, 8, 4, 8192, 8192, 256, True, 4096,
+     50.0),
+]
+# paligemma-3b's heads (8 query heads and 1 KV head of 256, no softcap):
+# SDPA's backward (is_causal, enable_gqa) computes the same function there,
+# so --flash-bwd-times times it beside the D = 256 kernel.
+PALIGEMMA_GRAD_SHAPE = ("paligemma_4x1024", 4, 8, 1, 1024, 1024, 256, True,
+                        0, 0.0)
 # examples/train_lm_torch.py's default run, and where the failure goes.
 RESTART_STEPS, RESTART_FAIL_AT = 30, 12
+# gemma2-2b's training (phases 53-55) at Gemma 2's training context
+# (arXiv:2408.00118), where the local layers' 4096 window bites; every step
+# with remat: the plain step needs more than the card's 80 GB.  Its f32 twin
+# takes one local and one global layer at a length past the window.
+GEMMA2_TRAIN_CONFIG = "gemma2-2b"
+GEMMA2_TRAIN_ROWS, GEMMA2_TRAIN_SEQ = 1, 8192
+GEMMA2_TWIN_LAYERS, GEMMA2_TWIN_SEQ = 2, 4608
 
 
 def flash_grad_check(seed: int) -> list[dict]:
@@ -2763,9 +2806,9 @@ def flash_grad_check(seed: int) -> list[dict]:
     inside the ``FlashAttention`` autograd function, whose backward launches
     the backward kernel of the dtype's route) against autograd of the plain
     attention in f32 on the same values, at every shape of GRAD_SHAPES in
-    bf16 and in f32.  Each shape runs twice: the two gradients bit-equal,
-    two forward and two backward launches, each on its dtype's route (the
-    backward's by dtype and head dim), and no call of the plain
+    bf16 and in f32 and at GEMMA2_GRAD_SHAPES in bf16.  Each shape runs
+    twice: the two gradients bit-equal, two forward and two backward
+    launches, each on its dtype's route, and no call of the plain
     gradient."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import backward_route
@@ -2775,9 +2818,12 @@ def flash_grad_check(seed: int) -> list[dict]:
           f"{FLASH_RTOL[torch.bfloat16]}*|ref| + {FLASH_ATOL} (half a bf16 "
           f"ulp)")
     rows = []
-    for i, (name, B, H, KV, S, T, D, causal, window,
-            softcap) in enumerate(GRAD_SHAPES):
-        for dtype in (torch.bfloat16, torch.float32):
+    cases = ([(shape, (torch.bfloat16, torch.float32))
+              for shape in GRAD_SHAPES]
+             + [(shape, (torch.bfloat16,)) for shape in GEMMA2_GRAD_SHAPES])
+    for i, ((name, B, H, KV, S, T, D, causal, window,
+             softcap), dtypes) in enumerate(cases):
+        for dtype in dtypes:
             tag = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
             g = torch.Generator(device="cuda").manual_seed(seed + i)
             q, k, v = (torch.randn(B, n, heads, D, generator=g,
@@ -2864,15 +2910,18 @@ def step_launches(expect: dict[str, int], remat: bool) -> dict[str, int]:
 
 
 def train_path(smi: str, cfg, rows: int, seq: int, expect: dict[str, int],
-               remat: bool = False, n_steps: int = TRAIN_STEPS) -> dict:
-    """Phases 35, 41 and 44: ``cfg`` at full width and depth in bf16 takes
-    ``n_steps`` steps of ``make_train_step`` at ``rows`` x ``seq`` and one
-    more with remat (with ``remat``, for a config whose plain step does not
-    fit on the card, every step and the gradient take it): each step
-    exactly ``expect`` launches of each kernel (``step_launches``), flash on
-    its dtype's route; loss and grad_norm finite; every leaf changes, or
-    its last update was under half a bf16 ulp of every weight; every leaf
-    gets a gradient of nonzero finite norm."""
+               remat: bool = False, n_steps: int = TRAIN_STEPS,
+               params: dict | None = None) -> dict:
+    """Phases 35, 41, 44 and 53: ``cfg`` at full width and depth in bf16
+    takes ``n_steps`` steps of ``make_train_step`` at ``rows`` x ``seq``
+    and one more with remat (with ``remat``, for a config whose plain step
+    does not fit on the card, every step and the gradient take it): each
+    step exactly ``expect`` launches of each kernel (``step_launches``),
+    flash on its dtype's route; loss and grad_norm finite; every leaf
+    changes, or its last update was under half a bf16 ulp of every weight;
+    every leaf gets a gradient of nonzero finite norm.  ``params``, a tree
+    of host tensors with the values ``model.init`` draws from SEED (an
+    earlier phase's, copied off the card), takes the place of the draw."""
     from repro_torch import tree
     from repro_torch.data.pipeline import batch_for_step
     from repro_torch.models.api import param_count
@@ -2882,18 +2931,23 @@ def train_path(smi: str, cfg, rows: int, seq: int, expect: dict[str, int],
     ts = dataclasses.replace(ts, remat=remat)
     route = flash_route(cfg) if expect.get("flash_attention") else None
     t0 = time.perf_counter()
-    lm = model.init(seed=SEED)
+    if params is None:
+        lm, drawn = model.init(seed=SEED), "init from seed"
+        before = [p.detach().to("cpu", copy=True)
+                  for p in tree.leaves(lm.params)]
+    else:
+        lm, drawn = model.bind(params), "an earlier phase's draw from seed"
+        before = tree.leaves(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count(lm.params)
-    before = [p.detach().to("cpu", copy=True) for p in tree.leaves(lm.params)]
     state = init_train_state(model, lm, ts)
     check(all(a is b for a, b in zip(tree.leaves(model.bind(
         state["params"]).params), tree.leaves(lm.params))),
         "the train state does not hold the model's own tensors")
     print(f"[train] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d "
           f"{cfg.d_model}, {cfg.num_heads} heads, vocab {cfg.vocab_size}, "
-          f"{cfg.param_dtype}: {n_params} parameters; init from seed {SEED} "
+          f"{cfg.param_dtype}: {n_params} parameters; {drawn} {SEED} "
           f"in {init_s:.1f} s; AdamW lr {TRAIN_LR}, {cfg.lr_schedule} "
           f"schedule (warmup {TRAIN_WARMUP}, total {TRAIN_TOTAL}); batch "
           f"{rows}x{seq} from batch_for_step; launches a forward and "
@@ -2982,10 +3036,10 @@ def leaf_names(params: dict, prefix: str = ""):
 
 
 def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
-                  profile_tp: dict | None = None, repeats: int = 2) -> dict:
-    """Phases 38, 43 and 45, printed and not held: the step's time,
+                  profile_tp: dict | None = None) -> dict:
+    """Phases 38, 43, 45 and 54, printed and not held: the step's time,
     tokens/s and its share of the 6·N·tokens FLOPs at 989 TFLOP/s;
-    forward, backward and optimizer apart (each the mean of ``repeats``);
+    forward, backward and optimizer apart (one of each);
     one step under torch.profiler (the top kernels, the share of device
     time of each kernel named by ``marks`` (label -> substrings of device
     kernel names), the idle share), of ``profile_tp``'s model where
@@ -3003,14 +3057,11 @@ def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
         return cross_entropy(logits, batch["labels"]) + aux
     step_fn = make_train_step(model, ts)
     tokens = tp["rows"] * tp["seq"]
-    secs = []
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = step_fn(state, batch)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    step_ms = statistics.mean(secs) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
     remat_fn = make_train_step(model, dataclasses.replace(ts, remat=True))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3021,38 +3072,34 @@ def train_timings(tp: dict, smi: str, marks: dict[str, tuple[str, ...]],
     mfu = model_flops / (step_ms / 1e3) / PEAK_BF16_OPS
     schedule = make_schedule(cfg.lr_schedule, warmup=ts.schedule_warmup,
                              total=ts.schedule_total_steps)
-    parts = {"forward": [], "backward": [], "optimizer": []}
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = loss_fn(state["params"])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        leaves = tree.leaves(state["params"])
-        grads = tree.unflatten(state["params"], list(
-            torch.autograd.grad(loss, leaves)))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        state["params"], state["opt"], _ = adamw_update(
-            ts.opt, state["params"], grads, state["opt"],
-            schedule(state["opt"]["step"] + 1))
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        del loss, grads
-        for k, a, b in (("forward", t0, t1), ("backward", t1, t2),
-                        ("optimizer", t2, t3)):
-            parts[k].append((b - a) * 1e3)
-    parts_ms = {k: statistics.mean(v) for k, v in parts.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn(state["params"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    leaves = tree.leaves(state["params"])
+    grads = tree.unflatten(state["params"], list(
+        torch.autograd.grad(loss, leaves)))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state["params"], state["opt"], _ = adamw_update(
+        ts.opt, state["params"], grads, state["opt"],
+        schedule(state["opt"]["step"] + 1))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del loss, grads
+    parts_ms = {"forward": (t1 - t0) * 1e3, "backward": (t2 - t1) * 1e3,
+                "optimizer": (t3 - t2) * 1e3}
     # AdamW must read p and g (bf16) and m and v (f32) and write p, m, v:
     # 22 bytes a parameter
     opt_bound_ms = 22 * tp["params"] / PEAK_BYTES * 1e3
     print(f"[time] {cfg.name} train step {tp['rows']}x{tp['seq']}, {smi}: "
-          f"{step_ms:.1f} ms (host clock around a synchronised step, mean of "
-          f"{repeats}), {tokens / step_ms * 1e3:.0f} tokens/s; 6*N*tokens = "
+          f"{step_ms:.1f} ms (host clock around a synchronised step), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s; 6*N*tokens = "
           f"{model_flops:.3e} FLOP, {mfu:.4f} of {PEAK_BF16_OPS / 1e12:.0f} "
           f"TFLOP/s; forward {parts_ms['forward']:.1f} ms, backward "
           f"{parts_ms['backward']:.1f} ms, optimizer "
-          f"{parts_ms['optimizer']:.1f} ms (mean of {repeats} each; its bound "
+          f"{parts_ms['optimizer']:.1f} ms (one each; its bound "
           f"{opt_bound_ms:.1f} ms, 22 bytes a parameter); with remat "
           f"{remat_ms:.1f} ms (one step, after its first call)"
           + (" (every step here takes remat)" if ts.remat else ""))
@@ -3377,10 +3424,14 @@ def restart_path() -> dict:
 
 HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ = 4, 1024
 XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ = 4, 512
-# xlstm-1.3b's steps before the remat step, and its timings' repeats: each
-# step is ~10 s of the sLSTM's host loop (PERF.md §5), so one of each keeps
-# the script within its limit on a slower host.
+# xlstm-1.3b's steps before the remat step: each step is seconds of the
+# sLSTM's host loop (PERF.md §5), so one keeps the script within its limit
+# on a slower host.
 XLSTM_TRAIN_STEPS = 1
+# xlstm-1.3b's training depth: two of its twelve units at full width (each
+# unit's sLSTM loops over the 512 steps on the host, so the step's time
+# grows with the depth); every other check of the path stays.
+XLSTM_TRAIN_LAYERS = 8
 HYBRID_TWIN_LAYERS = 6     # one unit: five Mamba2 layers and an attention
 XLSTM_TWIN_LAYERS = 4      # one unit: three mLSTM layers and an sLSTM
 # The twins' rows: under ops.plain() autograd keeps every step's state of
@@ -3669,8 +3720,9 @@ XLSTM_MARKS = {"mlstm_scan forward": DEVICE_KERNELS["mlstm_scan"],
 
 def recurrent_training_paths(smi: str) -> dict:
     """Phases 39-45: the scans' backward kernels against plain, then
-    zamba2-2.7b and xlstm-1.3b each at full width and depth taking train
-    steps, its f32 twin against ``ops.plain()``, and its timings."""
+    zamba2-2.7b at full width and depth and xlstm-1.3b at full width cut
+    to XLSTM_TRAIN_LAYERS taking train steps, each one's f32 twin against
+    ``ops.plain()``, and their timings."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import mlstm_scan as ML
@@ -3719,10 +3771,11 @@ def recurrent_training_paths(smi: str) -> dict:
                                           mamba_scan_bwd=t_units * t_k))
     phase_time("39-43")
 
-    units, k = xlstm_units(xcfg)
+    x_train = dataclasses.replace(xcfg, num_layers=XLSTM_TRAIN_LAYERS)
+    units, k = xlstm_units(x_train)
     x_expect = {"mlstm_scan": units * k, "mlstm_scan_bwd": units * k}
-    xtp = train_path(smi, xcfg, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ, x_expect,
-                     n_steps=XLSTM_TRAIN_STEPS)
+    xtp = train_path(smi, x_train, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ,
+                     x_expect, n_steps=XLSTM_TRAIN_STEPS)
     # The profile takes one unit at full width: a step of all twelve
     # records ~10^6 events, minutes for the profiler to read.
     ucfg = dataclasses.replace(xcfg, name=f"{xcfg.name}-one-unit",
@@ -3730,8 +3783,7 @@ def recurrent_training_paths(smi: str) -> dict:
     umodel, uts = train_setup(ucfg)
     utp = {"cfg": ucfg, "model": umodel, "ts": uts, "batch": xtp["batch"],
            "state": init_train_state(umodel, umodel.init(seed=SEED), uts)}
-    x_times = train_timings(xtp, smi, XLSTM_MARKS, profile_tp=utp,
-                            repeats=XLSTM_TRAIN_STEPS)
+    x_times = train_timings(xtp, smi, XLSTM_MARKS, profile_tp=utp)
     x_record = {**xtp["record"], "launches_per_step": x_expect,
                 "timings": x_times}
     del xtp, utp, umodel
@@ -4292,13 +4344,112 @@ def launch_paths(smi: str) -> dict:
             "plain_step_ms": plain_ms}
 
 
-def training_paths(smi: str) -> dict:
-    """Phases 34-45: the flash gradient, minicpm-2b's training at full
+def gemma2_backward_timings(smi: str) -> dict:
+    """Phase 54's kernel lines: the bf16 backward kernels alone at each of
+    gemma2-2b's two training layers (GEMMA2_GRAD_SHAPES; 13 of each a
+    step), CUDA events, against their bound (10·D a pair at 989 TFLOP/s
+    against each input read and output written once) and the plain f32
+    gradient (``ref.attention_ref_grad``, the yardstick the kernels
+    replaced); no PyTorch call computes the softcapped function."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    plain_grad = getattr(ref.attention_ref_grad, "plain",
+                         ref.attention_ref_grad)
+    layers = get_config(GEMMA2_TRAIN_CONFIG).num_layers // 2
+    rows = []
+    for i, (name, B, H, KV, S, T, D, causal, window,
+            softcap) in enumerate(GEMMA2_GRAD_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 980 + i)
+        q, k, v, do = (torch.randn(B * heads, n, D, generator=g,
+                                   device="cuda").bfloat16()
+                       for heads, n in ((H, S), (KV, T), (KV, T), (H, S)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out, lse, lo = FA.flash_attention_kernel(q, k, v, **kw, stats=True)
+        ms = cuda_ms(lambda: FA.flash_attention_backward_kernel(
+            q, k, v, out, lse, do, out_lo=lo, **kw), iters=5, warmup=1)
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        plain_ms = cuda_ms(lambda: plain_grad(qf, kf, vf, dof, **kw),
+                           iters=1, warmup=1)
+        bound = roofline(10 * D * B * H * flash_pairs(S, T, causal, window),
+                         2 * D * (5 * B * H * S + 4 * B * KV * T)
+                         + 4 * B * H * S, PEAK_BF16_OPS)
+        print(f"[time] the bf16 backward kernels at {name} ({B}x{S}, {H}/"
+              f"{KV} heads of {D}, window {window}, softcap {softcap}), "
+              f"{smi}: {ms:.4f} ms (bound {bound['bound_ms']:.4f}, "
+              f"{bound['bound_by']}, 10*D a pair; "
+              f"{bound['ops'] / ms / 1e9:.1f} TFLOP/s of the 10*D); the "
+              f"plain f32 backward {plain_ms:.4f} ms; x{layers} a step")
+        rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound["bound_ms"],
+                     "bound_by": bound["bound_by"], "ops": bound["ops"]})
+        del q, k, v, do, out, lse, lo, qf, kf, vf, dof
+    torch.cuda.empty_cache()
+    return {"rows": rows, **{key: layers * sum(r[key] for r in rows)
+                             for key in ("ms", "plain_ms", "bound_ms")}}
+
+
+def plain_step_memory(tp: dict) -> dict:
+    """Why phase 53 takes remat: the gradient of ``tp``'s state and batch
+    without it, printed with the peak device memory it reached or the
+    allocation that failed (the card's 80 GB run out)."""
+    from repro_torch.train.trainer import make_grad_fn
+    ts = dataclasses.replace(tp["ts"], remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fits, why = True, ""
+    try:
+        make_grad_fn(tp["model"], ts)(tp["state"]["params"], tp["batch"])
+    except torch.OutOfMemoryError as e:
+        fits, why = False, str(e).split(". ")[0]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    print(f"[train] {tp['cfg'].name} gradient without remat at "
+          f"{tp['rows']}x{tp['seq']}: "
+          + ("fits" if fits else f"out of memory ({why})")
+          + f", {peak:.2f} GB reached (torch.cuda.max_memory_allocated)")
+    return {"fits": fits, "peak_gb": peak}
+
+
+def gemma2_training_paths(smi: str, params: dict) -> dict:
+    """Phases 53-55: gemma2-2b's training at full width and depth on
+    phase 8's weights (``params``, kept on the host), every step with
+    remat; its timings and its backward kernels at the training layers;
+    its f32 twin."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(GEMMA2_TRAIN_CONFIG),
+                              lr_schedule="wsd")
+    tp = train_path(smi, cfg, GEMMA2_TRAIN_ROWS, GEMMA2_TRAIN_SEQ,
+                    train_expect(cfg.num_layers), remat=True, params=params)
+    tp["record"]["plain_step"] = plain_step_memory(tp)
+    times = train_timings(tp, smi, FLASH_MARKS)
+    times["backward_kernels"] = gemma2_backward_timings(smi)
+    record = {**tp["record"], "timings": times}
+    del tp
+    torch.cuda.empty_cache()
+    twin_cfg = get_config(GEMMA2_TRAIN_CONFIG)
+    print(f"[train] {twin_cfg.name} f32 twin: layer 0 local (window "
+          f"{twin_cfg.window_for_layer(0)}), layer 1 global; at 1x"
+          f"{GEMMA2_TWIN_SEQ} the window leaves out keys of the rows past "
+          f"{twin_cfg.window_for_layer(0)}")
+    twin = train_twin_path(GEMMA2_TRAIN_CONFIG, GEMMA2_TWIN_LAYERS, 1,
+                           GEMMA2_TWIN_SEQ,
+                           train_expect(GEMMA2_TWIN_LAYERS))
+    return {"train": record, "twin": twin}
+
+
+def training_paths(smi: str, gemma2_params: dict) -> dict:
+    """Phases 34-45 and 53-55: the flash gradient, gemma2-2b's training
+    (phases 53-55, on phase 8's weights), minicpm-2b's training at full
     width and depth, its f32 twin, the restart, and the timings; then the
     scans' backward kernels and the hybrid and xLSTM training paths."""
     from repro_torch.configs import get_config
     grad_rows = flash_grad_check(SEED + 900)
     phase_time("34")
+    gemma2 = gemma2_training_paths(smi, gemma2_params)
+    del gemma2_params
+    phase_time("53-55")
     cfg = get_config(TRAIN_CONFIG)
     tp = train_path(smi, cfg, TRAIN_ROWS, TRAIN_SEQ,
                     train_expect(cfg.num_layers))
@@ -4315,7 +4466,7 @@ def training_paths(smi: str) -> dict:
     phase_time("36-37")
     recurrent = recurrent_training_paths(smi)
     return {"grad_rows": grad_rows, "train": record, "twin": twin,
-            "restart": restart, **recurrent}
+            "restart": restart, GEMMA2_TRAIN_CONFIG: gemma2, **recurrent}
 
 
 T0 = time.perf_counter()
@@ -4386,6 +4537,11 @@ def main() -> int:
     flash_timings(flash_rows, cfg, FLASH_SHAPES, SEED + 200)
     lm_times = lm_timings(cfg, lm, PREFILL_S)
     phase_time("7-10")
+    # phase 8's weights, kept on the host for gemma2-2b's training (phase
+    # 53) rather than drawn again
+    from repro_torch import tree
+    gemma2_params = tree.map(lambda t: t.detach().to("cpu"),
+                             lm["net"].params)
     del lm["model"], lm["net"], lm["batch"]
     torch.cuda.empty_cache()
 
@@ -4491,7 +4647,8 @@ def main() -> int:
     phase_time("28-33")
     wcfg, wlm, w_times = w["wcfg"], w["wlm"], w["w_times"]
     w_flash_rows = w["w_flash_rows"]
-    tr = training_paths(smi)
+    tr = training_paths(smi, gemma2_params)
+    del gemma2_params
     tt = tr["train"]["timings"]
     la = launch_paths(smi)
     phase_time("46-50")
@@ -4539,6 +4696,8 @@ def main() -> int:
         return {k: n * times[src] for k, src in keys.items()}
 
     train_layers = get_config(TRAIN_CONFIG).num_layers
+    g2 = tr[GEMMA2_TRAIN_CONFIG]
+    g2_bwd = g2["train"]["timings"]["backward_kernels"]
     h_flash = totals(h_flash_rows)
     m_flash, p_flash = totals(m_flash_rows), totals(p_flash_rows)
     w_flash = totals(w_flash_rows)
@@ -4663,16 +4822,33 @@ def main() -> int:
         "bound_by": tt["attention"]["backward_bound_by"],
         "bound_is": "10*D operations a visible pair (five products) at 989 "
                     "TFLOP/s; the kernel does 16*D (S and dP once, P and dS "
-                    "as hi + lo bf16)",
+                    "as hi + lo bf16), 20*D at D = 128 and 256",
         "library_is": "the backward of F.scaled_dot_product_attention, "
                       "is_causal (torch.autograd.grad on its graph)",
         "launches_by_route": "every bf16 backward on bwd_tc_bf16 (wgmma, "
-                             "D <= 128), at D = 256 on bwd_mma_bf16 "
-                             "(flash_attention_bwd_mma.cu, phase 34 only), "
-                             "every f32 one on bwd_simt_f32, held per path",
+                             "every head dim), every f32 one on "
+                             "bwd_simt_f32, held per path",
         "times_are": f"one layer's backward (CUDA events) x{train_layers}: "
                      f"the launches of one {TRAIN_CONFIG} "
                      f"{TRAIN_ROWS}x{TRAIN_SEQ} bf16 train step",
+        GEMMA2_TRAIN_CONFIG: {
+            "config": f"{GEMMA2_TRAIN_CONFIG} train step, "
+                      f"{GEMMA2_TRAIN_ROWS}x{GEMMA2_TRAIN_SEQ}, bf16, remat",
+            "launches": g2["train"]["steps"][0]["launches"][
+                "flash_attention_bwd"],
+            "max_abs_err": max(r["max_abs_err"] for r in tr["grad_rows"]
+                               if r["D"] == 256 and r["route"] ==
+                               "wgmma_bf16"),
+            "limit_used": max(r["limit_used"] for r in tr["grad_rows"]
+                              if r["D"] == 256 and r["route"] ==
+                              "wgmma_bf16"),
+            **{key: g2_bwd[key] for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": g2_bwd["rows"][0]["bound_by"],
+            "library_ms": None,
+            "library_is": "none: SDPA has no softcap, so computes another "
+                          "function at gemma2's layers",
+            "times_are": "one launch at each training layer (CUDA events) "
+                         "x13 each: the launches of one train step"},
     }, {
         "name": "flash_attention_bwd_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4754,7 +4930,9 @@ def main() -> int:
                    "gradient",
         "times_are": f"sums over the {x_units * x_per_unit} launches of one "
                      f"{XLSTM_TRAIN_ROWS}x{XLSTM_TRAIN_SEQ} {xcfg.name} "
-                     f"train step; per shape in chip_smoke.json",
+                     f"train step at full depth; launches counts those of "
+                     f"phase 44's step at {XLSTM_TRAIN_LAYERS} layers; per "
+                     f"shape in chip_smoke.json",
     }]}
 
     record = {"card": smi, "torch": torch.__version__,
@@ -4807,12 +4985,17 @@ def main() -> int:
           f"{tt['step_ms']:.1f} ms ({tt['tokens_per_s']:.0f} tokens/s, "
           f"{tt['mfu']:.3f} of peak by 6*N*tokens; the flash backward "
           f"{by_name['flash_attention_bwd']['ms']:.1f} ms of it); "
+          f"{GEMMA2_TRAIN_CONFIG} train step {GEMMA2_TRAIN_ROWS}x"
+          f"{GEMMA2_TRAIN_SEQ} (remat) {g2['train']['timings']['step_ms']:.1f}"
+          f" ms ({g2['train']['timings']['tokens_per_s']:.0f} tokens/s, the "
+          f"flash backward {g2_bwd['ms']:.1f} ms of it); "
           + "; ".join(
               f"{n} train step {r}x{q} {tr[n]['timings']['step_ms']:.1f} ms "
               f"({tr[n]['timings']['tokens_per_s']:.0f} tokens/s, "
               f"{tr[n]['timings']['mfu']:.4f} of peak)"
               for n, r, q in ((hcfg.name, HYBRID_TRAIN_ROWS, HYBRID_TRAIN_SEQ),
                               (xcfg.name, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ)))
+          + f" ({XLSTM_TRAIN_LAYERS} layers)"
           + f"; launcher step {la['launcher_step_ms']:.1f} ms (plain "
           f"trainer {la['plain_step_ms']:.1f} ms); {MOE_LAUNCH_CONFIG} "
           f"launcher step " + ", ".join(

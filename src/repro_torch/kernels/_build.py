@@ -40,12 +40,9 @@ SIGNATURES = {
     "flash_attention_bwd_f32": (_int, [_ptr] * 12 + [_int] * 7
                                 + [ctypes.c_float, _ptr]),
     "flash_attention_bwd_f32_smem_bytes": (_int, [_int]),
-    "flash_attention_bwd_sm90_bf16": (_int, [_ptr] * 14 + [_int] * 7
+    "flash_attention_bwd_sm90_bf16": (_int, [_ptr] * 15 + [_int] * 7
                                       + [ctypes.c_float, _ptr]),
     "flash_attention_bwd_sm90_smem_bytes": (_int, [_int]),
-    "flash_attention_bwd_mma_bf16": (_int, [_ptr] * 11 + [_int] * 7
-                                     + [ctypes.c_float, _ptr]),
-    "flash_attention_bwd_mma_smem_bytes": (_int, [_int, _int]),
     "flash_attention_sm90_error_string": (ctypes.c_char_p, [_int]),
     "flash_attention_sm90_smem_bytes": (_int, [_int]),
     "mamba_scan_sm90_f32": (_int, [_ptr] * 6 + [_int] * 9 + [_ptr]),

@@ -1,11 +1,10 @@
 // Flash attention backward in bf16 for Hopper (sm_90a): tensor cores
 // through wgmma, TMA-fed tiles, one producer and two consumer warpgroups.
 // dq, dk and dv of the forward in flash_attention_sm90.cu for the output
-// gradient dO, at head dims 16 to 128.  GQA, causal (top-left), optional
-// sliding window and logit softcap; bf16 in and out, f32 statistics and
-// accumulation.  D = 256 goes to the mma.sync kernel in
-// flash_attention_bwd_mma.cu, f32 inputs to the CUDA-core backward in
-// flash_attention_bwd.cu.
+// gradient dO, at every head dim the forward takes (16 to 256).  GQA,
+// causal (top-left), optional sliding window and logit softcap; bf16 in
+// and out, f32 statistics and accumulation.  f32 inputs go to the
+// CUDA-core backward in flash_attention_bwd.cu.
 //
 // The Pallas TPU kernel src/repro/kernels/flash_attention.py:84
 // (flash_attention_kernel) has no backward: the JAX package trains through
@@ -53,11 +52,11 @@
 //       into the query tile's f32 sum in global memory with TMA bulk
 //       reductions, part 0 and then part 1 (the first tile stores part
 //       0): no consumer waits on global memory or on the other.  A
-//       key tile is 128 keys, 64 a consumer, up to D = 96; at D = 128, where
-//       dK and dV of 64 keys would take 128 of a thread's registers, 64
-//       keys that both consumers share, each owning 64 columns of D (S^T
-//       and dP^T computed by both: 20*D a pair there), their dQ parts
-//       the two column halves of one tile;
+//       key tile is 128 keys, 64 a consumer, up to D = 96; at D = 128 and
+//       256, where dK and dV of 64 keys would take D of a thread's
+//       registers, 64 keys that both consumers share, each owning D / 2
+//       columns of D (S^T and dP^T computed by both: 20*D a pair there),
+//       their dQ parts the two column halves of one tile;
 //   (c) flash_bwd_dq_convert_kernel: dq = bf16 of the f32 sums, one
 //       rounding, a 64-row tile a block (a 64-row tile's sum is finished
 //       only when its last key tile has added, so the rounding waits for
@@ -75,10 +74,16 @@
 // later in the sequence, reaches a query tile first: on causal and
 // windowed shapes the writers rarely wait.  Non-causal shapes, where every
 // key tile sees every query tile, wait about a step per key tile
-// (ROADMAP).  The f32 sums are stored per tile in the consumers' fragment
-// order, so that the buffers are written without bank conflicts and copied
-// whole; steps of one CTA are distinct query tiles, so the writers (one a
-// buffer) need no order among themselves.
+// (ROADMAP).  At D = 256 the order is the other way round (Tiles::
+// LOWEST_FIRST): the lowest key tile adds first, the grid launches the
+// lowest tiles first within a head, and each tile walks its query tiles
+// downward with the group's heads inner, so every tile reaches a query
+// tile at the same step as the tiles below it: a CTA waits only on CTAs
+// launched before it, and the longest CTAs of a causal shape start first
+// rather than last.  The f32 sums are stored per tile in the consumers'
+// fragment order, so that the buffers are written without bank conflicts
+// and copied whole; steps of one CTA are distinct query tiles, so the
+// writers (one a buffer) need no order among themselves.
 //
 // The design, on Hopper:
 //   * the producer's loader thread loads K and V once (TMA, 3-d maps over
@@ -106,11 +111,28 @@
 // Shared memory: K and V (2*BK*D*2 bytes), two or three stages of Q, dO
 // (2*64*D*2) and their stats, dS^T hi and lo of both consumers (32 KB),
 // two or three dQ buffers: 215,656 B at D = 64, 231,496 at D = 96.
+//
+// D = 256 (gemma2-2b, paligemma-3b).  Each consumer holds dK and dV of the
+// 64 keys for its 128 columns: 128 f32 a thread, beside the hi and lo
+// fragments of P^T and dS^T (64) in the key products and the dQ part (64)
+// in its own batch, within the 232 registers setmaxnreg gives it.  K and V
+// take 64 KB, one stage of Q and dO 64 KB, the dS^T tiles 32 KB and the
+// one dQ buffer 64 KB: 230,952 B, so one stage and one buffer.  The
+// loader refills the stage while the consumers run the dQ product, and
+// the writer frees the buffer as soon as its bulk reduction has read it
+// (wait_group.read), before waiting for the reduction to complete.  dK's
+// products read dS^T from its shared tiles (the dQ part's A) rather than
+// from fragments, dK and dV leave their registers for an f32 sum every 32
+// steps (Tiles::FLUSH), and the dQ order runs lowest key tile first
+// (Tiles::LOWEST_FIRST).  It does 20*D a pair against the bound's 10*D.
+//
 // What it leaves on the table: P and dS's split costs 1.6x the products of
 // one bf16 P and dS; S^T, dP^T and the dQ part read both operands from
-// shared memory at N = 64, near its rate; D = 128 computes S^T and dP^T
-// twice; GQA shapes with few KV heads and short T give few CTAs (the
-// group's heads are walked in one CTA).
+// shared memory at N = 64, near its rate; D = 128 and 256 compute S^T and
+// dP^T twice; D = 256 has one stage of Q and dO; GQA shapes with few KV
+// heads and short T give few CTAs (the group's heads are walked in one
+// CTA); below D = 256 causal shapes launch their longest CTAs (the lowest
+// key tiles) last, as the dQ order needs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -141,10 +163,10 @@ constexpr int SCHED_BAR = 3;
 template <int D>
 struct Tiles {
   // Below D = 128 each consumer owns 64 of the CTA's 128 keys and all of
-  // D; at D = 128, where dK and dV of 64 keys would take 128 of a
-  // thread's registers, the two share the CTA's 64 keys and each owns 64
-  // columns of D (both compute S^T and dP^T: 20*D a pair there).
-  static constexpr bool SPLIT = D == 128;
+  // D; at D = 128 and 256, where dK and dV of 64 keys would take D of a
+  // thread's registers, the two share the CTA's 64 keys and each owns D /
+  // 2 columns of D (both compute S^T and dP^T: 20*D a pair there).
+  static constexpr bool SPLIT = D >= 128;
   static constexpr int BK = SPLIT ? 64 : 128;     // keys a CTA owns
   static constexpr int DW = SPLIT ? D / 2 : D;    // columns a consumer owns
   static constexpr int N64 = D / 64;
@@ -155,11 +177,12 @@ struct Tiles {
   static constexpr int DS_BYTES = 64 * BQ * 2;    // dS^T, hi or lo
   static constexpr int DQ_BYTES = BQ * D * 4;     // a step's dQ part
   // A dQ buffer: both consumers' parts (summed by the writer), or at D =
-  // 128 their column halves of one part.  As many buffers, one writer
-  // warp each (the producer's warps 1 to 3), as shared memory holds.
+  // 128 and 256 their column halves of one part.  As many buffers, one
+  // writer warp each (the producer's warps 1 to 3), as shared memory
+  // holds: at D = 256 one buffer and one stage.
   static constexpr int BUF_BYTES = SPLIT ? DQ_BYTES : 2 * DQ_BYTES;
-  static constexpr int NBUF = (D == 80 || D == 96) ? 2 : 3;
-  static constexpr int STAGES = D <= 80 ? 3 : 2;    // the Q, dO ring
+  static constexpr int NBUF = D == 256 ? 1 : (D == 80 || D == 96) ? 2 : 3;
+  static constexpr int STAGES = D == 256 ? 1 : D <= 80 ? 3 : 2;  // Q, dO
   static constexpr int STATS_BYTES = 2 * BQ * 4;  // lse*log2e, D_i
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = KV_BYTES;
@@ -176,7 +199,30 @@ struct Tiles {
   // dV, dK and the dQ part in one batch of products where the registers
   // hold them all (dK, dV, the fragments of P and dS, the dQ part).
   static constexpr bool ONE_BATCH = DW <= 80;
-  static_assert(D % 16 == 0 && D <= 128 &&
+  // At D = 256 dK's products read dS^T from its shared tiles, which the
+  // dQ part reads too, rather than from fragments: dK and dV (128 f32 a
+  // thread) leave no room for both P's and dS's.
+  static constexpr bool DK_FROM_SMEM = D == 256;
+  // At D = 256 dK and dV leave their registers for an f32 sum in global
+  // memory every FLUSH steps (kv_acc, one thread's floats each, added in
+  // round-to-nearest).  A register that takes a whole walk (256 steps,
+  // 2048 products at gemma2's 8192 keys) drifted past the half-ulp
+  // limit's 2e-5 slack on the card, where P and dS's split, summed
+  // exactly, stays within it (flash_bwd_precision.py); 32 steps' runs
+  // keep the kernel's error at the split's.
+  static constexpr int FLUSH = D == 256 ? 32 : 0;
+  // The dQ order.  Below D = 256 the highest key tile adds first: the grid
+  // launches the highest tiles, the shortest CTAs on causal shapes, first
+  // and each CTA walks its query tiles upward, so the higher tile reaches
+  // a query tile first.  At D = 256, where the steps are twice as long,
+  // the lowest key tile adds first: the grid launches the longest CTAs
+  // first (a causal 8192's lowest tile walks 128 query tiles, its highest
+  // one), which would otherwise run last, alone, and each CTA walks its
+  // tiles downward, the group's heads in turn on each, so that every CTA
+  // reaches a query tile at the same step as the tiles below it, which
+  // were launched before it.
+  static constexpr bool LOWEST_FIRST = D == 256;
+  static_assert(D % 16 == 0 && (D <= 128 || D == 256) &&
                 (TAIL == 0 || TAIL == 16 || TAIL == 32), "head dim");
   static_assert(SMEM <= 232448, "shared memory");
 };
@@ -272,9 +318,12 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 }
 
 // `bytes` contiguous bytes of shared memory stored to (or, with `add`,
-// added in f32 to) global memory, as one bulk group; waits until done.
+// added in f32 to) global memory, as one bulk group; waits until done, or
+// with `read_only` only until the shared memory has been read (then
+// bulk_wait_done waits for the rest).
 __device__ __forceinline__ void bulk_store_f32(void* dst, uint32_t src,
-                                               uint32_t bytes, bool add) {
+                                               uint32_t bytes, bool add,
+                                               bool read_only = false) {
   if (add) {
     asm volatile(
         "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
@@ -287,6 +336,13 @@ __device__ __forceinline__ void bulk_store_f32(void* dst, uint32_t src,
         "r"(src), "r"(bytes) : "memory");
   }
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  if (read_only) {
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+__device__ __forceinline__ void bulk_wait_done() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
@@ -370,6 +426,27 @@ __device__ __forceinline__ void wgmma_ss_tt_n64(float* d, uint64_t a_desc,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// d[0..32) += A·B for A in shared memory K-major and B in shared memory
+// MN-major (B's N contiguous: its descriptor's transpose bit set).
+__device__ __forceinline__ void wgmma_ss_kn_n64(float* d, uint64_t a_desc,
+                                                uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(1));
 }
 
 // d[0..16) (+)= A·B, both MN-major in shared memory.
@@ -503,9 +580,13 @@ __device__ __forceinline__ void start_key_grad(float* acc,
 #pragma unroll
   for (int t = 0; t < BQ / 16; ++t) {
     if constexpr (C::SPLIT) {
-      const uint64_t b = mn_major(tile + BQ * 128 * wg + t * 2048, 64);
-      wgmma_rs_n64(acc, hi[t], b);
-      wgmma_rs_n64(acc, lo[t], b);
+#pragma unroll
+      for (int c = 0; c < (C::DW / 64); ++c) {
+        const uint64_t b = mn_major(
+            tile + BQ * 128 * ((C::DW / 64) * wg + c) + t * 2048, 64);
+        wgmma_rs_n64(acc + 32 * c, hi[t], b);
+        wgmma_rs_n64(acc + 32 * c, lo[t], b);
+      }
     } else {
 #pragma unroll
       for (int c = 0; c < C::N64; ++c) {
@@ -529,6 +610,30 @@ __device__ __forceinline__ void start_key_grad(float* acc,
   }
 }
 
+// acc += dS^T.Q for dS^T (64 keys by BQ queries) as hi + lo from the
+// consumer's [64 keys][BQ] shared tiles, K-major (the 16 queries of step t
+// 32 bytes into each 128-byte row), and the consumer's columns of the
+// [BQ][D] Q tile at `tile`, MN-major: per 16 queries and chunk, hi then
+// lo, as start_key_grad sums them.  Started, not waited for.
+template <int D>
+__device__ __forceinline__ void start_key_grad_smem(float* acc,
+                                                    uint32_t ds_hi,
+                                                    uint32_t ds_lo,
+                                                    uint32_t tile, int wg) {
+  using C = Tiles<D>;
+  static_assert(C::SPLIT, "the consumers split D");
+#pragma unroll
+  for (int t = 0; t < BQ / 16; ++t) {
+#pragma unroll
+    for (int c = 0; c < C::DW / 64; ++c) {
+      const uint64_t b = mn_major(
+          tile + BQ * 128 * (C::DW / 64 * wg + c) + t * 2048, 64);
+      wgmma_ss_kn_n64(acc + 32 * c, k_major(ds_hi + 32 * t, 64), b);
+      wgmma_ss_kn_n64(acc + 32 * c, k_major(ds_lo + 32 * t, 64), b);
+    }
+  }
+}
+
 // acc = dS.K over the 64 keys from row `row0` of the [BK][D] K tile at
 // `sk`, the consumer's columns: A = dS^T (hi, then lo) from the
 // consumer's [64 keys][BQ] tiles, MN-major; B = K, MN-major.  16 keys a
@@ -544,9 +649,13 @@ __device__ __forceinline__ void start_dq(float* acc, uint32_t ds_hi,
     const uint64_t al = mn_major(ds_lo + t * 2048, 64);
     const int row = row0 + 16 * t;
     if constexpr (C::SPLIT) {
-      const uint64_t b = mn_major(sk + C::BK * 128 * wg + row * 128, 64);
-      wgmma_ss_tt_n64(acc, ah, b, t > 0);
-      wgmma_ss_tt_n64(acc, al, b, 1);
+#pragma unroll
+      for (int c = 0; c < (C::DW / 64); ++c) {
+        const uint64_t b = mn_major(
+            sk + C::BK * 128 * ((C::DW / 64) * wg + c) + row * 128, 64);
+        wgmma_ss_tt_n64(acc + 32 * c, ah, b, t > 0);
+        wgmma_ss_tt_n64(acc + 32 * c, al, b, 1);
+      }
     } else {
 #pragma unroll
       for (int c = 0; c < C::N64; ++c) {
@@ -634,6 +743,32 @@ __device__ __forceinline__ void grads(float (&sc)[32], float (&dp)[32],
   }
 }
 
+// dK's and dV's registers into their f32 sums at `acc` (this thread's
+// float4 j of dK at acc[128 j], of dV at acc[128 (DW / 8 + j)]): stored by
+// the first flush, added in round-to-nearest by the later ones; the
+// registers start again from zero.
+template <int D>
+__device__ __forceinline__ void flush_key_grads(float* dk, float* dv,
+                                                float4* acc, bool add) {
+  using C = Tiles<D>;
+#pragma unroll
+  for (int j = 0; j < C::DW / 8; ++j) {
+    float4 k4 = make_float4(dk[4 * j], dk[4 * j + 1], dk[4 * j + 2],
+                            dk[4 * j + 3]);
+    float4 v4 = make_float4(dv[4 * j], dv[4 * j + 1], dv[4 * j + 2],
+                            dv[4 * j + 3]);
+    if (add) {
+      const float4 k0 = acc[j * 128], v0 = acc[(C::DW / 8 + j) * 128];
+      k4 = make_float4(k0.x + k4.x, k0.y + k4.y, k0.z + k4.z, k0.w + k4.w);
+      v4 = make_float4(v0.x + v4.x, v0.y + v4.y, v0.z + v4.z, v0.w + v4.w);
+    }
+    acc[j * 128] = k4;
+    acc[(C::DW / 8 + j) * 128] = v4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[4 * j + i] = dv[4 * j + i] = 0.f;
+  }
+}
+
 __device__ __forceinline__ bool visible(int i, int j, int S, int T,
                                         int causal, int window) {
   return (i < S) & (j < T) & (!causal | (j <= i)) &
@@ -663,6 +798,8 @@ struct Args {
   float* dq_acc;       // (BH, n_q, 64 * D): the ordered dQ sums, per
                        // tile in the consumers' fragment order
   int* counters;       // (BH, n_q): adds made to each dQ tile
+  float4* kv_acc;      // at D = 256, per CTA the consumers' dK and dV sums
+                       // of their first FLUSH-step runs, in fragment order
   bf16* dk;
   bf16* dv;
   int S, T, S_pad, n_q, n_kt, group, causal, window;
@@ -723,6 +860,17 @@ flash_bwd_prep_kernel(const bf16* __restrict__ dout,
 // after setmaxnreg, so that nothing lives across the change of registers.
 struct Walk {
   int q_lo, nq, steps;
+  // Step n's query head (of the group) and query tile: below D = 256 the
+  // heads in turn, each walking its tiles upward; at D = 256 (LOWEST_FIRST)
+  // the tiles downward, the group's heads in turn on each.
+  template <bool LOWEST_FIRST>
+  __device__ __forceinline__ int head(int n, int group) const {
+    return LOWEST_FIRST ? n % group : n / nq;
+  }
+  template <bool LOWEST_FIRST>
+  __device__ __forceinline__ int tile(int n, int group) const {
+    return LOWEST_FIRST ? q_lo + nq - 1 - n / group : q_lo + n % nq;
+  }
 };
 template <int BK>
 __device__ __forceinline__ Walk walk(const Args& a, int k0) {
@@ -745,13 +893,13 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t raw = smem_addr(smem);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint32_t sk = base + C::K_OFF, sv = base + C::V_OFF;
   const uint32_t kv_full = base + C::BAR_OFF;
   const uint32_t full = kv_full + 8, empty = full + 8 * C::STAGES;
   const uint32_t dq_full = empty + 8 * C::STAGES;
   const uint32_t dq_empty = dq_full + 8 * C::NBUF;
 
-  const int kt = a.n_kt - 1 - static_cast<int>(blockIdx.x);
+  const int kt = C::LOWEST_FIRST ? static_cast<int>(blockIdx.x)
+                                 : a.n_kt - 1 - static_cast<int>(blockIdx.x);
   const int kvh = blockIdx.y;
   const int k0 = kt * C::BK;
 
@@ -773,10 +921,11 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
   if (warp < 4) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     const Walk w = walk<C::BK>(a, k0);
-    const int q_lo = w.q_lo, nq = w.nq, steps = w.steps;
+    const int steps = w.steps;
     if (threadIdx.x == 0 && steps > 0) {
       // The loader: one thread starts every load.
       const Maps& m = a.maps;
+      const uint32_t sk = base + C::K_OFF, sv = base + C::V_OFF;
       mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
 #pragma unroll
       for (int c = 0; c < C::CHUNKS; ++c) {
@@ -787,8 +936,8 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
       }
       for (int n = 0; n < steps; ++n) {
         const int s = n % C::STAGES;
-        const int bh = kvh * a.group + n / nq;
-        const int q0 = (q_lo + n % nq) * BQ;
+        const int bh = kvh * a.group + w.head<C::LOWEST_FIRST>(n, a.group);
+        const int q0 = w.tile<C::LOWEST_FIRST>(n, a.group) * BQ;
         const uint32_t sq = base + C::Q_OFF + 2 * s * C::QT_BYTES;
         const uint32_t sdo = sq + C::QT_BYTES;
         const uint32_t st = base + C::ST_OFF + s * C::STATS_BYTES;
@@ -809,16 +958,24 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
       // Writer warp w: the dQ parts of the steps that use buffer w - 1,
       // added into the query tile's f32 sum in the tile's turn: part 0
       // (stored by the first tile), then, once that has completed, part 1
-      // (at D = 128 the buffer is one part).  Each step is its own (query
-      // head, query tile), so the writers need no order among themselves.
+      // (at D = 128 and 256 the buffer is one part).  Each step is its own
+      // (query head, query tile), so the writers need no order among
+      // themselves.
       const int b = warp - 1;
       const uint32_t buf = base + C::DQ_OFF + b * C::BUF_BYTES;
       for (int n = b; n < steps; n += C::NBUF) {
-        const int bh = kvh * a.group + n / nq;
-        const int qi = q_lo + n % nq;
-        const int q_max = min(qi * BQ + BQ - 1, a.S - 1);
-        const int kt_hi = a.causal ? min(a.n_kt, q_max / C::BK + 1) : a.n_kt;
-        const int rank = kt_hi - 1 - kt;   // highest key tile first
+        const int bh = kvh * a.group + w.head<C::LOWEST_FIRST>(n, a.group);
+        const int qi = w.tile<C::LOWEST_FIRST>(n, a.group);
+        int rank;
+        if constexpr (C::LOWEST_FIRST) {   // the lowest key tile first
+          rank = kt - (a.window > 0 ? max(0, qi * BQ - a.window + 1) / C::BK
+                                    : 0);
+        } else {                           // the highest key tile first
+          const int q_max = min(qi * BQ + BQ - 1, a.S - 1);
+          const int kt_hi =
+              a.causal ? min(a.n_kt, q_max / C::BK + 1) : a.n_kt;
+          rank = kt_hi - 1 - kt;
+        }
         int* const cnt = a.counters + static_cast<size_t>(bh) * a.n_q + qi;
         float* const dst =
             a.dq_acc + (static_cast<size_t>(bh) * a.n_q + qi) * (BQ * D);
@@ -828,12 +985,22 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
           }
           asm volatile("fence.proxy.async.global;" ::: "memory");
         }
-        bulk_store_f32(dst, buf, C::DQ_BYTES, rank > 0);
-        if constexpr (!C::SPLIT)
-          bulk_store_f32(dst, buf + C::DQ_BYTES, C::DQ_BYTES, true);
-        asm volatile("fence.proxy.async.global;" ::: "memory");
-        red_release(cnt);
-        mbar_arrive(dq_empty + 8 * b);
+        if constexpr (C::NBUF == 1) {
+          // The one buffer goes back to the consumers once read; the
+          // counter moves once the sum is complete.
+          bulk_store_f32(dst, buf, C::DQ_BYTES, rank > 0, true);
+          mbar_arrive(dq_empty + 8 * b);
+          bulk_wait_done();
+          asm volatile("fence.proxy.async.global;" ::: "memory");
+          red_release(cnt);
+        } else {
+          bulk_store_f32(dst, buf, C::DQ_BYTES, rank > 0);
+          if constexpr (!C::SPLIT)
+            bulk_store_f32(dst, buf + C::DQ_BYTES, C::DQ_BYTES, true);
+          asm volatile("fence.proxy.async.global;" ::: "memory");
+          red_release(cnt);
+          mbar_arrive(dq_empty + 8 * b);
+        }
       }
     }
   } else {
@@ -843,16 +1010,21 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
     // 4j + 2h + e is row r0 + 8h, column 8j + col0 + e.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const Walk w = walk<C::BK>(a, k0);
-    const int q_lo = w.q_lo, nq = w.nq, steps = w.steps;
+    const int steps = w.steps;
     const int wg = warp / 4 - 1;
     const int wq = warp % 4;
     const int tid = threadIdx.x % 128;
     const int r0 = 16 * wq + lane / 4, col0 = 2 * (lane % 4);
     const int row0 = C::SPLIT ? 0 : 64 * wg;   // the keys' rows in K, V
     const int kc0 = k0 + row0;
-    const int cw0 = C::SPLIT ? 64 * wg : 0;
-    const uint32_t ds_hi = base + C::DS_OFF + 2 * wg * C::DS_BYTES;
-    const uint32_t ds_lo = ds_hi + C::DS_BYTES;
+    const int cw0 = C::SPLIT ? C::DW * wg : 0;
+    // this thread's float4s of dK's and then dV's flushed sums
+    float4* const kv_acc =
+        C::FLUSH > 0
+            ? a.kv_acc +
+                  ((static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                       2 + wg) * (C::DW / 4) * 128 + tid
+            : nullptr;
 
     float dk[C::DW / 2], dv[C::DW / 2];
 #pragma unroll
@@ -861,11 +1033,19 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
     if (wg == 1) named_arrive<256>(SCHED_BAR);   // consumer 0 goes first
 
     for (int n = 0; n < steps; ++n) {
+      // At D = 256 the tiles' addresses are made anew each step: with one
+      // stage every wgmma descriptor is loop-invariant, and held across
+      // the loop they would take the registers that dK and dV need.
+      uint32_t at = base;
+      if constexpr (D == 256) asm volatile("" : "+r"(at));
+      const uint32_t sk = at + C::K_OFF, sv = at + C::V_OFF;
+      const uint32_t ds_hi = at + C::DS_OFF + 2 * wg * C::DS_BYTES;
+      const uint32_t ds_lo = ds_hi + C::DS_BYTES;
       const int s = n % C::STAGES;
-      const int q0 = (q_lo + n % nq) * BQ;
-      const uint32_t sq = base + C::Q_OFF + 2 * s * C::QT_BYTES;
+      const int q0 = w.tile<C::LOWEST_FIRST>(n, a.group) * BQ;
+      const uint32_t sq = at + C::Q_OFF + 2 * s * C::QT_BYTES;
       const uint32_t sdo = sq + C::QT_BYTES;
-      const uint32_t lse_t = base + C::ST_OFF + s * C::STATS_BYTES;
+      const uint32_t lse_t = at + C::ST_OFF + s * C::STATS_BYTES;
       mbar_wait(full + 8 * s, (n / C::STAGES) & 1);
 
       // S^T and dP^T for the consumer's 64 keys, in its turn.
@@ -931,7 +1111,11 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
       pin(dk);
       wgmma_fence();
       start_key_grad<D>(dv, ph, pl, sdo, wg);
-      start_key_grad<D>(dk, dh, dl, sq, wg);
+      if constexpr (C::DK_FROM_SMEM) {
+        start_key_grad_smem<D>(dk, ds_hi, ds_lo, sq, wg);
+      } else {
+        start_key_grad<D>(dk, dh, dl, sq, wg);
+      }
       if constexpr (C::ONE_BATCH)
         start_dq<D>(dq, ds_hi, ds_lo, sk, row0, wg);
       wgmma_commit();
@@ -940,9 +1124,15 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
       pin(dv);
       pin(dk);
       pin(ph);
-      pin(pl);
-      pin(dh);
-      pin(dl);   // the fragments stay theirs until the products are done
+      pin(pl);   // the fragments stay theirs until the products are done
+      if constexpr (!C::DK_FROM_SMEM) {
+        pin(dh);
+        pin(dl);
+      }
+      if constexpr (C::FLUSH > 0) {
+        if (n % C::FLUSH == C::FLUSH - 1 && n != steps - 1)
+          flush_key_grads<D>(dk, dv, kv_acc, n >= C::FLUSH);
+      }
       release(empty + 8 * s, lane);
       if constexpr (!C::ONE_BATCH) {
         named_sync<256>(SCHED_BAR + wg);
@@ -956,12 +1146,13 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
 
       // The part into dQ buffer n % NBUF in the tile's fragment order
       // (float4 j of thread tid at (j * 128 + tid) * 16 bytes): consumer
-      // wg's whole part at part wg of the buffer, or at D = 128 its column
-      // half (float4s 8 wg to 8 wg + 7).  The buffer's writer takes it.
+      // wg's whole part at part wg of the buffer, or at D = 128 and 256 its
+      // column half (float4s DW / 8 wg to DW / 8 (wg + 1) - 1).  The
+      // buffer's writer takes it.
       const int b = n % C::NBUF;
-      const uint32_t buf = base + C::DQ_OFF + b * C::BUF_BYTES +
-                           (C::SPLIT ? 8 * wg * 2048 : wg * C::DQ_BYTES) +
-                           tid * 16;
+      const uint32_t buf =
+          at + C::DQ_OFF + b * C::BUF_BYTES +
+          (C::SPLIT ? C::DW / 8 * wg * 2048 : wg * C::DQ_BYTES) + tid * 16;
       mbar_wait(dq_empty + 8 * b, ((n / C::NBUF) & 1) ^ 1);
 #pragma unroll
       for (int j = 0; j < C::DW / 8; ++j)
@@ -975,7 +1166,24 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
 
     if (wg == 0) named_sync<256>(SCHED_BAR);   // consumer 1's last turn
 
-    // dK and dV, rounded once.
+    // dK and dV, rounded once (after their flushed runs' sum).
+    if constexpr (C::FLUSH > 0) {
+      if (steps > C::FLUSH) {
+#pragma unroll
+        for (int j = 0; j < C::DW / 8; ++j) {
+          const float4 k4 = kv_acc[j * 128];
+          const float4 v4 = kv_acc[(C::DW / 8 + j) * 128];
+          dk[4 * j] = k4.x + dk[4 * j];
+          dk[4 * j + 1] = k4.y + dk[4 * j + 1];
+          dk[4 * j + 2] = k4.z + dk[4 * j + 2];
+          dk[4 * j + 3] = k4.w + dk[4 * j + 3];
+          dv[4 * j] = v4.x + dv[4 * j];
+          dv[4 * j + 1] = v4.y + dv[4 * j + 1];
+          dv[4 * j + 2] = v4.z + dv[4 * j + 2];
+          dv[4 * j + 3] = v4.w + dv[4 * j + 3];
+        }
+      }
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int key = kc0 + r0 + 8 * h;
@@ -996,11 +1204,12 @@ flash_bwd_sm90_kernel(const __grid_constant__ Args a) {
 // (c): dq = bf16 of the f32 sums, one block a 64-row tile: the tile's
 // fragment order (float4 j of thread t: row 16(t / 32) + (t % 32) / 4 and
 // + 8, columns 8j + 2(t % 4) and + 1) through shared memory into rows, 16
-// bytes a store.
+// bytes a store; built for D up to W.
+template <int W>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_convert_kernel(const float4* __restrict__ acc,
                             bf16* __restrict__ dq, int S, int n_q, int D) {
-  constexpr int LD = 128 + 8;   // bf16 a shared row, for D up to 128
+  constexpr int LD = W + 8;   // bf16 a shared row
   __shared__ __align__(16) bf16 tile[BQ * LD];
   const int t = threadIdx.x;
   const size_t bh = blockIdx.x / n_q;
@@ -1073,6 +1282,7 @@ struct Call {   // one launch's operands, as the wrapper passes them
   void *dq, *dk, *dv;
   float *di, *lse2, *dq_acc;
   int* counters;
+  float* kv_acc;
   int BH, BKV, S, T, causal, window;
   float softcap;
   cudaStream_t stream;
@@ -1104,6 +1314,7 @@ int launch(const Call& c) {
   a.di = c.di;
   a.dq_acc = c.dq_acc;
   a.counters = c.counters;
+  a.kv_acc = reinterpret_cast<float4*>(c.kv_acc);
   a.dk = static_cast<bf16*>(c.dk);
   a.dv = static_cast<bf16*>(c.dv);
   a.S = c.S;
@@ -1130,30 +1341,34 @@ int launch(const Call& c) {
                              c.stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_convert_kernel<<<c.BH * a.n_q, 128, 0, c.stream>>>(
-      reinterpret_cast<const float4*>(c.dq_acc), static_cast<bf16*>(c.dq),
-      c.S, a.n_q, D);
+  flash_bwd_dq_convert_kernel<(D > 128 ? 256 : 128)>
+      <<<c.BH * a.n_q, 128, 0, c.stream>>>(
+          reinterpret_cast<const float4*>(c.dq_acc),
+          static_cast<bf16*>(c.dq), c.S, a.n_q, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the two kernels on `stream` and returns 0 or an error code for
-// flash_attention_sm90_error_string.  q, dout, o, o_lo, dq: (BH, S, D); k,
-// v, dk, dv: (BKV, T, D); all contiguous bf16, 16-byte aligned; lse: (BH,
-// S) f32 from the forward.  Scratch, written here: di and lse2 (BH, S_pad)
-// f32, dq_acc (BH, S_pad, D) f32 and counters (BH, S_pad / 64) int32, S_pad
-// = S rounded up to 64, 16-byte aligned.  The caller checks shapes, BH %
-// BKV == 0, D in {16, 32, 64, 80, 96, 128}, BKV within the grid's 65535 and
-// every index below 2**31.
+// Launches the three kernels on `stream` and returns 0 or an error code
+// for flash_attention_sm90_error_string.  q, dout, o, o_lo, dq: (BH, S,
+// D); k, v, dk, dv: (BKV, T, D); all contiguous bf16, 16-byte aligned;
+// lse: (BH, S) f32 from the forward.  Scratch, written here: di and lse2
+// (BH, S_pad) f32, dq_acc (BH, S_pad, D) f32 and counters (BH, S_pad / 64)
+// int32, S_pad = S rounded up to 64, 16-byte aligned; at D = 256 kv_acc,
+// BKV * ceil(T / 64) * 32768 f32 (null at other head dims).  The caller
+// checks shapes, BH % BKV == 0, D in {16, 32, 64, 80, 96, 128, 256}, BKV
+// within the grid's 65535 and every index below 2**31.
 extern "C" int flash_attention_bwd_sm90_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* o_lo, const float* lse, const void* dout, void* dq, void* dk,
-    void* dv, float* di, float* lse2, float* dq_acc, int* counters, int BH,
+    void* dv, float* di, float* lse2, float* dq_acc, int* counters,
+    float* kv_acc, int BH,
     int BKV, int S, int T, int D, int causal, int window, float softcap,
     void* stream) {
   const Call c{q,      k,      v,  o,      o_lo,     dout,   lse,
                dq,     dk,     dv, di,     lse2,     dq_acc, counters,
+               kv_acc,
                BH,     BKV,    S,  T,      causal,   window, softcap,
                static_cast<cudaStream_t>(stream)};
   switch (D) {
@@ -1163,6 +1378,7 @@ extern "C" int flash_attention_bwd_sm90_bf16(
     case 80: return launch<80>(c);
     case 96: return launch<96>(c);
     case 128: return launch<128>(c);
+    case 256: return launch<256>(c);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1177,6 +1393,7 @@ extern "C" int flash_attention_bwd_sm90_smem_bytes(int D) {
     case 80: return Tiles<80>::SMEM;
     case 96: return Tiles<96>::SMEM;
     case 128: return Tiles<128>::SMEM;
+    case 256: return Tiles<256>::SMEM;
     default: return 0;
   }
 }

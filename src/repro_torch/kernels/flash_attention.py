@@ -36,18 +36,18 @@ own tiles and mask ragged S and T.
 trains through the einsum ``attention_scores`` and never through its
 Pallas kernel, which has no backward; the backward here is the gradient of
 that arithmetic, computed by hand-written kernels from the forward's saved
-q, k, v, O and per-row log-sum-exp, chosen by dtype and head dim:
+q, k, v, O and per-row log-sum-exp, chosen by dtype:
 
-* bf16, D <= 128 → ``csrc/flash_attention_bwd_sm90.cu`` (``bwd_tc_bf16``):
-  ``wgmma`` with TMA-fed tiles, S and dP once per visible pair (twice at
-  D = 128, whose two consumers split D), P and dS as hi + lo bf16; three
+* bf16 → ``csrc/flash_attention_bwd_sm90.cu`` (``bwd_tc_bf16``) at every
+  head dim: ``wgmma`` with TMA-fed tiles, S and dP once per visible pair
+  (twice at D = 128 and 256, whose two consumers split D; at D = 256 one
+  stage of Q and dO and one dQ buffer), P and dS as hi + lo bf16; three
   launches: D_i and the padded statistics; dK and dV per key tile, whose
   dQ parts are added into an f32 accumulator in a fixed order per query
   tile, so two calls give the same bits; dq rounded from it.  Scratch from
   ``torch.empty``: the padded statistics, the accumulator and the order's
-  counters;
-* bf16, D = 256 → ``csrc/flash_attention_bwd_mma.cu`` (``bwd_mma_bf16``):
-  the first backward's ``mma.sync`` kernel, three launches;
+  counters, and at D = 256 the f32 sums into which each CTA flushes its dK
+  and dV registers every 32 steps;
 * f32 → ``csrc/flash_attention_bwd.cu`` (``bwd_simt_f32``): the CUDA cores,
   exact to reordered f32 sums, bound at 10·D operations a visible pair at
   67 TFLOP/s; two launches: D_i and the padded statistics; dK and dV per
@@ -60,7 +60,7 @@ q, k, v, O and per-row log-sum-exp, chosen by dtype and head dim:
   chip_smoke.py --flash-bwd-times``; its arithmetic emulated on the CPU by
   ``tests/test_torch_flash_bwd.py``.
 
-The head dim chooses before any launch; no route falls back on another.
+The dtype chooses before any launch; no route falls back on another.
 ``ref.attention_ref_grad`` stays the plain version: the CPU's, and the
 yardstick the card is held to.
 """
@@ -77,12 +77,9 @@ from repro_torch.kernels import ref
 launches = 0
 backward_launches = 0
 launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0, "bwd_tc_bf16": 0,
-                      "bwd_mma_bf16": 0, "bwd_simt_f32": 0}
-# the backward's route beside each forward route, at head dims other than
-# MMA_BACKWARD_HEAD_DIMS
+                      "bwd_simt_f32": 0}
+# the backward's route beside each forward route
 BACKWARD_ROUTE = {"wgmma_bf16": "bwd_tc_bf16", "simt_f32": "bwd_simt_f32"}
-# bf16 head dims whose backward runs the mma.sync kernel
-MMA_BACKWARD_HEAD_DIMS = (256,)
 
 # the head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
@@ -90,9 +87,10 @@ _INDEX_LIMIT = 2**31                 # the kernel indexes with 32-bit ints
 _GRID_Y_LIMIT = 65535                # grid rows: the bf16 backward's one
                                      # per KV head (BKV <= BH), the bf16
 _BF16_Q_TILE = 128                   # forward's one per 128-query tile
-_BWD_ROWS = 64                       # backward: mma one grid row per 64
-                                     # rows; wgmma 64-row dQ tiles; wgmma
-                                     # and f32 statistics padded to 64 rows
+_BWD_ROWS = 64                       # backward: wgmma 64-row dQ tiles;
+                                     # wgmma and f32 statistics padded to
+                                     # 64 rows
+_KV_ACC_FLOATS = 2 * 64 * 256        # D = 256: a 64-key CTA's dK and dV
 _TMA_ALIGN = 16                      # bytes, TMA's and cp.async's alignment
 _F32_TILE = 32                       # f32 backward: its least key and
                                      # query tile, the rows a dQ counter
@@ -101,9 +99,8 @@ _F32_TILE = 32                       # f32 backward: its least key and
 
 def backward_route(dtype: torch.dtype, head_dim: int) -> str:
     """The ``launches_by_kernel`` key of the backward kernel that takes
-    gradients of ``dtype`` at ``head_dim``."""
-    if dtype == torch.bfloat16 and head_dim in MMA_BACKWARD_HEAD_DIMS:
-        return "bwd_mma_bf16"
+    gradients of ``dtype`` at ``head_dim``: one route a dtype, at every
+    head dim of HEAD_DIMS."""
     return BACKWARD_ROUTE["wgmma_bf16" if dtype == torch.bfloat16
                           else "simt_f32"]
 
@@ -272,23 +269,25 @@ def flash_attention_backward_kernel(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    f32 = dict(dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         if route == "bwd_tc_bf16":
-            f32 = dict(dtype=torch.float32, device=q.device)
             di, lse2 = (torch.empty((BH, s_pad), **f32) for _ in range(2))
             dq_acc = torch.empty((BH, s_pad, D), **f32)
             counters = torch.empty((BH, s_pad // _BWD_ROWS),
                                    dtype=torch.int32, device=q.device)
+            # D = 256: each CTA's dK and dV sums, flushed from registers
+            kv_acc = (torch.empty(BKV * -(-T // _BWD_ROWS) * _KV_ACC_FLOATS,
+                                  **f32) if D == 256 else None)
             err = lib.flash_attention_bwd_sm90_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 out_lo.data_ptr(), lse.data_ptr(), dout.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
-                lse2.data_ptr(), dq_acc.data_ptr(), counters.data_ptr(), BH,
-                BKV, S, T, D, int(causal), int(window), float(softcap),
-                stream)
+                lse2.data_ptr(), dq_acc.data_ptr(), counters.data_ptr(),
+                None if kv_acc is None else kv_acc.data_ptr(), BH, BKV, S, T,
+                D, int(causal), int(window), float(softcap), stream)
             error_string = lib.flash_attention_sm90_error_string
-        elif route == "bwd_simt_f32":
-            f32 = dict(dtype=torch.float32, device=q.device)
+        else:
             di, lse_pad = (torch.empty((BH, s_pad), **f32) for _ in range(2))
             counters = torch.empty((BH, s_pad // _F32_TILE),
                                    dtype=torch.int32, device=q.device)
@@ -298,15 +297,6 @@ def flash_attention_backward_kernel(
                 dv.data_ptr(), di.data_ptr(), lse_pad.data_ptr(),
                 counters.data_ptr(), BH, BKV, S, T, D, int(causal),
                 int(window), float(softcap), stream)
-            error_string = lib.flash_attention_error_string
-        else:
-            di = torch.empty((BH, S), dtype=torch.float32, device=q.device)
-            err = lib.flash_attention_bwd_mma_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                out_lo.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
-                BH, BKV, S, T, D, int(causal), int(window), float(softcap),
-                stream)
             error_string = lib.flash_attention_error_string
     if err:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: "

@@ -683,6 +683,9 @@ def _grad_check(dev, dtype, B, H, KV, S, T, D, causal, window, softcap):
     (2, 4, 4, 100, 300, 64, False, 0, 0.0),      # cross, ragged tiles
     (2, 32, 32, 1024, 1024, 80, True, 0, 0.0),   # zamba2's D
     (1, 20, 20, 448, 1500, 64, False, 0, 0.0),   # whisper's cross shape
+    (1, 8, 4, 8192, 8192, 256, True, 0, 50.0),   # gemma2's global layer
+    (1, 8, 4, 8192, 8192, 256, True, 4096, 50.0),  # and its local layer
+    (4, 8, 1, 1024, 1024, 256, True, 0, 0.0),    # paligemma-3b's heads
 ])
 def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
                                       window, softcap):
@@ -690,9 +693,9 @@ def test_flash_gradient_matches_plain(cuda, dtype, B, H, KV, S, T, D, causal,
 
 
 # The backward kernels alone, at every head dim: the wgmma kernel walks
-# 128-key tiles and 64-query tiles, the f32 kernel 128-key tiles up to D =
-# 64 (64 at D = 80 and 96, 32 above) and 64-query tiles (32 at D = 256),
-# the mma kernel 64 and 64, so 150, 77 and 700 are multiples of none; 700
+# 128-key tiles (64 at D = 128 and 256) and 64-query tiles, the f32 kernel
+# 128-key tiles up to D = 64 (64 at D = 80 and 96, 32 above) and 64-query
+# tiles (32 at D = 256), so 150, 77 and 700 are multiples of none; 700
 # with a window of 200 has six key tiles or more, each query tile's dQ
 # summed over up to three or more in order, and the non-causal 200 by 600
 # five or more, every one adding to every query tile, as in the ragged GQA

@@ -1,28 +1,25 @@
 """The flash-attention backward kernels' arithmetic on the CPU.
 
-``csrc/flash_attention_bwd_sm90.cu`` (bf16 up to D = 128, ``wgmma``),
-``csrc/flash_attention_bwd_mma.cu`` (bf16 at D = 256, ``mma.sync``) and
-``csrc/flash_attention_bwd.cu`` (f32, CUDA cores) run only on the card;
-this file emulates them in torch, step by step as they walk their tiles:
-the forward kernel's online softmax over its key tiles, which saves each
-row's log-sum-exp (and, in bf16, O's lo part); D_i = rowsum(dO∘O) from the
-f32-accurate O.  The one-pass kernels, ``wgmma`` (bf16) and f32: per
-key tile of a KV head (``backward_tiles``: ``wgmma`` 128 keys, 64 at D =
-128; f32 128 up to D = 64, 64 at D = 80 and 96, 32 above), the group's
-query heads and their visible query tiles (64 queries; f32 32 at D =
-256; ``tc_query_tiles``); per step S^T and dP^T once, dV and dK
-accumulated, and the dQ parts (``wgmma`` one per 64 keys, f32 one per
-half of the tile) added into the query tile's f32 sum in the fixed order
-of the key tiles (``tc_key_tiles``; ``wgmma`` highest first, f32 lowest
-first), each tile's parts in turn.  The three-launch ``mma.sync`` kernel: launch (b),
-per 64-key tile, walking the query tiles (``mma_tiles``' BQ) and
-accumulating dK and dV; launch (c), per 64-query tile, walking the key
-tiles (BKC) and accumulating dQ.  In bf16 P and dS split into hi + lo
-bf16, each product summed in f32 sixteen rows at a time, hi then lo, as
-the tensor cores take them.  The emulation is held against ``jax.grad`` of the JAX package's
-``attention_scores`` (the arithmetic JAX trains through) at causal,
-windowed, softcapped, GQA, non-causal cross and ragged shapes and at every
-head dim:
+``csrc/flash_attention_bwd_sm90.cu`` (bf16 at every head dim, ``wgmma``)
+and ``csrc/flash_attention_bwd.cu`` (f32, CUDA cores) run only on the
+card; this file emulates them in torch, step by step as they walk their
+tiles: the forward kernel's online softmax over its key tiles, which saves
+each row's log-sum-exp (and, in bf16, O's lo part); D_i = rowsum(dO∘O)
+from the f32-accurate O.  Both kernels walk in one pass: per key tile of a
+KV head (``backward_tiles``: ``wgmma`` 128 keys, 64 at D = 128 and 256;
+f32 128 up to D = 64, 64 at D = 80 and 96, 32 above), the group's query
+heads and their visible query tiles (64 queries; f32 32 at D = 256;
+``tc_query_tiles``); per step S^T and dP^T once, dV and dK accumulated,
+and the dQ parts (``wgmma`` one per 64 keys, f32 one per half of the tile)
+added into the query tile's f32 sum in the fixed order of the key tiles
+(``tc_key_tiles``, ``dq_order``; ``wgmma`` highest first, at D = 256 and in
+f32 lowest first), each tile's parts in turn; at D = 256 dK and dV leave
+their accumulators for an f32 sum every 32 steps.  In bf16 P and dS split
+into hi + lo bf16, each product summed in f32 sixteen rows at a time, hi
+then lo, as the tensor cores take them.  The emulation is held against
+``jax.grad`` of the JAX package's ``attention_scores`` (the arithmetic JAX
+trains through) at causal, windowed, softcapped, GQA, non-causal cross and
+ragged shapes and at every head dim:
 
 * f32: each element within 1e-5·max|ref|;
 * bf16: bf16 gradients, each within half a bf16 ulp (2^-8 relative) plus
@@ -52,8 +49,8 @@ from repro_torch.kernels.ref import (NEG_INF, _visible, attention_ref,
 F32_RTOL = 1e-5
 BF16_RTOL, BF16_ATOL = 2.0**-8, 2e-5
 LOG2E = 1.4426950408889634
-ROWS = 64          # keys a block of launch (b) owns, queries one of (c)
 TC_BQ = 64         # the wgmma kernel: queries a step
+TC_FLUSH = 32      # the wgmma kernel at D = 256: steps a dK, dV run takes
 
 
 def forward_key_tile(D: int, dtype: torch.dtype) -> int:
@@ -64,20 +61,6 @@ def forward_key_tile(D: int, dtype: torch.dtype) -> int:
     if dtype == torch.bfloat16:
         return 64 if D in (128, 256) else 128
     return 128 if D <= 64 else 64 if D <= 128 else 32
-
-
-def mma_tiles(D: int) -> tuple[int, int]:
-    """(BQ, BKC) of the three-launch ``mma.sync`` kernel at head dim D (bf16
-    at D = 256): launch (b) walks the queries BQ at a time, launch (c) the
-    keys BKC at a time (the source's ``BwdTiles``)."""
-    return (64 if D <= 96 else 32), (64 if D <= 128 else 32)
-
-
-def three_launch(D: int, dtype: torch.dtype) -> bool:
-    """Whether the three-launch ``mma.sync`` kernel takes the backward
-    (bf16 at D = 256); the ``wgmma`` kernel (bf16) and the f32 kernel walk
-    in one pass."""
-    return dtype == torch.bfloat16 and D in FA.MMA_BACKWARD_HEAD_DIMS
 
 
 def backward_tiles(D: int, dtype: torch.dtype) -> tuple[int, int]:
@@ -94,8 +77,9 @@ def backward_tiles(D: int, dtype: torch.dtype) -> tuple[int, int]:
 
 def tc_key_tile(D: int) -> int:
     """Keys a CTA of the ``wgmma`` kernel owns at head dim D (``Tiles<D>::
-    BK``): 128, 64 a consumer; at D = 128, 64, the consumers splitting D."""
-    return 64 if D == 128 else 128
+    BK``): 128, 64 a consumer; at D = 128 and 256, 64, the consumers
+    splitting D."""
+    return 64 if D >= 128 else 128
 
 
 def tc_query_tiles(kt: int, S: int, T: int, causal: bool, window: int,
@@ -124,6 +108,30 @@ def tc_key_tiles(i: int, S: int, T: int, causal: bool, window: int,
     return range(lo, hi)
 
 
+def dq_order(D: int, dtype: torch.dtype) -> str:
+    """The one-pass kernels' dQ order at head dim D: ``high`` (``wgmma``
+    below D = 256: the highest key tile launched and adding first, query
+    tiles walked upward, the group's heads outer), ``low_inner``
+    (``wgmma`` at D = 256: the lowest first, query tiles walked downward,
+    the heads inner on each) or ``low`` (f32: the lowest first, walked
+    downward, the heads outer)."""
+    if dtype == torch.bfloat16:
+        return "low_inner" if D == 256 else "high"
+    return "low"
+
+
+def walk_steps(order: str, kt: int, group: int, S: int, T: int,
+               causal: bool, window: int, bk: int, bq: int
+               ) -> list[tuple[int, int]]:
+    """Key tile ``kt``'s steps, (query head of the group, query tile), in
+    the walk of ``order`` (``dq_order``)."""
+    tiles = list(tc_query_tiles(kt, S, T, causal, window, bk, bq))
+    if order == "low_inner":
+        return [(g, i) for i in tiles[::-1] for g in range(group)]
+    return [(g, i) for g in range(group)
+            for i in (tiles[::-1] if order == "low" else tiles)]
+
+
 # name, B, H, KV, S, T, D, causal, window, softcap: the shapes of
 # tests/test_torch_flash_grad.py, then ragged S and T (not multiples of any
 # tile), a cross shape past one key block, and one case a head dim.
@@ -139,6 +147,12 @@ SHAPES = [
     ("cross_ragged_long", 1, 2, 2, 70, 150, 16, False, 0, 0.0),
     ("causal_cross_s_lt_t", 1, 2, 1, 70, 150, 32, True, 0, 0.0),
     ("noncausal_s_gt_t", 1, 2, 2, 90, 33, 16, False, 0, 0.0),
+    # gemma2-2b's heads (8 query and 4 KV heads of 256, softcap 50), its
+    # local layers' window biting at this length: four 64-key tiles
+    ("gemma2_heads_window", 1, 8, 4, 200, 200, 256, True, 70, 50.0),
+    # paligemma-3b's heads (8 query heads on one KV head of 256): key tile
+    # 0 walks 40 steps, so at D = 256 its dK and dV flush once
+    ("paligemma_heads", 1, 8, 1, 300, 300, 256, True, 0, 0.0),
 ] + [(f"d{d}", 1, 2, 1, 40, 40, d, True, 0, 0.0)
      for d in FA.HEAD_DIMS]
 
@@ -249,103 +263,52 @@ def emulate_forward(q, k, v, *, causal, window, softcap):
 def emulate_backward(q, k, v, out, lse, dout, *, out_lo=None, causal=True,
                      window=0, softcap=0.0, rounded=True):
     """dq, dk, dv as the backward kernels compute them, from the forward's
-    out (in bf16 with out_lo) and lse: D_i, then the one-pass kernels'
-    walk (``emulate_walk``) or the three-launch kernel's (b) per 64-key
-    tile and (c) per 64-query tile.  In the inputs' dtype, or the f32
-    accumulators where not ``rounded``."""
+    out (in bf16 with out_lo) and lse: D_i, then the kernels' walk
+    (``emulate_walk``).  In the inputs' dtype, or the f32 accumulators
+    where not ``rounded``."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
-    G = BH // BKV
     bf16 = q.dtype == torch.bfloat16
     scale = 1 / math.sqrt(D)
     o = out.float() + (out_lo.float() if bf16 else 0)
     di = (dout.float() * o).sum(dim=-1)                       # (a)
     mask = _visible(S, T, causal, window, "cpu")
 
-    def grad_tile(s, dp, rows, cols, lse_t, di_t, by_row):
-        """P and dS of a tile of raw scores, masked where not visible;
-        ``by_row``: lse and D_i index the rows (c) or the columns (b)."""
+    def grad_tile(s, dp, keys, queries, lse_t, di_t):
+        """P^T and dS^T of a tile of raw scores S^T (keys by queries),
+        masked where not visible; lse and D_i index the columns."""
         x, dx = _logits(s, scale, softcap)
-        lse_b = lse_t[:, None] if by_row else lse_t[None, :]
-        di_b = di_t[:, None] if by_row else di_t[None, :]
-        p = torch.exp2(x * LOG2E - lse_b * LOG2E)
+        p = torch.exp2(x * LOG2E - lse_t[None, :] * LOG2E)
         vis = torch.zeros(s.shape, dtype=torch.bool)
-        r, c = (rows, cols) if by_row else (cols, rows)
-        r_ok, c_ok = r[r < S], c[c < T]
-        sub = mask[r_ok[:, None], c_ok[None, :]]
-        if by_row:
-            vis[:len(r_ok), :len(c_ok)] = sub
-        else:
-            vis[:len(c_ok), :len(r_ok)] = sub.T
+        q_ok, k_ok = queries[queries < S], keys[keys < T]
+        vis[:len(k_ok), :len(q_ok)] = mask[q_ok[:, None], k_ok[None, :]].T
         p = torch.where(vis, p, 0.0)
-        return p, p * (dp - di_b) * dx
+        return p, p * (dp - di_t[None, :]) * dx
 
     dt = q.dtype if rounded else torch.float32
-    if not three_launch(D, q.dtype):
-        bk, bq = backward_tiles(D, q.dtype)
-        grads = emulate_walk(q, k, v, dout, lse, di, grad_tile,
-                             causal=causal, window=window, bk=bk, bq=bq,
-                             part=64 if bf16 else bk // 2, split=bf16,
-                             highest_first=bf16)
-        return tuple(g.to(dt) for g in grads)
-    BQ, BKC = mma_tiles(D)
-    dk = torch.zeros(BKV, T, D)
-    dv = torch.zeros(BKV, T, D)
-    for kvh in range(BKV):                                     # (b)
-        for k0 in range(0, T, ROWS):
-            q_lo = k0 if causal else 0
-            q_hi = min(S, k0 + ROWS - 1 + window) if window else S
-            q_lo = q_lo // BQ * BQ
-            kt, vt = _rows(k[kvh], k0, ROWS), _rows(v[kvh], k0, ROWS)
-            acc_k, acc_v = torch.zeros(ROWS, D), torch.zeros(ROWS, D)
-            for g in range(G):
-                bh = kvh * G + g
-                for q0 in range(q_lo, q_hi, BQ):
-                    qt, ot = _rows(q[bh], q0, BQ), _rows(dout[bh], q0, BQ)
-                    lse_t = _rows(lse[bh][:, None], q0, BQ)[:, 0]
-                    di_t = _rows(di[bh][:, None], q0, BQ)[:, 0]
-                    p, ds = grad_tile(kt @ qt.T, vt @ ot.T,
-                                      torch.arange(k0, k0 + ROWS),
-                                      torch.arange(q0, q0 + BQ), lse_t, di_t,
-                                      by_row=False)
-                    acc_v = _product(p, ot, acc_v, bf16)
-                    acc_k = _product(ds, qt, acc_k, bf16)
-            n = min(ROWS, T - k0)
-            dk[kvh, k0:k0 + n], dv[kvh, k0:k0 + n] = acc_k[:n], acc_v[:n]
-    dq = torch.zeros(BH, S, D)
-    for bh in range(BH):                                       # (c)
-        for q0 in range(0, S, ROWS):
-            k_lo = max(0, q0 - window + 1) // BKC * BKC if window else 0
-            k_hi = min(T, q0 + ROWS) if causal else T
-            qt, ot = _rows(q[bh], q0, ROWS), _rows(dout[bh], q0, ROWS)
-            lse_t = _rows(lse[bh][:, None], q0, ROWS)[:, 0]
-            di_t = _rows(di[bh][:, None], q0, ROWS)[:, 0]
-            acc = torch.zeros(ROWS, D)
-            for kb in range(k_lo, k_hi, BKC):
-                kt, vt = (_rows(x[bh // G], kb, BKC) for x in (k, v))
-                _, ds = grad_tile(qt @ kt.T, ot @ vt.T,
-                                  torch.arange(q0, q0 + ROWS),
-                                  torch.arange(kb, kb + BKC), lse_t, di_t,
-                                  by_row=True)
-                acc = _product(ds, kt, acc, bf16)
-            n = min(ROWS, S - q0)
-            dq[bh, q0:q0 + n] = acc[:n]
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    bk, bq = backward_tiles(D, q.dtype)
+    grads = emulate_walk(q, k, v, dout, lse, di, grad_tile, causal=causal,
+                         window=window, bk=bk, bq=bq,
+                         part=64 if bf16 else bk // 2, split=bf16,
+                         order=dq_order(D, q.dtype),
+                         flush=TC_FLUSH if bf16 and D == 256 else 0)
+    return tuple(g.to(dt) for g in grads)
 
 
 def emulate_walk(q, k, v, dout, lse, di, grad_tile, *, causal, window, bk,
-                 bq, part, split, highest_first):
+                 bq, part, split, order, flush=0):
     """The one-pass kernels' walk, in f32: per (``bk``-key tile, KV head),
-    the group's query heads and their ``bq``-query tiles in ascending
-    order; per step and ``part`` keys of the tile (``wgmma``: a consumer
-    warpgroup's 64, and at D = 128 the consumers share them and split the
-    columns, which sums the same terms in the same order; f32: a consumer
-    group's half of the dQ product) S^T, dP^T, P^T and dS^T, dV += P^T.dO
-    and dK += dS^T.Q, and the dQ part dS.K (with ``split``, hi + lo, 16
-    keys a product); then per
-    query tile the key tiles' parts added in the kernel's order (``wgmma``
-    the highest key tile first, f32 the lowest), each tile's parts in turn,
-    the first stored."""
+    the group's query heads and their ``bq``-query tiles in the walk of
+    ``order`` (``walk_steps``); per step and ``part`` keys of the tile
+    (``wgmma``: a consumer warpgroup's 64, and at D = 128 the consumers share
+    them and split the columns, which sums the same terms in the same order;
+    f32: a consumer group's half of the dQ product) S^T, dP^T, P^T and dS^T, dV
+    += P^T.dO and dK += dS^T.Q, and the dQ part dS.K (with ``split``, hi + lo,
+    16 keys a product); then per query tile the key tiles' parts added in the
+    kernel's order (``high`` the highest key tile first, else the lowest), each
+    tile's parts in turn, the first stored.  With ``flush`` (``wgmma`` at D =
+    256), dK and dV leave their accumulators for a sum every ``flush`` steps
+    but the last, and the last run is added to that sum."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
     G = BH // BKV
@@ -356,39 +319,51 @@ def emulate_walk(q, k, v, dout, lse, di, grad_tile, *, causal, window, bk,
         for kt in range(-(-T // bk)):
             acc_k = [torch.zeros(part, D) for _ in range(chunks)]
             acc_v = [torch.zeros(part, D) for _ in range(chunks)]
-            for g in range(G):
+            walk = walk_steps(order, kt, G, S, T, causal, window, bk, bq)
+            sum_k = sum_v = None
+            for n, (g, i) in enumerate(walk):
                 bh = kvh * G + g
-                for i in tc_query_tiles(kt, S, T, causal, window, bk, bq):
-                    q0 = i * bq
-                    qt, ot = _rows(q[bh], q0, bq), _rows(dout[bh], q0, bq)
-                    lse_t = _rows(lse[bh][:, None], q0, bq)[:, 0]
-                    di_t = _rows(di[bh][:, None], q0, bq)[:, 0]
-                    got = []
-                    for c in range(chunks):
-                        kc0 = kt * bk + part * c
-                        kc, vc = (_rows(x[kvh], kc0, part) for x in (k, v))
-                        p, ds = grad_tile(kc @ qt.T, vc @ ot.T,
-                                          torch.arange(kc0, kc0 + part),
-                                          torch.arange(q0, q0 + bq),
-                                          lse_t, di_t, by_row=False)
-                        acc_v[c] = _product(p, ot, acc_v[c], split)
-                        acc_k[c] = _product(ds, qt, acc_k[c], split)
-                        got.append(_product(ds.T, kc, torch.zeros(bq, D),
-                                            split))
-                    parts.setdefault((bh, i), []).append((kt, got))
+                q0 = i * bq
+                qt, ot = _rows(q[bh], q0, bq), _rows(dout[bh], q0, bq)
+                lse_t = _rows(lse[bh][:, None], q0, bq)[:, 0]
+                di_t = _rows(di[bh][:, None], q0, bq)[:, 0]
+                got = []
+                for c in range(chunks):
+                    kc0 = kt * bk + part * c
+                    kc, vc = (_rows(x[kvh], kc0, part) for x in (k, v))
+                    p, ds = grad_tile(kc @ qt.T, vc @ ot.T,
+                                      torch.arange(kc0, kc0 + part),
+                                      torch.arange(q0, q0 + bq),
+                                      lse_t, di_t)
+                    acc_v[c] = _product(p, ot, acc_v[c], split)
+                    acc_k[c] = _product(ds, qt, acc_k[c], split)
+                    got.append(_product(ds.T, kc, torch.zeros(bq, D),
+                                        split))
+                parts.setdefault((bh, i), []).append((kt, got))
+                if flush and n % flush == flush - 1 and n != len(walk) - 1:
+                    sum_k = acc_k if sum_k is None else [
+                        a + b for a, b in zip(sum_k, acc_k)]
+                    sum_v = acc_v if sum_v is None else [
+                        a + b for a, b in zip(sum_v, acc_v)]
+                    acc_k = [torch.zeros(part, D) for _ in range(chunks)]
+                    acc_v = [torch.zeros(part, D) for _ in range(chunks)]
+            if sum_k is not None:
+                acc_k = [a + b for a, b in zip(sum_k, acc_k)]
+                acc_v = [a + b for a, b in zip(sum_v, acc_v)]
             for c in range(chunks):
                 kc0 = kt * bk + part * c
                 n = max(0, min(part, T - kc0))
                 dk[kvh, kc0:kc0 + n] = acc_k[c][:n]
                 dv[kvh, kc0:kc0 + n] = acc_v[c][:n]
     dq = torch.zeros(BH, S, D)
+    highest_first = order == "high"
     for (bh, i), got in parts.items():
-        order = sorted(got, key=lambda tile: -tile[0] if highest_first
+        added = sorted(got, key=lambda tile: -tile[0] if highest_first
                        else tile[0])
         tiles = list(tc_key_tiles(i, S, T, causal, window, bk, bq))
-        assert [kt for kt, _ in order] == \
+        assert [kt for kt, _ in added] == \
             (tiles[::-1] if highest_first else tiles)
-        in_order = [h for _, tile in order for h in tile]
+        in_order = [h for _, tile in added for h in tile]
         acc = in_order[0]
         for h in in_order[1:]:
             acc = acc + h
@@ -449,11 +424,12 @@ def test_emulated_backward_matches_jax_grad(shape, dtype, one_thread):
 
 # (S, T, causal, window) of the tile-walk tests: SHAPES' and the card's
 # training shapes (minicpm 1024, whisper's cross 448 by 1500, gemma2's
-# window 128 at 512), ragged and windowed ones.
+# window 128 at 512 and its train step's local layers, window 4096 at
+# 8192), ragged and windowed ones.
 WALK_CASES = sorted({sh[4:6] + sh[7:9] for sh in SHAPES} | {
     (1024, 1024, True, 0), (448, 1500, False, 0), (512, 512, True, 128),
-    (77, 150, True, 0), (150, 77, True, 0), (300, 300, True, 37),
-    (1000, 1000, True, 4096), (130, 300, False, 0)})
+    (8192, 8192, True, 4096), (77, 150, True, 0), (150, 77, True, 0),
+    (300, 300, True, 37), (1000, 1000, True, 4096), (130, 300, False, 0)})
 
 
 # (BK, BQ) of the one-pass kernels: wgmma 128 x 64 and 64 x 64 (D = 128),
@@ -483,24 +459,23 @@ def test_tc_tile_walk_matches_visible_pairs(S, T, causal, window, bk, bq):
         assert len(tc_key_tiles(i, S, T, causal, window, bk, bq)) > 0
 
 
-def _dq_order_ticks(S, T, causal, window, group, slots, bk, bq,
-                    f32=False, reverse=False):
+def _dq_order_ticks(S, T, causal, window, group, slots, bk, bq, order,
+                    reverse=False):
     """Runs the one-pass kernels' CTAs of one KV head as a schedule: CTAs
     start in launch order on ``slots`` SMs; each takes one step a tick and,
     before its step's dQ add, waits until the query tile's counter reads
-    its rank (CTAs go in launch order within a tick).  ``wgmma``: launched
-    highest key tile first, query tiles walked upward, the highest key tile
-    adds first; f32: launched lowest first, walked downward, the lowest
-    adds first; ``reverse`` launches the other way round.  Returns the
-    ticks to the end, or None if no CTA can move."""
+    its rank (CTAs go in launch order within a tick).  ``order``
+    (``dq_order``): ``high`` launches the highest key tile first and it
+    adds first, the others the lowest; each CTA walks as ``walk_steps``
+    says; ``reverse`` launches the other way round.  Returns the ticks to
+    the end, or None if no CTA can move."""
     n_kt = -(-T // bk)
-    order = list(range(n_kt)) if f32 != reverse else list(range(n_kt))[::-1]
-    walk = {kt: [(g, i) for g in range(group)
-                 for i in tc_query_tiles(kt, S, T, causal, window, bk, bq)
-                 [::-1 if f32 else 1]]
-            for kt in order}
+    low = order != "high"
+    launch = list(range(n_kt))[::1 if low != reverse else -1]
+    walk = {kt: walk_steps(order, kt, group, S, T, causal, window, bk, bq)
+            for kt in launch}
     counter: dict[tuple[int, int], int] = {}
-    waiting, running, done, ticks = list(order), [], set(), 0
+    waiting, running, done, ticks = list(launch), [], set(), 0
     while len(done) < n_kt:
         while waiting and len(running) < slots:
             running.append([waiting.pop(0), 0])
@@ -511,7 +486,7 @@ def _dq_order_ticks(S, T, causal, window, group, slots, bk, bq,
                 continue
             g, i = walk[kt][n]
             tiles = tc_key_tiles(i, S, T, causal, window, bk, bq)
-            rank = kt - tiles.start if f32 else tiles.stop - 1 - kt
+            rank = kt - tiles.start if low else tiles.stop - 1 - kt
             if counter.get((g, i), 0) == rank:
                 counter[(g, i)] = counter.get((g, i), 0) + 1
                 cta[1] += 1
@@ -530,26 +505,30 @@ def _dq_order_ticks(S, T, causal, window, group, slots, bk, bq,
     return ticks
 
 
-# The dQ order of each one-pass kernel at its tiles: (f32, BK, BQ).
-ORDER_CASES = [(False, 128, 64), (False, 64, 64)] + [
-    (True, bk, bq) for bk, bq in WALK_TILES]
-ORDER_IDS = ["128", "64"] + [f"f32-{i}" for i in WALK_TILE_IDS]
+# The dQ order of each one-pass kernel at its tiles: (order, BK, BQ):
+# ``wgmma`` at 128 x 64, at 64 x 64 (D = 128) and at D = 256's 64 x 64,
+# and f32 at each of its tiles.
+ORDER_CASES = [("high", 128, 64), ("high", 64, 64), ("low_inner", 64, 64)] \
+    + [("low", bk, bq) for bk, bq in WALK_TILES]
+ORDER_IDS = ["128", "64", "d256"] + [f"f32-{i}" for i in WALK_TILE_IDS]
 
 
 @pytest.mark.parametrize("slots", [1, 3, 64])
 @pytest.mark.parametrize("S,T,causal,window", WALK_CASES)
-@pytest.mark.parametrize("f32,bk,bq", ORDER_CASES, ids=ORDER_IDS)
+@pytest.mark.parametrize("order,bk,bq", ORDER_CASES, ids=ORDER_IDS)
 def test_tc_dq_order_waits_only_on_earlier_ctas(S, T, causal, window, slots,
-                                                 f32, bk, bq):
-    """The dQ order of the ``wgmma`` kernel (highest key tile launched and
-    adding first) and of the f32 kernel (lowest first): the schedule runs
+                                                 order, bk, bq):
+    """The dQ order of the ``wgmma`` kernel (below D = 256 the highest key
+    tile launched and adding first, at D = 256 the lowest) and of the f32
+    kernel (the lowest first): the schedule runs
     to its end however few SMs there are (a CTA waits only on CTAs launched
     before it), every query tile's counter ends at its number of key
     tiles, and on causal self-attention with every CTA resident no wait
     lengthens the longest CTA's walk.  Launched the other way round, one SM
     deadlocks wherever a query tile has two key tiles."""
     group = 2
-    ticks = _dq_order_ticks(S, T, causal, window, group, slots, bk, bq, f32)
+    ticks = _dq_order_ticks(S, T, causal, window, group, slots, bk, bq,
+                            order)
     assert ticks is not None
     longest = max(group * len(tc_query_tiles(kt, S, T, causal, window, bk,
                                              bq))
@@ -559,8 +538,8 @@ def test_tc_dq_order_waits_only_on_earlier_ctas(S, T, causal, window, slots,
     shared = any(len(tc_key_tiles(i, S, T, causal, window, bk, bq)) > 1
                  for i in range(-(-S // bq)))
     if slots == 1 and shared:
-        assert _dq_order_ticks(S, T, causal, window, group, 1, bk, bq, f32,
-                               reverse=True) is None
+        assert _dq_order_ticks(S, T, causal, window, group, 1, bk, bq,
+                               order, reverse=True) is None
 
 
 @pytest.mark.parametrize("shape", SHAPES[:6] + SHAPES[7:9],
@@ -648,3 +627,16 @@ def test_backward_kernel_refuses_cpu_tensors():
         FA.flash_attention_backward_kernel(q, q, q, q, lse, q)
     got = FA.flash_attention_backward(q, q, q, q, lse, q)
     assert all(g.shape == q.shape for g in got)
+
+
+@pytest.mark.parametrize("D", FA.HEAD_DIMS)
+def test_backward_route_is_one_per_dtype(D):
+    """Every head dim's bf16 gradient goes to the ``wgmma`` kernel
+    (``bwd_tc_bf16``, ``csrc/flash_attention_bwd_sm90.cu``), D = 256
+    (gemma2-2b's, paligemma-3b's) among them, and every f32 one to the
+    CUDA-core kernel: one backward route a dtype, each counted in
+    ``launches_by_kernel`` beside the forward routes and no other."""
+    assert FA.backward_route(torch.bfloat16, D) == "bwd_tc_bf16"
+    assert FA.backward_route(torch.float32, D) == "bwd_simt_f32"
+    assert set(FA.launches_by_kernel) == set(FA.BACKWARD_ROUTE) | set(
+        FA.BACKWARD_ROUTE.values())

@@ -281,7 +281,7 @@ def test_example_needs_a_card_unless_cpu(monkeypatch):
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "xlstm_drift.py",
-        ROOT / "flash_f32_phases.py",
+        ROOT / "flash_f32_phases.py", ROOT / "flash_bwd_precision.py",
         ROOT / "examples" / "resnet_pim_torch.py",
         ROOT / "examples" / "serve_lm_torch.py",
         ROOT / "examples" / "train_lm_torch.py"]
