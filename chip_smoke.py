@@ -8,8 +8,9 @@ Phases, each of which raises (exit code 1) on failure:
    csrc`` with nvcc for sm_90a (one process per source); prints the build
    time and ptxas's report, per head dim the bf16 and f32 flash kernels'
    registers, spills and dynamic shared memory (the f32 one may spill at
-   no head dim), the same per tile width (64, 128)
-   for the fused-conv kernel, per chunk (64, 128) for the SSD scan's
+   no head dim), the same per tile width (64, 128) and patch copy
+   for the fused-conv kernel's f32 route and per tile width its bf16
+   route (none may spill), per chunk (64, 128) for the SSD scan's
    three kernels, the mLSTM scan's four, the SSD scan backward's four and
    the mLSTM scan backward's six, and per head dim the flash backward's
    kernels on each route (bf16: the wgmma kernel at every head dim, its
@@ -21,12 +22,25 @@ Phases, each of which raises (exit code 1) on failure:
    split K over a cluster) against its plain PyTorch version on the card,
    at every distinct conv shape of ResNet18 at batch 8, with the tile
    width and split of K the wrapper picks; a second launch must give the
-   same bits.
+   same bits.  Then the same shapes on the bf16 route (x, w and the
+   residual in bf16: ``fused_conv_bf16_sm90_kernel``, one bf16 wgmma
+   product per k-step, 64-deep k-blocks, no split pass; the stem's Cin = 3
+   padded to 8 by the wrapper), every element
+   within BF16_ULP·|plain| + KERNEL_RTOL·max|plain| of the plain version on
+   the same operands, two launches bit-equal, every launch on that route.
 4. model path: ResNet18 at the paper's width (224×224×3, 1000 classes,
    random weights from a seed) built through ``build_model`` serves 4
    requests of 8 images, then runs ``forward_fused_groups``; the logits are
    finite, the two forwards agree, the first request agrees with the plain
-   forward on the CPU, and each forward made exactly 20 kernel launches.
+   forward on the CPU, and each forward made exactly 20 kernel launches,
+   all on the f32 route.  Then ResNet18 in bf16 (the config with both
+   dtypes bf16, as in JAX; the same weights as JAX's bf16 tree keeps them,
+   BN statistics f32) serves the same requests in bf16 and runs
+   ``forward_fused_groups``: 20 launches a forward, all on the bf16 route,
+   finite bf16 logits, the fused groups bit-equal to the forward, and the
+   first request held by BF16_DIST_FACTOR's rule against the f32 kernel
+   forward of the same weights, beside the bf16 forward under
+   ``ops.plain()``.
 5. timings with CUDA events: per conv shape the tile and split, the
    kernel, its plain version, the library conv (``torch.nn.functional.
    conv2d`` without the epilogue, TF32 off; a yardstick only, the port never
@@ -35,6 +49,9 @@ Phases, each of which raises (exit code 1) on failure:
    kernel's and the library conv's device time from torch.profiler (the
    events time of a short call is its caller's host time); the forward;
    then device time by kernel and the idle share, from torch.profiler.
+   The same per shape on the bf16 route (the library conv cuDNN's in bf16,
+   the bounds one bf16 product on the tensor cores and the bf16 bytes),
+   and the bf16 forward by CUDA events and device time.
 6. halo: the paper's fused-layer dataflow on row shards (``repro_torch.
    core.halo``, one process, the shards in turn on the card), with the
    requests' parameters: ResNet18's three fused groups (stem + stage 1 in
@@ -54,7 +71,12 @@ Phases, each of which raises (exit code 1) on failure:
    ``attention_scores`` over the whole sequence within FLASH_ATOL per
    element, no kernel launched, with the K/V bytes a gather and the halo
    move; CUDA-event times of each, sharded and whole, beside the card's
-   name and power limit (none held).
+   name and power limit (none held).  Then the three fused groups in bf16
+   on phase 4's bf16 net: 20, 20 and 10 launches, all on the bf16 route,
+   each sharded call held by BF16_DIST_FACTOR's rule at any row against the
+   f32 twin's sharded call beside the plain bf16 one, and against the
+   group run whole by phase 6's row rule with the limit BF16_DIST_FACTOR
+   times the plain call's distance.
 7. flash check: the flash-attention kernels against their plain version on
    the card at gemma2-2b's head shapes (D=256, 8 query and 4 KV heads per
    batch row, softcap 50): S=8192 global and with the 4096 window, a ragged
@@ -96,7 +118,9 @@ Phases, each of which raises (exit code 1) on failure:
     (the state carried across every chunk), the serving prompts 4×64, a
     ragged S=1000 and the full-reset property (a_log = -30: y_t =
     (C_t·B_t)·dtx_t); every element within SCAN_ATOL, and a second launch
-    gives the same bits.
+    gives the same bits.  ``ops.mamba_scan`` on bf16 operands at the
+    serving shape: one launch, bf16 out (JAX's ops' dtype), within one bf16
+    ulp of the plain version on the f32 copies plus SCAN_ATOL.
 12. flash check at zamba2-2.7b's heads (D=80, 32 query and 32 KV heads, no
     softcap): S=4096 and B=4 at S=64 in bf16, a ragged S=1000 in f32, with
     the limits of phase 7; each launch moves only its dtype's route.
@@ -133,7 +157,8 @@ Phases, each of which raises (exit code 1) on failure:
     1), also held against that closed form) and the stabiliser shape (i_pre
     ·10); every element within MLSTM_ATOL, and a second launch gives the
     same bits.  Each shape's distance of kernel and plain version from the
-    recurrence in f64 is printed, not held.
+    recurrence in f64 is printed, not held.  ``ops.mlstm_scan`` on bf16 q,
+    k, v at the serving shape as phase 11's bf16 case, with MLSTM_ATOL.
 18. xLSTM prefill: xlstm-1.3b at full width and depth (48 layers: 12 units
     of 3 mLSTM blocks and one sLSTM block, d 2048, 4 heads of 512, vocab
     50304, bf16, random weights from a seed) built through ``build_model``
@@ -373,8 +398,9 @@ Phases, each of which raises (exit code 1) on failure:
 55. f32 twin: gemma2-2b at full width cut to one local and one global
     layer, f32, at 1x4608 (the window bites past 4096) against
     ``ops.plain()``, as phase 36.
-51. prints the ``kernels`` JSON line (the four kernels, the flash
-    backward on each route and the scans' two backward kernels), 52. the final ``{"ok": true, ...}`` line.  The full
+51. prints the ``kernels`` JSON line (the four kernels with the fused
+    conv's bf16 route as ``fused_conv_bf16``, the flash backward on each
+    route and the scans' two backward kernels), 52. the final ``{"ok": true, ...}`` line.  The full
     record goes to ``build/chip_smoke.json``, and the summary line ends
     with the script's total time.
 
@@ -383,7 +409,8 @@ Phases, each of which raises (exit code 1) on failure:
 times only the fused conv, at every conv shape of phase 3, with CUDA
 events and on the card, through whatever ``src/repro_torch`` lies beside
 this file: a copy of this file beside an older checkout times that
-checkout's kernel the same way, for a comparison in one call.
+checkout's kernel the same way, for a comparison in one call.  Where the
+checkout has the bf16 route it is timed too, as phase 5 times it.
 
     python3 chip_smoke.py --scan-times
 
@@ -449,6 +476,20 @@ CONVS_PER_FORWARD = 20
 KERNEL_RTOL = 1e-4    # max|kernel − plain| ≤ KERNEL_RTOL · max|plain|, per conv
 LOGITS_RTOL = 1e-3    # the same over 20 layers, GPU kernels vs plain on the CPU
 FUSED_RTOL = 1e-6     # forward_fused_groups runs the same launches as forward
+# The bf16 route (x, w and the residual bf16) against its plain version on
+# the same bf16 operands (f32 sums, one rounding), per element:
+# |kernel − plain| ≤ BF16_ULP·|plain| + KERNEL_RTOL·max|plain|.  The two
+# f32 sums, taken in other orders, can round to bf16 on the two sides of a
+# tie: one bf16 ulp, at most 2^-7 of the value.
+BF16_ULP = 2.0**-7
+# A bf16 path of several convs (the forward, a fused group) is held to the
+# f32 kernel path of the same weights and input (the bf16 values upcast):
+# its distance from it at most BF16_DIST_FACTOR times that of the same bf16
+# path under ops.plain() (the same roundings, its convs by cuDNN in f32),
+# and for logits top-1 equal to the plain path's wherever the f32 margin
+# exceeds both distances: the rule tests/test_torch_resnet_bf16.py holds
+# against JAX's bf16 forward.
+BF16_DIST_FACTOR = 1.5
 PEAK_F32_OPS = 67e12  # H100 SXM, f32 outside the tensor cores, per second
 PEAK_BF16_OPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 PEAK_TF32_OPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
@@ -769,9 +810,12 @@ def zero_launches() -> None:
         mod.launches = 0
         if hasattr(mod, "backward_launches"):
             mod.backward_launches = 0
-    routes = kernel_modules()["flash_attention"].launches_by_kernel
-    for route in routes:
-        routes[route] = 0
+    for mod, name in ((kernel_modules()["flash_attention"],
+                       "launches_by_kernel"),
+                      (kernel_modules()["fused_conv"], "launches_by_route")):
+        routes = getattr(mod, name)
+        for route in routes:
+            routes[route] = 0
 
 
 def flash_route(cfg) -> str:
@@ -885,20 +929,30 @@ def build() -> tuple[float, dict]:
           and all(row.get("spill_bytes") == 0 for row in f32.values()),
           f"flash spills or is missing: bf16 at D=96 {sm90.get(96)}, f32 "
           f"{f32}")
-    # The fused-conv kernel per tile width and patch copy (16 bytes along
-    # Cin, or 4 for the stem): registers, spills (none allowed) and dynamic
-    # shared memory.
-    conv = ptxas_report(log, r"fused_conv_sm90_kernelILi(\d+)ELb(\d)E",
-                        lambda m: f"BN{m[1]}_{('4', '16')[int(m[2])]}B")
-    for key, row in sorted(conv.items()):
-        row["dynamic_smem_bytes"] = lib.fused_conv_sm90_smem_bytes(
-            int(key[2:key.index("_")]))
-        print(f"[build] fused_conv_sm90 {key}: {row.get('registers')} "
-              f"registers, {row.get('spill_bytes')} B spilled, "
-              f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
-    check(sorted(conv) == ["BN128_16B", "BN128_4B", "BN64_16B", "BN64_4B"]
-          and all(row.get("spill_bytes") == 0 for row in conv.values()),
-          f"fused_conv_sm90 ptxas report: {conv}")
+    # The fused-conv kernel per route and tile width (f32: per patch copy,
+    # 16 bytes along Cin or 4 for the stem; bf16: 16-byte copies, the stem
+    # padded to 8 channels by the wrapper): registers, spills (none
+    # allowed) and dynamic shared memory.
+    conv_routes = {}
+    for kind, name, instance, keys in (
+            ("f32", "fused_conv_sm90", r"ILi(\d+)ELb(\d)E",
+             ["BN128_16B", "BN128_4B", "BN64_16B", "BN64_4B"]),
+            ("bf16", "fused_conv_bf16_sm90", r"ILi(\d+)EE",
+             ["BN128", "BN64"])):
+        conv = ptxas_report(
+            log, name + "_kernel" + instance,
+            lambda m: f"BN{m[1]}" + (f"_{('4', '16')[int(m[2])]}B"
+                                     if m.lastindex == 2 else ""))
+        for key, row in sorted(conv.items()):
+            row["dynamic_smem_bytes"] = lib.fused_conv_sm90_smem_bytes(
+                int(key[2:].split("_")[0]), int(kind == "bf16"))
+            print(f"[build] {name} {key}: {row.get('registers')} "
+                  f"registers, {row.get('spill_bytes')} B spilled, "
+                  f"{row['dynamic_smem_bytes']:,} B dynamic shared memory")
+        check(sorted(conv) == keys
+              and all(row.get("spill_bytes") == 0 for row in conv.values()),
+              f"{name} ptxas report: {conv}")
+        conv_routes[kind] = conv
     # The SSD scan's three kernels, per chunk (64, 128) where built:
     # registers, spills (none allowed) and dynamic shared memory.
     scan = ptxas_report(log, r"(mamba_scan_(?:chunk_state|state_pass|"
@@ -985,7 +1039,8 @@ def build() -> tuple[float, dict]:
           f"flash backward ptxas report: {flash_bwd}")
     backward["flash_attention_bwd"] = flash_bwd
     return secs, {"flash_attention_sm90": sm90, "flash_attention_f32": f32,
-                  "fused_conv_sm90": conv,
+                  "fused_conv_sm90": conv_routes["f32"],
+                  "fused_conv_bf16_sm90": conv_routes["bf16"],
                   "mamba_scan_sm90": scan, "mlstm_scan_sm90": mlstm,
                   **backward}
 
@@ -1022,13 +1077,26 @@ def conv_inputs(i: int, shape):
     return x, w, scale, shift, residual
 
 
-def conv_plan(shape) -> tuple[int, int]:
-    """The tile width and split of K the wrapper picks for ``shape``."""
-    from repro_torch.kernels.fused_conv import plan, resident_blocks
+def conv16_inputs(i: int, shape):
+    """``conv_inputs`` with x, w and the residual rounded to bf16, the bf16
+    route's operands; scale and shift stay f32, as a folded BN is."""
+    x, w, scale, shift, res = conv_inputs(i, shape)
+    return (x.bfloat16(), w.bfloat16(), scale, shift,
+            None if res is None else res.bfloat16())
+
+
+def conv_plan(shape, kind: str = "f32") -> tuple[int, int]:
+    """The tile width and split of K the wrapper picks for ``shape`` on the
+    ``kind`` route."""
+    from repro_torch.kernels.fused_conv import (K_BLOCKS, padded_cin, plan,
+                                                resident_blocks)
     _, _, hw, cin, cout, k, s, p, _, _ = shape
     oh = (hw + 2 * p - k) // s + 1
+    if kind == "bf16":
+        cin = padded_cin(cin)
     return plan(BATCH * oh * oh, cout, k * k * cin,
-                resident_blocks(torch.cuda.current_device()))
+                resident_blocks(torch.cuda.current_device(), kind),
+                K_BLOCKS[kind])
 
 
 def kernel_check() -> list[dict]:
@@ -1058,6 +1126,50 @@ def kernel_check() -> list[dict]:
     return rows
 
 
+def within_bf16(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """The largest |out − ref| and the largest share of the bf16 limit
+    BF16_ULP·|ref| + KERNEL_RTOL·max|ref| an element uses."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    limit = BF16_ULP * r.abs() + KERNEL_RTOL * r.abs().max()
+    return err.max().item(), (err / limit).max().item()
+
+
+def kernel_check_bf16() -> list[dict]:
+    """Phase 3's shapes on the bf16 route: every element within the bf16
+    limit of the plain version on the same operands, two launches
+    bit-equal, every launch on the bf16 route."""
+    from repro_torch.kernels.fused_conv import fused_conv_kernel
+    from repro_torch.kernels.ref import fused_conv_ref
+    rows = []
+    zero_launches()
+    for i, shape in enumerate(CONV_SHAPES):
+        name, count, _, _, _, _, s, p, relu, _ = shape
+        x, w, scale, shift, res = conv16_inputs(i, shape)
+        kw = dict(stride=s, padding=p, relu=relu, residual=res)
+        out = fused_conv_kernel(x, w, scale, shift, **kw)
+        again = fused_conv_kernel(x, w, scale, shift, **kw)
+        torch.cuda.synchronize()
+        ref = fused_conv_ref(x, w, scale, shift, **kw)
+        check(out.shape == ref.shape and out.dtype == torch.bfloat16,
+              f"{name} bf16: {out.shape} {out.dtype} vs {ref.shape}")
+        err, used = within_bf16(out, ref)
+        tile_n, splits = conv_plan(shape, "bf16")
+        print(f"[check] bf16 {name:16s} out {tuple(out.shape)} tile "
+              f"128x{tile_n} split {splits} max_abs_err {err:.3e} (max "
+              f"|plain| {ref.abs().max().item():.3f}) limit used {used:.3f}")
+        check(used <= 1, f"{name} bf16: kernel vs plain uses {used:.3f} of "
+              f"the limit")
+        check(torch.equal(out, again), f"{name} bf16: two launches differ")
+        rows.append({"name": name, "per_forward": count,
+                     "out": list(out.shape), "tile_n": tile_n,
+                     "splits": splits, "max_abs_err": err,
+                     "limit_used": used})
+    check_launches({"fused_conv": 2 * len(CONV_SHAPES)}, "bf16 conv check",
+                   conv_route="bf16")
+    return rows
+
+
 def perturb_bn(tree: dict, g: torch.Generator) -> None:
     """Moves every BN off the identity, so that folding it matters."""
     for v in tree.values():
@@ -1069,6 +1181,13 @@ def perturb_bn(tree: dict, g: torch.Generator) -> None:
             v["bias"].copy_(0.1 * torch.randn(c, generator=g))
         elif isinstance(v, dict):
             perturb_bn(v, g)
+
+
+def resnet_requests() -> list[torch.Tensor]:
+    """The REQUESTS batches of images ResNet18 serves, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    return [torch.randn(BATCH, IMAGE_HW, IMAGE_HW, 3, generator=g,
+                        device="cuda") for _ in range(REQUESTS)]
 
 
 def model_path() -> dict:
@@ -1083,9 +1202,7 @@ def model_path() -> dict:
                              cfg.vocab_size, device=model.device)
     perturb_bn(params, torch.Generator().manual_seed(SEED + 1))
     net = R.ResNet18(cfg.vocab_size, params=params, device=model.device)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    requests = [torch.randn(BATCH, IMAGE_HW, IMAGE_HW, 3, generator=g,
-                            device="cuda") for _ in range(REQUESTS)]
+    requests = resnet_requests()
 
     zero_launches()
     logits, latency_ms = [], []
@@ -1138,6 +1255,116 @@ def _to_cpu(tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def bf16_tree(tree: dict) -> dict:
+    """``tree`` as JAX's bf16 ResNet18 keeps it (``init_resnet18(key, n,
+    jnp.bfloat16)``): every leaf bf16 but the BN statistics, f32."""
+    return {k: bf16_tree(v) if isinstance(v, dict)
+            else v if k in ("mean", "var") else v.bfloat16()
+            for k, v in tree.items()}
+
+
+def f32_tree(tree: dict) -> dict:
+    return {k: f32_tree(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def bf16_distances(out: torch.Tensor, plain: torch.Tensor,
+                   ref32: torch.Tensor, what: str) -> dict:
+    """BF16_DIST_FACTOR's rule: ``out`` (a bf16 kernel path) no farther
+    from ``ref32`` (the f32 kernel path of the same weights and input) than
+    BF16_DIST_FACTOR times ``plain`` (the bf16 path under ops.plain())."""
+    d_kernel = (out.float() - ref32).abs().max().item()
+    d_plain = (plain.float() - ref32).abs().max().item()
+    check(d_kernel <= BF16_DIST_FACTOR * d_plain,
+          f"{what}: bf16 kernel path {d_kernel:.3e} from the f32 kernel "
+          f"path, more than {BF16_DIST_FACTOR} x the plain bf16 path's "
+          f"{d_plain:.3e}")
+    return {"d_kernel": d_kernel, "d_plain": d_plain,
+            "max_abs_f32": ref32.abs().max().item()}
+
+
+def model_path_bf16(params: dict) -> dict:
+    """ResNet18 in bf16 (the resnet18 config with both dtypes bf16, as in
+    JAX) built through ``build_model`` on phase 4's weights (``params``) as
+    JAX's bf16 tree keeps them, serving phase 4's requests in bf16, then
+    ``forward_fused_groups``: 20 launches a forward, all on the bf16 route,
+    finite logits, the fused groups bit-equal to the forward; the first
+    request held by BF16_DIST_FACTOR's rule against the f32 kernel forward
+    of the same weights (its 20 launches on the f32 route) beside the plain
+    bf16 forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_conv as fc
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models import resnet as R
+    cfg = dataclasses.replace(get_config("resnet18"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    model = build_model(cfg)
+    tree = bf16_tree(params)
+    net = R.ResNet18(cfg.vocab_size, params=tree, device=model.device)
+    twin = R.ResNet18(cfg.vocab_size, params=f32_tree(tree),
+                      device=model.device)
+    requests = [x.bfloat16() for x in resnet_requests()]
+
+    zero_launches()
+    logits, latency_ms = [], []
+    for x in requests:
+        before = fc.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = model.forward(net, {"images": x})
+        torch.cuda.synchronize()
+        latency_ms.append((time.perf_counter() - t0) * 1e3)
+        check(fc.launches - before == CONVS_PER_FORWARD,
+              f"{fc.launches - before} fused-conv launches in a bf16 forward")
+        logits.append(out)
+    before = fc.launches
+    fused = net.forward_fused_groups(requests[0])
+    torch.cuda.synchronize()
+    check(fc.launches - before == CONVS_PER_FORWARD,
+          f"{fc.launches - before} launches in the bf16 forward_fused_groups")
+    launches = check_launches({"fused_conv": fc.launches},
+                              "bf16 ResNet18 requests",
+                              conv_route="bf16")["fused_conv"]
+    for out in logits:
+        check(tuple(out.shape) == (BATCH, cfg.vocab_size)
+              and out.dtype == torch.bfloat16,
+              f"bf16 logits {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), "non-finite bf16 logits")
+    check(torch.equal(fused, logits[0]),
+          "bf16 forward_fused_groups differs from the forward")
+
+    zero_launches()
+    ref32 = twin(requests[0].float())
+    torch.cuda.synchronize()
+    check_launches({"fused_conv": CONVS_PER_FORWARD}, "the f32 twin forward")
+    before = launch_counts()
+    with ops.plain():
+        plain = net(requests[0])
+    torch.cuda.synchronize()
+    check(launch_counts() == before, "ops.plain() launched a kernel")
+    held = bf16_distances(logits[0], plain, ref32, "bf16 ResNet18 logits")
+    top2 = ref32.topk(2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > held["d_kernel"] + held["d_plain"]
+    agree = logits[0].float().argmax(-1) == plain.float().argmax(-1)
+    check(bool(agree[sure].all()), f"bf16 ResNet18: top-1 differs from the "
+          f"plain bf16 forward where the f32 margin exceeds both distances "
+          f"({agree.tolist()}, {sure.tolist()})")
+    print(f"[model] bf16: {REQUESTS} requests of {BATCH}x{IMAGE_HW}x"
+          f"{IMAGE_HW}x3: latency ms {[round(t, 3) for t in latency_ms]}, "
+          f"fused_conv launches {launches} ({CONVS_PER_FORWARD} per forward, "
+          f"all bf16 route); fused groups == forward; logits vs the f32 "
+          f"kernel forward of the same weights: kernel {held['d_kernel']:.3e}"
+          f", plain bf16 {held['d_plain']:.3e} (limit {BF16_DIST_FACTOR} x; "
+          f"max |f32 logits| {held['max_abs_f32']:.3e}); top-1 equal to "
+          f"plain on {int(sure.sum())} of {BATCH} rows held by the margin "
+          f"({int(agree.sum())} of {BATCH} equal)")
+    return {"net": net, "twin": twin, "x": requests[0], "launches": launches,
+            "request_latency_ms": latency_ms, **held,
+            "top1_held_rows": int(sure.sum()),
+            "top1_equal_rows": int(agree.sum())}
+
+
 def touched(n: int, k: int, s: int, p: int) -> int:
     """How many of n input rows (or columns) a k-wide window at stride s and
     padding p reads: a 1x1/s2 conv reads every other one."""
@@ -1173,17 +1400,38 @@ def bounds(shape) -> dict:
             "bound_f32_by": f32["bound_by"]}
 
 
-def timings(rows: list[dict], model: dict) -> dict:
+def bounds_bf16(shape) -> dict:
+    """The bf16 route's bound: one bf16 product, 2·M·N·K operations at the
+    tensor cores' rate, a third of the f32 route's, or its bytes (bf16 x as
+    the window reads it, w, the residual and the output; f32 scale and
+    shift), half the f32 route's; ``ops`` is the conv and its epilogue, for
+    TFLOP/s."""
+    _, _, hw, cin, cout, k, s, p, relu, res = shape
+    oh = (hw + 2 * p - k) // s + 1
+    m, kk = BATCH * oh * oh, k * k * cin
+    ops = 2 * m * cout * kk + m * cout * (2 + int(res) + int(relu))
+    nbytes = 2 * (BATCH * touched(hw, k, s, p) ** 2 * cin + kk * cout
+                  + m * cout * (1 + int(res))) + 4 * 2 * cout
+    return {**roofline(2 * m * cout * kk, nbytes, peak=PEAK_BF16_OPS),
+            "ops": ops}
+
+
+def shape_timings(rows: list[dict], inputs, bounds_fn, tag: str) -> None:
+    """Per conv shape of ``rows`` (one route's, operands from ``inputs``):
+    the kernel, its plain version and the library conv (``F.conv2d``
+    channels-last in the operands' dtype, without the epilogue) by CUDA
+    events, the kernel's and the library's device time, the bound from
+    ``bounds_fn`` and TFLOP/s."""
     from repro_torch.kernels.fused_conv import fused_conv_kernel
     from repro_torch.kernels.ref import fused_conv_ref
     for i, (shape, row) in enumerate(zip(CONV_SHAPES, rows)):
         _, _, _, _, _, _, s, p, relu, _ = shape
-        x, w, scale, shift, res = conv_inputs(i, shape)
+        x, w, scale, shift, res = inputs(i, shape)
         kw = dict(stride=s, padding=p, relu=relu, residual=res)
         x_nchw = x.permute(0, 3, 1, 2)          # channels-last view, no copy
         w_lib = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        row.update(bounds(shape))
+        row.update(bounds_fn(shape))
         row["ms"] = cuda_ms(lambda: fused_conv_kernel(x, w, scale, shift,
                                                       **kw))
         row["plain_ms"] = cuda_ms(lambda: fused_conv_ref(x, w, scale, shift,
@@ -1196,19 +1444,38 @@ def timings(rows: list[dict], model: dict) -> dict:
             x, w, scale, shift, **kw))
         row["library_device_ms"] = device_ms(lambda: F.conv2d(
             x_nchw, w_lib, stride=s, padding=p))
-        print(f"[time] {row['name']:16s} x{row['per_forward']} 128x"
+        print(f"[time] {tag}{row['name']:16s} x{row['per_forward']} 128x"
               f"{row['tile_n']}/{row['splits']} kernel {row['ms']:.4f} ms  "
               f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}"
-              f"  bound {row['bound_ms']:.4f} ({row['bound_by']}, bf16x3) "
-              f"f32 {row['bound_f32_ms']:.4f} ({row['bound_f32_by']})  "
-              f"{row['ops'] / row['ms'] / 1e9:.1f} TFLOP/s; on the card "
+              f"  bound {row['bound_ms']:.4f} ({row['bound_by']}; "
+              f"operations {row['ops_ms']:.4f}, bytes {row['bytes_ms']:.4f})"
+              + (f" f32 on the CUDA cores {row['bound_f32_ms']:.4f} "
+                 f"({row['bound_f32_by']})" if "bound_f32_ms" in row else "")
+              + f"  {row['ops'] / row['ms'] / 1e9:.1f} TFLOP/s; on the card "
               f"kernel {fmt_ms(row['device_ms'])} library "
               f"{fmt_ms(row['library_device_ms'])}")
+
+
+def timings(rows: list[dict], model: dict) -> dict:
+    shape_timings(rows, conv_inputs, bounds, "")
     net, x = model["net"], model["x"]
     fwd_ms = cuda_ms(lambda: net(x), iters=10)
     print(f"[time] forward batch {BATCH} at {IMAGE_HW}²: {fwd_ms:.3f} ms "
           f"(CUDA events, mean of 10)")
     return {"forward_ms": fwd_ms}
+
+
+def timings_bf16(rows: list[dict], model: dict) -> dict:
+    """Phase 5 for the bf16 route: per shape as ``timings``, with cuDNN's
+    bf16 conv as the library, and the bf16 forward by CUDA events and by
+    the device time of its kernels."""
+    shape_timings(rows, conv16_inputs, bounds_bf16, "bf16 ")
+    net, x = model["net"], model["x"]
+    fwd_ms = cuda_ms(lambda: net(x), iters=10)
+    fwd_dev = device_ms(lambda: net(x), runs=5)
+    print(f"[time] bf16 forward batch {BATCH} at {IMAGE_HW}²: {fwd_ms:.3f} "
+          f"ms (CUDA events, mean of 10), on the card {fmt_ms(fwd_dev)} ms")
+    return {"forward_ms": fwd_ms, "forward_device_ms": fwd_dev}
 
 
 def device_ms(fn, runs: int = 10) -> float | None:
@@ -1454,6 +1721,80 @@ def halo_path(model: dict, smi: str) -> dict:
     return {"groups": rows, "exact_chain": exact, "windowed_attention": attn}
 
 
+def halo_groups_bf16(model: dict, smi: str) -> list[dict]:
+    """Phase 6's three fused groups in bf16, on phase 4's bf16 net and first
+    request: each sharded call makes exactly its launches, all on the bf16
+    route, and is held by BF16_DIST_FACTOR's rule at any row against the
+    same sharded call of the f32 twin (the f32 route, on the bf16 input
+    upcast) beside the bf16 call under ``ops.plain()``; against the group
+    run whole, with more than two shards, rows outside the first and last
+    shard within BF16_DIST_FACTOR times the plain call's distance (the
+    sharded and whole runs differ in their splits of K, which move bf16
+    roundings as the plain version's sums do), deviating rows only in
+    those two shards."""
+    from repro_torch.core import halo as H
+    from repro_torch.core.tiling import resnet18_fused_groups
+    from repro_torch.kernels import ops
+    from repro_torch.models import resnet as R
+    fns, _ = R.fused_group_fns(model["net"].folded)
+    fns32, _ = R.fused_group_fns(model["twin"].folded)
+    x = model["x"]
+    rows = []
+    for gi, (fn, fn32, group, n, launches) in enumerate(zip(
+            fns, fns32, resnet18_fused_groups(IMAGE_HW), HALO_SHARDS,
+            HALO_LAUNCHES)):
+        stride = group[0].iy // group[-1].oy
+        halo = stride * math.ceil(H.group_halo_rows(group, n) / stride)
+        shrink = halo // stride
+
+        def sharded(f, t):
+            return H.run_fused_group(f, t, n, halo=halo, shrink=shrink)
+        whole = fn(x)
+        ref32 = sharded(fn32, x.float())
+        with ops.plain():
+            plain = sharded(fn, x)
+        zero_launches()
+        out = sharded(fn, x)
+        torch.cuda.synchronize()
+        check_launches({"fused_conv": launches}, f"bf16 halo group {gi}",
+                       conv_route="bf16")
+        check(out.shape == whole.shape and out.dtype == torch.bfloat16,
+              f"bf16 halo group {gi}: {out.shape} {out.dtype}")
+        held = bf16_distances(out, plain, ref32, f"bf16 halo group {gi}")
+        limit = BF16_DIST_FACTOR * held["d_plain"]
+        dev = (out.float() - whole.float()).abs().amax(dim=(0, 2, 3))
+        per = whole.shape[1] // n
+        bad = [r for r in range(whole.shape[1]) if dev[r].item() > limit]
+        interior = dev[per:-per].max().item() if n > 2 else None
+        print(f"[halo] bf16 group {gi} {tuple(x.shape)} -> "
+              f"{tuple(out.shape)}: {n} shards, halo {halo}, {launches} "
+              f"fused_conv launches (bf16 route); from the f32 twin's "
+              f"sharded call at any row: kernel {held['d_kernel']:.3e}, "
+              f"plain bf16 {held['d_plain']:.3e} (limit {BF16_DIST_FACTOR} x)"
+              f"; vs whole: interior shards "
+              + (f"max err {interior:.3e} (limit {limit:.3e})"
+                 if interior is not None else "none")
+              + f", {len(bad)} of {whole.shape[1]} rows deviate (rows {bad})")
+        if interior is not None:
+            check(interior <= limit, f"bf16 halo group {gi}: interior rows "
+                  f"err {interior:.3e} > {limit:.3e}")
+            check(all(r < per or r >= whole.shape[1] - per for r in bad),
+                  f"bf16 halo group {gi}: rows {bad} deviate outside the "
+                  f"boundary shards")
+        del ref32, plain
+        rows.append({"group": gi, "shards": n, "halo": halo,
+                     "launches": launches, **held, "limit": limit,
+                     "interior_max_abs_err": interior, "rows_deviating": bad,
+                     "ms": cuda_ms(lambda: sharded(fn, x), HALO_ITERS),
+                     "whole_ms": cuda_ms(lambda: fn(x), HALO_ITERS)})
+        x = whole                     # the next group's input
+    print(f"[time] bf16 halo, CUDA events, mean of {HALO_ITERS} after "
+          f"warm-up, {smi}: " + "; ".join(
+              f"group {r['group']} sharded {r['ms']:.3f} ms, whole "
+              f"{r['whole_ms']:.3f}" for r in rows))
+    return rows
+
+
 # --- gemma2-2b serving: the flash-attention kernel and the LM path ---------------
 
 def key_len(shape) -> int:
@@ -1578,14 +1919,20 @@ def margin_agree(top: torch.Tensor, ref_top: torch.Tensor,
 
 def check_launches(expect: dict[str, int], what: str,
                    route: str | None = None,
-                   bwd_route: str | None = None) -> dict[str, int]:
+                   bwd_route: str | None = None,
+                   conv_route: str = "f32") -> dict[str, int]:
     """The counts since ``zero_launches``: exactly ``expect`` of each kernel
-    it names, none of the others, every flash launch on ``route`` and every
+    it names, none of the others, every flash launch on ``route``, every
     flash backward launch on ``bwd_route`` (by default that route's
-    backward)."""
+    backward) and every fused-conv launch on ``conv_route``."""
     got = launch_counts()
     want = {name: expect.get(name, 0) for name in got}
     check(got == want, f"{what}: kernel launches {got}, want {want}")
+    conv = dict(kernel_modules()["fused_conv"].launches_by_route)
+    want_conv = {r: want["fused_conv"] if r == conv_route else 0
+                 for r in conv}
+    check(conv == want_conv, f"{what}: fused_conv launches by route {conv}, "
+          f"want {want_conv}")
     FA = kernel_modules()["flash_attention"]
     routes = dict(FA.launches_by_kernel)
     want_routes = dict.fromkeys(routes, 0)
@@ -2107,6 +2454,31 @@ def scan_inputs(i: int, shape, cfg):
     return dtx, a, randn(b, s, N) * 0.3, randn(b, s, N) * 0.3
 
 
+def scan_dtype_check(tag: str, op: str, plain, args: tuple, bf16: tuple,
+                     limit: float) -> dict:
+    """``ops.<op>`` on the card with the operands ``bf16`` names rounded to
+    bf16 (the gates stay f32): one kernel launch, the first operand's dtype
+    out, as JAX's ops give, and every element within one bf16 ulp of the
+    plain version on the f32 copies plus ``limit``."""
+    from repro_torch.kernels import ops
+    args = tuple(a.bfloat16() if i in bf16 else a for i, a in enumerate(args))
+    mod = kernel_modules()[op]
+    before = mod.launches
+    out = getattr(ops, op)(*args)
+    torch.cuda.synchronize()
+    check(mod.launches == before + 1 and out.dtype == torch.bfloat16,
+          f"{op} on bf16: {mod.launches - before} launches, {out.dtype}")
+    ref = plain(*(a.float() for a in args))
+    err = (out.float() - ref).abs()
+    used = (err / (BF16_ULP * ref.abs() + limit)).max().item()
+    print(f"[{tag}] bf16 operands {tuple(args[0].shape)}: out {out.dtype}, "
+          f"max_abs_err {err.max().item():.3e} against the plain version on "
+          f"f32 copies, limit used {used:.3f} (one bf16 ulp + {limit})")
+    check(used <= 1, f"{op} on bf16 uses {used:.3f} of its limit")
+    return {"shape": list(args[0].shape), "dtype": str(out.dtype),
+            "max_abs_err": err.max().item(), "limit_used": used}
+
+
 def scan_closed_form(shape, dtx, a, Bm, Cm):
     """The full reset (a_log = -30): y_t = (C_t·B_t)·dtx_t."""
     return (Cm * Bm).sum(-1)[..., None, None] * dtx \
@@ -2319,8 +2691,11 @@ def per_forward(rows: list[dict], key: str) -> float:
 
 def conv_times() -> None:
     """Per conv shape of one forward, the fused conv's CUDA-event and device
-    time, and their sums over the forward."""
+    time, and their sums over the forward; then, where the checkout has the
+    bf16 route, the same on it beside the plain version, cuDNN's bf16 conv,
+    both bounds and TFLOP/s (``shape_timings``)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_conv as fc
     from repro_torch.kernels.fused_conv import fused_conv_kernel
     _build.library()
     total = {"events": 0.0, "device": 0.0}
@@ -2340,6 +2715,22 @@ def conv_times() -> None:
               f"{fmt_ms(dev)}")
     print(f"[conv] per forward: events {total['events']:.4f} ms, on the card "
           f"{fmt_ms(total['device'] if measured else None)}")
+    if not hasattr(fc, "K_BLOCKS"):   # a checkout without the bf16 route
+        return
+    rows = [{"name": shape[0], "per_forward": shape[1],
+             **dict(zip(("tile_n", "splits"), conv_plan(shape, "bf16")))}
+            for shape in CONV_SHAPES]
+    shape_timings(rows, conv16_inputs, bounds_bf16, "bf16 ")
+    measured = all(r["device_ms"] is not None for r in rows)
+    print(f"[conv] bf16 per forward: events {per_forward(rows, 'ms'):.4f} "
+          f"ms, on the card "
+          f"{fmt_ms(per_forward(rows, 'device_ms') if measured else None)}"
+          f", bound {per_forward(rows, 'bound_ms'):.4f} (operations "
+          f"{per_forward(rows, 'ops_ms'):.4f}, bytes "
+          f"{per_forward(rows, 'bytes_ms'):.4f}), cuDNN bf16 on the card "
+          + fmt_ms(per_forward(rows, 'library_device_ms')
+                   if all(r["library_device_ms"] is not None for r in rows)
+                   else None))
 
 
 def flash_bwd_times() -> None:
@@ -4515,12 +4906,18 @@ def main() -> int:
         print(f"[time] script {time.perf_counter() - T0:.0f} s")
         return 0
     rows = kernel_check()
+    rows16 = kernel_check_bf16()
     model = model_path()
+    model16 = model_path_bf16(model["net"].params)
     fwd = timings(rows, model)
     fwd.update(profile(model))
+    fwd16 = timings_bf16(rows16, model16)
     halo = halo_path(model, smi)
+    halo["bf16_groups"] = halo_groups_bf16(model16, smi)
     phase_time("3-6")
     del model["net"], model["x"]
+    for key in ("net", "twin", "x"):
+        del model16[key]
 
     from repro_torch.configs import get_config
     # deepseek-moe-16b's weights, drawn on the host beside phases 7-21
@@ -4558,6 +4955,9 @@ def main() -> int:
         "scan", mamba_scan_kernel, mamba_scan_ref, SCAN_SHAPES, h_inputs,
         scan_closed_form, SCAN_ATOL, "the reset shape also against (C_t.B_t) "
         "dtx_t", twice=True)
+    scan_bf16 = scan_dtype_check(
+        "scan", "mamba_scan", mamba_scan_ref, h_inputs(2, SCAN_SHAPES[2]),
+        (0, 2, 3), SCAN_ATOL)
     h_flash_rows = flash_check(hcfg, HYBRID_FLASH_SHAPES, SEED + 300)
     hlm = prefill_path(hcfg, HYBRID_PREFILL_S, h_expect)
     h_served = serve_path(hcfg, hlm, h_expect)
@@ -4595,6 +4995,9 @@ def main() -> int:
         "mlstm", mlstm_scan_kernel, mlstm_ref, MLSTM_SHAPES, x_inputs,
         mlstm_closed_form, MLSTM_ATOL, MLSTM_CLOSED_NOTE, twice=True,
         exact=in_f64(mlstm_ref))
+    mlstm_bf16 = scan_dtype_check(
+        "mlstm", "mlstm_scan", mlstm_ref, x_inputs(2, MLSTM_SHAPES[2]),
+        (0, 1, 2), MLSTM_ATOL)
     xlm = prefill_path(xcfg, XLSTM_PREFILL_S, x_expect, limit=None)
     x_served = serve_path(xcfg, xlm, x_expect, limit=None)
     # The same prefill in f32 at full width cut to XLSTM_F32_LAYERS, held
@@ -4718,6 +5121,27 @@ def main() -> int:
             "library_device_ms": per_forward(rows, "library_device_ms")}),
         "times_are": f"sums over the {CONVS_PER_FORWARD} launches of one "
                      f"batch-{BATCH} forward; per shape in chip_smoke.json",
+    }, {
+        "name": "fused_conv_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_conv_sm90.cu",
+        "replaces": "src/repro/kernels/fused_conv.py:82",
+        "launches": model16["launches"],
+        "launches_are": "the bf16 route's (fused_conv_bf16_sm90_kernel) in "
+                        "the bf16 ResNet18's requests and fused groups; "
+                        "fused_conv's count the f32 route's",
+        "max_abs_err": max(r["max_abs_err"] for r in rows16),
+        "limit_used": max(r["limit_used"] for r in rows16),
+        **totals(rows16),
+        "bound_is": "one bf16 product on the tensor cores (989 TFLOP/s), or "
+                    "its bf16 bytes",
+        **({} if any(r["device_ms"] is None or r["library_device_ms"] is None
+                     for r in rows16) else {
+            "device_ms": per_forward(rows16, "device_ms"),
+            "library_device_ms": per_forward(rows16, "library_device_ms")}),
+        "library_is": "cuDNN's bf16 conv2d, channels-last, no epilogue",
+        "times_are": f"sums over the {CONVS_PER_FORWARD} launches of one "
+                     f"batch-{BATCH} bf16 forward; per shape in "
+                     f"chip_smoke.json",
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -4938,6 +5362,8 @@ def main() -> int:
     record = {"card": smi, "torch": torch.__version__,
               "build_s": build_s, "ptxas": ptxas,
               "shapes": rows, **fwd, **model, "halo": halo,
+              "bf16": {"shapes": rows16, **fwd16, **model16},
+              "scan_bf16": scan_bf16, "mlstm_bf16": mlstm_bf16,
               "flash_shapes": flash_rows, "flash_head_dim_shapes": dim_rows,
               cfg.name: lm_record(lm, served, lm_times),
               "scan_shapes": scan_rows, "hybrid_flash_shapes": h_flash_rows,
@@ -4961,8 +5387,11 @@ def main() -> int:
     print(f"[summary] forward {fwd['forward_ms']:.3f} ms; median request "
           f"{statistics.median(model['request_latency_ms']):.3f} ms; "
           f"fused_conv {kernels['kernels'][0]['ms']:.3f} ms per forward; "
+          f"bf16 forward {fwd16['forward_ms']:.3f} ms with fused_conv_bf16 "
+          f"{by_name['fused_conv_bf16']['ms']:.3f} ms; "
           f"{cfg.name} prefill 1x{PREFILL_S} {lm_times['prefill_ms']:.2f} ms "
-          f"with flash_attention {kernels['kernels'][1]['ms']:.2f} ms; decode "
+          f"with flash_attention {by_name['flash_attention']['ms']:.2f} ms; "
+          f"decode "
           f"step {lm_times['decode_step_ms']:.3f} ms at batch {SERVE_BATCH}; "
           f"{hcfg.name} prefill 1x{HYBRID_PREFILL_S} "
           f"{h_times['prefill_ms']:.2f} ms with mamba_scan "

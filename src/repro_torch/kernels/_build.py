@@ -28,9 +28,10 @@ _int = ctypes.c_int
 # name -> (restype, argtypes) of every function the library exports
 SIGNATURES = {
     "fused_conv_sm90_f32": (_int, [_ptr] * 6 + [_int] * 15 + [_ptr]),
+    "fused_conv_sm90_bf16": (_int, [_ptr] * 6 + [_int] * 15 + [_ptr]),
     "fused_conv_sm90_error_string": (ctypes.c_char_p, [_int]),
-    "fused_conv_sm90_smem_bytes": (_int, [_int]),
-    "fused_conv_sm90_resident_blocks": (_int, [_int]),
+    "fused_conv_sm90_smem_bytes": (_int, [_int, _int]),
+    "fused_conv_sm90_resident_blocks": (_int, [_int, _int]),
     "flash_attention_f32": (_int, [_ptr] * 5 + [_int] * 7
                             + [ctypes.c_float, _ptr]),
     "flash_attention_f32_smem_bytes": (_int, [_int]),

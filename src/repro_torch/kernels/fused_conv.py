@@ -1,13 +1,26 @@
 """Wrapper of the hand-written Hopper fused CONV + BN + [ADD] + [RELU]
-kernel (``csrc/fused_conv_sm90.cu``: three bf16 products per f32 product on
-the tensor cores through wgmma, split K over a thread block cluster), the
-port of the Pallas ``repro.kernels.fused_conv.fused_conv_kernel``.
+kernel (``csrc/fused_conv_sm90.cu``), the port of the Pallas
+``repro.kernels.fused_conv.fused_conv_kernel``, in two routes:
 
-It takes CUDA tensors only and raises on anything the kernel does not take;
+* ``bf16``: x, w and any residual in bf16, one bf16 product per k-step on
+  the tensor cores through wgmma, bf16 out;
+* ``f32``: any other mix of float dtypes, on exact f32 copies of the
+  operands that are not f32 (as the Pallas kernel reads every operand as
+  f32), three bf16 products per f32 product, f32 out.
+
+Both read scale and shift as f32, split K over a thread block cluster and
+return ``x.dtype`` (the f32 route's result rounded once where x is not
+f32), as the Pallas kernel does.  The bf16 route copies 8 channels of a
+patch row at a time: a call whose Cin is not a multiple of 8 (the stem's
+3) goes in with x and w padded with zero channels (``padded_cin``), a copy
+of x.
+
+It takes CUDA tensors only and raises on anything the kernels do not take;
 ``kernels.ops.fused_conv`` sends CPU tensors to the plain version.
-``launches`` counts the kernel's launches, so a run can show that its path
-went through the kernel.  ``plan`` picks the tile width and the split of K
-per shape.
+``launches`` counts the kernels' launches and ``launches_by_route`` each
+route's, so a run can show that its path went through the kernel it
+expects.  ``plan`` picks the tile width and the split of K per shape and
+route.
 """
 
 from __future__ import annotations
@@ -16,16 +29,22 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
 launches = 0
+launches_by_route = {"f32": 0, "bf16": 0}
 
 _INDEX_LIMIT = 2**31   # the kernel indexes with 32-bit ints
+# the float dtypes of the Pallas kernel's callers (JAX without x64)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 SMS = 132              # streaming multiprocessors of an H100 SXM
 TILE_M = 128           # output pixels per block
-K_BLOCK = 32           # reduction depth the kernel stages at a time
+# reduction depth each route stages at a time: a 128-byte bf16 row
+K_BLOCKS = {"f32": 32, "bf16": 64}
+K_BLOCK = K_BLOCKS["f32"]
 MAX_SPLITS = 8         # the portable thread block cluster
 TILE_N = (64, 128)     # the tile widths the kernel is built for
 # A model of a block's time in k-blocks of the 128-wide tile: a 64-wide
@@ -40,15 +59,18 @@ ALL_SMS = (SMS,) * MAX_SPLITS
 
 
 @functools.cache
-def plan(m: int, n: int, k: int,
-         resident: tuple[int, ...] = ALL_SMS) -> tuple[int, int]:
-    """(tile width, split of K) for an (m x k)·(k x n) implicit GEMM: the
-    pair whose waves of blocks take the least modelled time, where
-    ``resident[s - 1]`` blocks in clusters of s fit on the card at once;
-    ties go to the narrower tile and the smaller split.  Stages 3 and 4 of
-    ResNet18 at batch 8 give 16-26 tiles, which a split of K spreads over
-    the card."""
-    nk = math.ceil(k / K_BLOCK)
+def plan(m: int, n: int, k: int, resident: tuple[int, ...] = ALL_SMS,
+         k_block: int = K_BLOCK) -> tuple[int, int]:
+    """(tile width, split of K) for an (m x k)·(k x n) implicit GEMM staged
+    in k-blocks of ``k_block`` (the route's, ``K_BLOCKS``): the pair whose
+    waves of blocks take the least modelled time, where ``resident[s -
+    1]`` blocks in clusters of s fit on the card at once; ties go to the
+    narrower tile and the smaller split.  Stages 3 and 4 of ResNet18 at
+    batch 8 give 16-26 tiles, which a split of K spreads over the card.  A
+    k-block costs the same on both routes: the bf16 one stages as many
+    bytes (twice the depth at half the width) for two thirds of the f32
+    route's products."""
+    nk = math.ceil(k / k_block)
     best = None
     for bn in TILE_N:
         if bn > TILE_N[0] and n <= TILE_N[0]:
@@ -72,14 +94,15 @@ def _current_stream(device: int) -> int:
 
 
 @functools.cache
-def resident_blocks(device: int) -> tuple[int, ...]:
-    """Per split s = 1..MAX_SPLITS, how many of the kernel's blocks in
-    clusters of s CUDA device ``device`` holds at once: a cluster must fit
-    within one group of SMs, so an H100 holds fewer than one per SM."""
+def resident_blocks(device: int, kind: str = "f32") -> tuple[int, ...]:
+    """Per split s = 1..MAX_SPLITS, how many of the ``kind`` route's
+    blocks in clusters of s CUDA device ``device`` holds at once: a cluster
+    must fit within one group of SMs, so an H100 holds fewer than one per
+    SM."""
     lib = _build.library()
     with torch.cuda.device(device):
-        blocks = tuple(lib.fused_conv_sm90_resident_blocks(s)
-                       for s in range(1, MAX_SPLITS + 1))
+        blocks = tuple(lib.fused_conv_sm90_resident_blocks(
+            s, int(kind == "bf16")) for s in range(1, MAX_SPLITS + 1))
     if min(blocks) < 1:
         raise RuntimeError(f"fused_conv: the card holds no cluster of the "
                            f"kernel's blocks: {blocks}")
@@ -92,13 +115,29 @@ def out_hw(h: int, w: int, kh: int, kw: int, stride: int,
         (w + 2 * padding - kw) // stride + 1
 
 
+def padded_cin(cin: int) -> int:
+    """The input channels the bf16 route's kernel runs a call with: Cin
+    padded with zeros to a multiple of 8, a 16-byte copy of a patch row.
+    Exact, and for the stem (Cin = 3) 1.5x faster on an H100 than
+    gathering its 6-byte pixels element by element, copy included."""
+    return cin + -cin % 8
+
+
+def route(x: torch.Tensor, w: torch.Tensor,
+          residual: torch.Tensor | None = None) -> str:
+    """The kernel route of a call: ``bf16`` when x, w and the residual are
+    all bf16, else ``f32``."""
+    ts = (x, w) if residual is None else (x, w, residual)
+    return "bf16" if all(t.dtype == torch.bfloat16 for t in ts) else "f32"
+
+
 def _check(name: str, t: torch.Tensor, device: torch.device,
            shape: tuple[int, ...]) -> None:
     if t.device != device:
         raise ValueError(f"fused_conv: {name} is on {t.device}, x on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"fused_conv: the kernel takes float32 only, {name} "
-                        f"is {t.dtype}")
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"fused_conv: the kernels take float32, bfloat16 and "
+                        f"float16 (as f32 copies), {name} is {t.dtype}")
     if t.shape != shape:
         raise ValueError(f"fused_conv: {name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
@@ -114,8 +153,12 @@ def fused_conv_kernel(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                       padding: int = 1, relu: bool = True,
                       residual: torch.Tensor | None = None) -> torch.Tensor:
     """x: (B, H, W, Cin) NHWC; w: (kh, kw, Cin, Cout) HWIO; scale, shift:
-    (Cout,); residual: (B, OH, OW, Cout).  Returns (B, OH, OW, Cout) with
-    OH = (H + 2p - kh)//s + 1, all float32 on one CUDA device."""
+    (Cout,); residual: (B, OH, OW, Cout), each f32, bf16 or f16, all on
+    one CUDA device.  Returns (B, OH, OW, Cout) in ``x.dtype`` with OH =
+    (H + 2p - kh)//s + 1, through the bf16 route when x, w and the
+    residual are bf16 (Cin padded to ``padded_cin``), else the f32 route
+    (``route``).  A failed launch raises; no call falls back to the other
+    route or to the plain version."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_kernel runs on CUDA tensors, x is on "
@@ -140,20 +183,34 @@ def fused_conv_kernel(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if B * OH * OW * Cout >= _INDEX_LIMIT:
         raise ValueError(f"fused_conv: the output has {B * OH * OW * Cout} "
                          f"elements, the kernel indexes below {_INDEX_LIMIT}")
-    y = torch.empty((B, OH, OW, Cout), device=x.device, dtype=x.dtype)
+    kind = route(x, w, residual)
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    # the operands the route reads, copied only where the dtype differs (a
+    # dtype check costs less host time than a no-op .to())
+    xk, wk, rk, scale, shift = (
+        t if t is None or t.dtype == want else t.to(want)
+        for t, want in ((x, dtype), (w, dtype), (residual, dtype),
+                        (scale, torch.float32), (shift, torch.float32)))
+    if kind == "bf16" and (Cin % 8 or xk.data_ptr() % 16):
+        pad = padded_cin(Cin) - Cin
+        xk = F.pad(xk, (0, pad)) if pad else xk.clone()   # aligned
+        wk = F.pad(wk, (0, 0, 0, pad)) if pad else wk
+        Cin += pad
+    y = torch.empty((B, OH, OW, Cout), device=x.device, dtype=dtype)
 
     device = x.device.index
     bn, splits = plan(B * OH * OW, Cout, kh * kw * Cin,
-                      resident_blocks(device))
+                      resident_blocks(device, kind), K_BLOCKS[kind])
 
     lib = _build.library()
-    err = lib.fused_conv_sm90_f32(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        None if residual is None else residual.data_ptr(), y.data_ptr(),
+    err = getattr(lib, f"fused_conv_sm90_{kind}")(
+        xk.data_ptr(), wk.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        None if rk is None else rk.data_ptr(), y.data_ptr(),
         B, H, W, Cin, kh, kw, Cout, OH, OW, stride, padding, int(relu), bn,
         splits, device, _current_stream(device))
     if err:
-        raise RuntimeError(f"fused_conv kernel launch failed: "
+        raise RuntimeError(f"fused_conv kernel launch failed ({kind} route): "
                            f"{lib.fused_conv_sm90_error_string(err).decode()}")
     launches += 1
-    return y
+    launches_by_route[kind] += 1
+    return y if y.dtype == x.dtype else y.to(x.dtype)

@@ -12,6 +12,14 @@ sequence for the TPU's sequential grid; their results do not depend on it
 (the JAX tests' chunk-invariance cases), so ``mamba_scan`` and
 ``mlstm_scan`` take none.
 
+Dtypes, as in JAX's ops: ``fused_conv`` takes any mix of f32, bf16 and
+f16 operands, computes in f32 and returns ``x.dtype``; on the card x, w
+and the residual all in bf16 take the kernel's bf16 route (one bf16
+product per k-step), any other mix its f32 route on f32 copies.  The scans
+take bf16 (or f16) operands too, compute in f32 (their kernels, and the
+plain versions, on f32 copies) and return the first operand's dtype, also
+under autograd.
+
 Training: on a CUDA tensor that needs a gradient (grad mode on, an input
 requiring grad, outside ``plain()``), each op with a backward launches its
 kernel through its autograd function, whose backward is a hand-written
@@ -165,7 +173,9 @@ def fused_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                relu: bool = True,
                residual: torch.Tensor | None = None) -> torch.Tensor:
     """[relu](conv(x, w, stride, padding)·scale + shift [+ residual]),
-    NHWC/HWIO, accumulated in f32."""
+    NHWC/HWIO, accumulated in f32 and returned in ``x.dtype``, for any mix
+    of f32, bf16 and f16 operands (``fused_conv.route`` picks the kernel's
+    route on the card)."""
     if _use_plain(x):
         fn = fused_conv_ref
     else:
@@ -207,40 +217,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(Bt, H, S, D).transpose(1, 2)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """bf16 and f16 as an f32 copy (exact), any other tensor as it is."""
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
 def mamba_scan(dtx: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor) -> torch.Tensor:
     """The SSD recurrence ``S_t = e^{a_t}·S_{t-1} + dtx_t ⊗ B_t``,
     ``y_t = S_t·C_t``: dtx (b, S, H, P), a_log (b, S, H), B/C (b, S, N)
-    shared by all heads, all f32 → y (b, S, H, P) in f32."""
+    shared by all heads → y (b, S, H, P) in ``dtx.dtype``, computed in f32
+    (bf16 and f16 operands as f32 copies)."""
     if any(is_dtensor(t) for t in (dtx, a_log, B, C)):
         return _local_route(
             mamba_scan, (dtx, a_log, B, C),
             {0: (0, 0, 0, 0), 2: (2, 2, None, None)},
             meta_fn=lambda x, a, b, c: x * a[..., None]
             * (b * c).sum(-1)[..., None, None])
-    args = (dtx.contiguous(), a_log.contiguous(), B.contiguous(),
-            C.contiguous())
+    args = tuple(_f32(t).contiguous() for t in (dtx, a_log, B, C))
     if _use_plain(dtx):
-        return mamba_scan_ref(*args)
-    if _needs_grad(*args):
-        return MambaScan.apply(*args)
-    return mamba_scan_kernel(*args)
+        y = mamba_scan_ref(*args)
+    elif _needs_grad(*args):
+        y = MambaScan.apply(*args)
+    else:
+        y = mamba_scan_kernel(*args)
+    return y.to(dtx.dtype)
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
     """The stabilised mLSTM recurrence: q, k, v (b, S, H, P), i_pre and
-    f_pre (b, S, H), all f32 → h (b, S, H, P) in f32 (``ref.mlstm_ref``
-    gives the formulas)."""
+    f_pre (b, S, H) → h (b, S, H, P) in ``q.dtype``, computed in f32 (bf16
+    and f16 operands as f32 copies; ``ref.mlstm_ref`` gives the
+    formulas)."""
     if any(is_dtensor(t) for t in (q, k, v, i_pre, f_pre)):
         return _local_route(
             mlstm_scan, (q, k, v, i_pre, f_pre), {0: (0,) * 5, 2: (2,) * 5},
             meta_fn=lambda q_, k_, v_, i, f: q_ * k_ * v_
             * (i * f)[..., None])
-    args = (q.contiguous(), k.contiguous(), v.contiguous(),
-            i_pre.contiguous(), f_pre.contiguous())
+    args = tuple(_f32(t).contiguous() for t in (q, k, v, i_pre, f_pre))
     if _use_plain(q):
-        return mlstm_ref(*args)
-    if _needs_grad(*args):
-        return MLSTMScan.apply(*args)
-    return mlstm_scan_kernel(*args)
+        h = mlstm_ref(*args)
+    elif _needs_grad(*args):
+        h = MLSTMScan.apply(*args)
+    else:
+        h = mlstm_scan_kernel(*args)
+    return h.to(q.dtype)

@@ -50,15 +50,16 @@ def init_basic_block(gen: torch.Generator, cin: int, cout: int, stride: int,
 def fold_bn(p: Params) -> Params:
     """The tree the forwards run on: ``p`` in the JAX package's layout with
     each BN dict folded to the fused conv's ``{"scale": γ·rsqrt(var+eps),
-    "shift": β − mean·scale}``.  The conv and head weights are the same
-    tensors, not copies."""
+    "shift": β − mean·scale}``, both f32 for a tree of any dtype: the fused
+    conv reads them as f32, and rounding them to a bf16 tree's dtype would
+    add an error that JAX's BN does not make.  The conv and head weights are
+    the same tensors, not copies."""
     out: Params = {}
     for k, v in p.items():
         if isinstance(v, dict) and "var" in v:
             scale = v["scale"].float() * torch.rsqrt(v["var"].float() + BN_EPS)
             shift = v["bias"].float() - v["mean"].float() * scale
-            out[k] = {"scale": scale.to(v["scale"].dtype),
-                      "shift": shift.to(v["scale"].dtype)}
+            out[k] = {"scale": scale, "shift": shift}
         else:
             out[k] = fold_bn(v) if isinstance(v, dict) else v
     return out

@@ -107,6 +107,153 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         ops.fused_conv(x, w.cpu(), scale, shift)
 
 
+# The bf16 route (x, w and the residual bf16) against the plain version on
+# the same operands, per element: one bf16 ulp, where the two f32 sums
+# round on the two sides of a tie, plus RTOL of the conv's size.
+BF16_ULP = 2.0**-7
+
+CONV_SHAPES = [
+    (2, 32, 3, 64, 7, 2, 3, True, False),       # stem: Cin=3, K=147
+    (2, 14, 64, 64, 3, 1, 1, True, True),       # ADD_RELU epilogue
+    (2, 14, 64, 128, 3, 2, 1, True, False),     # 3x3/s2
+    (2, 14, 64, 128, 1, 2, 0, False, False),    # 1x1/s2 downsample
+    (1, 7, 96, 40, 3, 1, 1, True, True),        # 7x7 map, ragged Cout
+    (3, 9, 5, 70, 3, 2, 1, False, True),        # ragged everything
+    (8, 7, 512, 512, 3, 1, 1, True, True),      # stage 4, K split
+    (8, 14, 256, 512, 3, 2, 1, True, False),    # stage 4's 3x3/s2, split
+    (8, 14, 256, 256, 3, 1, 1, True, True),     # stage 3, split
+    (2, 14, 256, 40, 3, 1, 1, True, False),     # Cout 40, split K
+    (2, 15, 64, 64, 3, 1, 1, False, True),      # M = 450, no whole tile
+    (1, 224, 3, 64, 7, 2, 3, False, True),      # the stem with a residual
+]
+
+
+def _bf16(t):
+    return None if t is None else t.bfloat16()
+
+
+def _within_bf16(out, ref):
+    err = (out.float() - ref.float()).abs()
+    limit = BF16_ULP * ref.float().abs() + RTOL * ref.float().abs().max()
+    return bool((err <= limit).all()), err.max().item()
+
+
+@pytest.mark.parametrize("B,hw,cin,cout,k,s,p,relu,residual", CONV_SHAPES)
+def test_bf16_kernel_matches_plain(cuda, B, hw, cin, cout, k, s, p, relu,
+                                   residual):
+    x, w, scale, shift, res = _inputs(cuda, B, hw, cin, cout, k, s, p,
+                                      residual)
+    x, w, res = _bf16(x), _bf16(w), _bf16(res)
+    kw = dict(stride=s, padding=p, relu=relu, residual=res)
+    before = dict(fc.launches_by_route)
+    out = ops.fused_conv(x, w, scale, shift, **kw)
+    again = ops.fused_conv(x, w, scale, shift, **kw)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in fc.launches_by_route.items()} == \
+        {"f32": 0, "bf16": 2}
+    ref = fused_conv_ref(x, w, scale, shift, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    ok, err = _within_bf16(out, ref)
+    assert ok, err
+    assert torch.equal(out, again)
+
+
+def test_bf16_kernel_takes_an_unaligned_x(cuda):
+    """The bf16 route copies 16 bytes of a patch row at a time: an x whose
+    base is not 16-byte aligned (a contiguous view into a larger buffer)
+    goes in as an aligned copy, with the same result."""
+    x, w, scale, shift, _ = _inputs(cuda, 2, 14, 64, 64, 3, 1, 1, False)
+    x, w = x.bfloat16(), w.bfloat16()
+    buf = torch.empty(x.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    out = ops.fused_conv(shifted, w, scale, shift)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.fused_conv(x, w, scale, shift))
+
+
+@pytest.mark.parametrize("xd,wd,rd", [
+    (torch.bfloat16, torch.float32, None),
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16, torch.float16),
+])
+def test_mixed_dtypes_take_the_f32_route(cuda, xd, wd, rd):
+    """Any operand not bf16 sends the call to the f32 route, on f32 copies,
+    as the Pallas kernel reads every operand as f32; the output is
+    x.dtype, the f32 result rounded once."""
+    x, w, scale, shift, res = _inputs(cuda, 2, 14, 64, 64, 3, 1, 1, True)
+    x, w = x.to(xd), w.to(wd)
+    res = res.to(rd) if rd is not None else None
+    before = dict(fc.launches_by_route)
+    out = ops.fused_conv(x, w, scale.to(xd), shift.to(xd), residual=res)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in fc.launches_by_route.items()} == \
+        {"f32": 1, "bf16": 0}
+    ref = fused_conv_ref(x, w, scale.to(xd), shift.to(xd), residual=res)
+    assert out.dtype == xd == ref.dtype
+    ok, err = _within_bf16(out, ref)
+    assert ok, err
+
+
+def test_bf16_resnet18_runs_on_the_bf16_route(cuda):
+    """A bf16 ResNet18 (the config with both dtypes bf16, as in JAX) at
+    small size: 20 launches a forward, all on the bf16 route, bf16 logits
+    close to the same forward under ops.plain()."""
+    import dataclasses as dc
+    cfg = dc.replace(get_config("resnet18"), dtype="bfloat16",
+                     param_dtype="bfloat16")
+    model = build_model(cfg, device=cuda)
+    net = model.init(0)
+    x = torch.randn(2, 64, 64, 3, device=cuda).bfloat16()
+    before = dict(fc.launches_by_route)
+    out, _ = model.forward(net, {"images": x})
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in fc.launches_by_route.items()} == \
+        {"f32": 0, "bf16": 20}
+    with ops.plain():
+        ref, _ = model.forward(net, {"images": x})
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    rel = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert rel <= 0.02, rel.item()
+
+
+@pytest.mark.parametrize("op", ["mamba_scan", "mlstm_scan"])
+def test_scans_take_bf16_and_return_it(cuda, op):
+    """JAX's ops take bf16 and return the first operand's dtype, computed
+    in f32; so do the port's, through the f32 kernels, under autograd
+    too."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def randn(*size, scale=1.0, shift=0.0):
+        return torch.randn(size, generator=g, device=cuda) * scale + shift
+    if op == "mamba_scan":
+        args = [randn(2, 64, 4, 16, scale=0.3).bfloat16(),
+                -torch.nn.functional.softplus(randn(2, 64, 4)),
+                randn(2, 64, 8, scale=0.3).bfloat16(),
+                randn(2, 64, 8, scale=0.3).bfloat16()]
+        mod, plain = MS, mamba_scan_ref
+    else:
+        args = [*(randn(2, 64, 2, 32, scale=0.4).bfloat16()
+                  for _ in range(3)), randn(2, 64, 2), randn(2, 64, 2,
+                                                             shift=2.0)]
+        mod, plain = ML, mlstm_ref
+    before = mod.launches
+    out = getattr(ops, op)(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1 and out.dtype == torch.bfloat16
+    ref = plain(*(a.float() for a in args))
+    err = (out.float() - ref).abs()
+    assert (err <= BF16_ULP * ref.abs() + 1e-4).all(), err.max().item()
+    xs = [a.detach().requires_grad_(True) for a in args]
+    y = getattr(ops, op)(*xs)
+    assert y.dtype == torch.bfloat16
+    grads = torch.autograd.grad(y, xs, torch.ones_like(y))
+    assert all(gr.dtype == a.dtype for gr, a in zip(grads, xs))
+    assert all(torch.isfinite(gr.float()).all() for gr in grads)
+
+
 # --- flash attention -------------------------------------------------------------
 
 # Per element against the plain version in f32, as chip_smoke.py holds the
